@@ -1,0 +1,108 @@
+"""Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface under ``build/kernels/`` at the repository root,
+on first use, and loaded with ``ctypes``.  The library name carries a hash
+of the source and the flags, so an edited source is rebuilt.  Nothing here
+runs at import time: this module is imported on hosts without ``nvcc``.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C entry points of each source and their argument types
+SIGNATURES = {
+    "corr_lookup": {
+        "corr_lookup_f32": [_P] * 4 + [_I] * 9 + [_P, _P, _I, _I, _P],
+    },
+    "sep_gru": {
+        "sep_gru_gate_f32": [_P] * 6 + [_I] * 6 + [_P],
+        "sep_gru_q_f32": [_P] * 7 + [_I] * 6 + [_P],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    path = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if not path:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Compile every library of ``names`` that is not built yet, all
+    ``nvcc`` processes at once.  Returns {name: compiler output} for the
+    ones compiled; raises with the compiler output if one fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    nvcc = None
+    for name in names:
+        so = library_path(name)
+        if os.path.exists(so):
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    logs, failed = {}, []
+    for name, (proc, tmp, so) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, so)
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(library_path(name))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+

@@ -1,0 +1,103 @@
+"""TCB-PSP, eval path (JAX counterpart: models/clip_psp.py; reference
+models/clip_psp.py:63-217).
+
+Every clip frame goes through the shared encoder; each frame's C5 is
+adaptive-avg-pooled at scales (1, 2, 3, 6); the pooled pyramids are blended
+across frames (mean, or weighted by ``psp_weight``) and fused by a PPM conv
+over the target frame's C5.  ``encode_frame`` and ``fuse_target`` are the
+streaming building blocks (serving.py); ``forward`` is the window form.
+
+Reference quirk kept: with ``psp_weight`` the pooled features are ordered
+[target, others...] while the softmax weights stay in input order
+[others..., target], so the product pairs them off by one; the blend stays a
+mean after weighting.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.interpolate import resize_bilinear
+from ..ops.pooling import adaptive_avg_pool2d, global_avg_pool
+from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
+from .resnet import build_encoder
+
+
+class PPMConv(nn.Module):
+    """Per-scale 1x1 conv+BN+ReLU on the blended stats, then the fuse conv
+    over [target C5 | upsampled stats] (reference clip_psp.py:23-56)."""
+
+    def __init__(self, num_class: int, fc_dim: int, pool_scales):
+        super().__init__()
+        self.ppm = nn.ModuleList(
+            ConvBNReLU(fc_dim, 512, 1, padding=0) for _ in pool_scales)
+        self.conv_last_ = nn.Sequential(
+            Conv(fc_dim + len(pool_scales) * 512, 512, 3, padding=1,
+                 bias=False),
+            BatchNorm2d(512), nn.ReLU(inplace=True), Dropout2d(0.1),
+            Conv(512, num_class, 1))
+
+    def forward(self, target_c5, blended):
+        size = target_c5.shape[-2:]
+        out = [target_c5] + [resize_bilinear(m(f), size)
+                             for m, f in zip(self.ppm, blended)]
+        return self.conv_last_(torch.cat(out, 1))
+
+
+class ClipPSP(nn.Module):
+    def __init__(self, encoder: nn.Module, num_class: int, fc_dim: int = 2048,
+                 pool_scales=(1, 2, 3, 6), psp_weight: bool = False):
+        super().__init__()
+        self.encoder = encoder
+        self.pool_scales = tuple(pool_scales)
+        self.psp_weight = psp_weight
+        self.ppm_conv = PPMConv(num_class, fc_dim, self.pool_scales)
+        # deep supervision head over C4: trained, unused at eval; kept so
+        # the parameters match the reference checkpoint layout
+        self.deepsup = nn.Sequential(
+            Conv(fc_dim // 2, fc_dim // 4, 3, padding=1, bias=False),
+            BatchNorm2d(fc_dim // 4), nn.ReLU(inplace=True), Dropout2d(0.1),
+            Conv(fc_dim // 4, num_class, 1))
+        if psp_weight:
+            self.pspweight_conv = nn.Sequential(Conv(fc_dim, 1, 1,
+                                                     bias=False))
+
+    def fuse_target(self, target_c5, blended):
+        """target_c5 [B, C, h, w]; blended: per-scale [B, C, s, s] → logits
+        [B, K, h, w]."""
+        return self.ppm_conv(target_c5, blended)
+
+    def encode_frame(self, img):
+        """[B, 3, H, W] → (C5, per-scale pooled stats), plus the
+        ``psp_weight`` logit [B] when enabled: ``(c5, (pooled, wp))``."""
+        c5 = self.encoder(img)[-1]
+        pooled = [adaptive_avg_pool2d(c5, s) for s in self.pool_scales]
+        if self.psp_weight:
+            wp = global_avg_pool(self.pspweight_conv(c5)).reshape(-1)
+            return c5, (pooled, wp)
+        return c5, pooled
+
+    def forward(self, imgs):
+        """imgs [T+1, B, 3, H, W], target LAST → (main logits,)."""
+        t1, b = imgs.shape[:2]
+        c5 = self.encoder(imgs.flatten(0, 1))[-1]
+        c5_t = c5.unflatten(0, (t1, b))
+        psp_w = None
+        if self.psp_weight:
+            wp = global_avg_pool(self.pspweight_conv(c5))
+            # softmax across frames, kept in INPUT order (others..., target)
+            psp_w = torch.softmax(wp.reshape(t1, b, 1, 1, 1).float(), dim=0)
+        blended = []
+        for s in self.pool_scales:
+            p = adaptive_avg_pool2d(c5, s).unflatten(0, (t1, b))
+            p = torch.cat([p[-1:], p[:-1]], 0)  # target first, as reference
+            if psp_w is not None:
+                p = p * psp_w
+            blended.append(p.mean(0))
+        return (self.fuse_target(c5_t[-1], blended),)
+
+
+def build_clip_psp(cfg, num_class: int, psp_weight: bool = False) -> ClipPSP:
+    return ClipPSP(build_encoder(cfg.MODEL.arch_encoder), num_class,
+                   fc_dim=cfg.MODEL.fc_dim, psp_weight=psp_weight)

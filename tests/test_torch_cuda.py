@@ -1,0 +1,63 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs an NVIDIA GPU and imports no JAX, so it runs on the card's machine:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Without a card every test skips.  Tolerances: the corr lookup is the same
+f32 arithmetic (atol 1e-5); the GRU pass sums 1920-term products in another
+order than cuDNN (atol 1e-4).
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_port_util import (gru_inputs, port_gru_args, pyramid,  # noqa: E402
+                             query_coords)
+from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (  # noqa: E402
+    lookup_corr_pyramid, lookup_corr_pyramid_plain)
+from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (  # noqa: E402
+    sep_conv_gru_pass, sep_conv_gru_pass_plain)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_corr_lookup_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(2)
+    levels = [torch.from_numpy(l).to(cuda_device)
+              for l in pyramid(rng, 2, 15, 21)]
+    coords = torch.from_numpy(np.moveaxis(query_coords(rng, 2, 15, 21), -1, 1)
+                              .copy()).to(cuda_device)
+    before = lookup_corr_pyramid.launches
+    got = lookup_corr_pyramid(levels, coords)
+    torch.cuda.synchronize()
+    assert lookup_corr_pyramid.launches == before + 1
+    torch.testing.assert_close(got, lookup_corr_pyramid_plain(levels, coords),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_sep_gru_kernel_matches_plain(cuda_device, axis):
+    rng = np.random.default_rng(3 + axis)
+    args = [t.to(cuda_device)
+            for t in port_gru_args(*gru_inputs(rng, 2, 11, 70, 128, 256, axis))]
+    before = sep_conv_gru_pass.launches
+    got = sep_conv_gru_pass(*args, axis)
+    torch.cuda.synchronize()
+    assert sep_conv_gru_pass.launches == before + 1
+    torch.testing.assert_close(got, sep_conv_gru_pass_plain(*args, axis),
+                               rtol=0, atol=1e-4)

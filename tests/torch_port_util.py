@@ -1,0 +1,112 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Both sides get the same numpy inputs; JAX arrays are NHWC and port tensors
+NCHW.  Flax variables are given non-trivial BatchNorm statistics so the
+weight carry-over is exercised beyond the identity init.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the suite runs as several pytest workers sharing the host's cores; the
+# port's CPU tests keep torch from claiming all of them in each worker
+torch.set_num_threads(2)
+
+
+def to_nchw(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(np.asarray(a, np.float32), -1, -3)))
+
+
+def to_nhwc(t: torch.Tensor) -> np.ndarray:
+    return np.moveaxis(t.detach().cpu().numpy(), -3, -1)
+
+
+def numpy_tree(tree):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return np.array(tree, np.float32)
+
+
+def flatten(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def perturb_batchnorm(variables, seed: int):
+    """numpy copy of a Flax {"params", "batch_stats"} tree whose BN nodes
+    carry random scale, bias, mean and var."""
+    rng = np.random.default_rng(seed)
+    v = numpy_tree(variables)
+    params, stats = v["params"], v.get("batch_stats", {})
+    for path in sorted({k[:-1] for k in flatten(stats)}):
+        node_s = stats
+        node_p = params
+        for p in path:
+            node_s = node_s[p]
+            node_p = node_p[p]
+        n = node_s["mean"].shape[0]
+        node_s["mean"] = rng.normal(0, 0.1, n).astype(np.float32)
+        node_s["var"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        node_p["scale"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        node_p["bias"] = rng.normal(0, 0.1, n).astype(np.float32)
+    return v
+
+
+def assert_trees_equal(got, want):
+    fg, fw = flatten(got), flatten(want)
+    assert sorted(fg) == sorted(fw)
+    for k in fw:
+        np.testing.assert_array_equal(fg[k], fw[k], err_msg="/".join(k))
+
+
+def pyramid(rng, b, h, w):
+    """A 4-level pyramid as the port builds it (2x2 floor pooling)."""
+    corr = rng.normal(size=(b, h * w, h, w)).astype(np.float32)
+    levels = [corr]
+    for _ in range(3):
+        bb, p, hh, ww = levels[-1].shape
+        h2, w2 = hh // 2, ww // 2
+        levels.append(levels[-1][:, :, :h2 * 2, :w2 * 2]
+                      .reshape(bb, p, h2, 2, w2, 2).mean(axis=(3, 5)))
+    return levels
+
+
+def query_coords(rng, b, h, w):
+    """Non-integer coords reaching well outside the level-0 plane."""
+    x = rng.uniform(-6.0, w + 6.0, size=(b, h, w))
+    y = rng.uniform(-6.0, h + 6.0, size=(b, h, w))
+    c = np.stack([x, y], -1).astype(np.float32)          # [B, H, W, 2]
+    c[0, 0, 0] = (3.0, 2.0)                              # integer taps
+    return c
+
+
+def gru_inputs(rng, b, h, w, hd, cx, axis):
+    cin = hd + cx
+    kshape = (1, 5) if axis == 0 else (5, 1)
+    hh = np.tanh(rng.normal(size=(b, h, w, hd))).astype(np.float32)
+    x = rng.normal(size=(b, h, w, cx)).astype(np.float32)
+    kzr = (0.1 * rng.normal(size=kshape + (cin, 2 * hd))).astype(np.float32)
+    bzr = (0.1 * rng.normal(size=(2 * hd,))).astype(np.float32)
+    kq = (0.1 * rng.normal(size=kshape + (cin, hd))).astype(np.float32)
+    bq = (0.1 * rng.normal(size=(hd,))).astype(np.float32)
+    return hh, x, kzr, bzr, kq, bq
+
+
+def port_gru_args(hh, x, kzr, bzr, kq, bq):
+    """NHWC/HWIO numpy → the port's NCHW tensors and [5, cin, cout] taps."""
+    def nchw(a):
+        return torch.from_numpy(np.moveaxis(a, -1, 1).copy())
+
+    def taps(k):
+        return torch.from_numpy(k.reshape(5, *k.shape[2:]).copy())
+
+    return (nchw(hh), nchw(x), taps(kzr), torch.from_numpy(bzr), taps(kq),
+            torch.from_numpy(bq))
