@@ -4,17 +4,26 @@
 
 1. prints the card (name, and name and power limit from nvidia-smi);
 2. builds the CUDA kernels from ``kernels/csrc`` with nvcc (in parallel);
-3. holds each kernel against its plain PyTorch version at the main path's
-   shapes (TC at VSPW-480p: 60x107 RAFT features) with TF32 off, and times
-   kernel, plain version, bound and the PyTorch yardstick;
-4. drives the main path through the user entry points: TCB-PSP streaming
-   eval (``test_clip``, seeded random ResNet-101-dilated ClipPSP, fc_dim
-   2048, 124 classes) over a synthetic 10-frame 480x853 video with PNG
-   dumps, then the TC metric (``tc_cal``, seeded random RAFT, 20
-   refinements) over those PNGs; the kernel launch counts are zeroed just
-   before each path and read just after;
-5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC) and that
-   the card and the CPU agree on a small input;
+3. holds each kernel against its plain PyTorch version at the main paths'
+   shapes (corr lookup and GRU pass: TC at VSPW-480p, 60x107 RAFT features;
+   corr lookup, motion encoder and GRU + flow head: the 479 training crop,
+   batch 2, 60x60)
+   with TF32 off, and times kernel, plain version, bound and the PyTorch
+   yardstick;
+4. drives the main paths through the user entry points, the kernel launch
+   counts zeroed just before each path and read just after:
+   a. TCB-PSP streaming eval (``test_clip``, seeded random ResNet-101-dilated
+      ClipPSP, fc_dim 2048, 124 classes) over a synthetic 10-frame 480x853
+      video with PNG dumps;
+   b. the TC metric (``tc_cal``, seeded random RAFT, 20 refinements) over
+      those PNGs;
+   c. the clip trainer (``train_clip``) on synthetic 480x853 videos, the same
+      R101 preset, crop 479, batch 2: ``--method clip_psp`` (4 frames,
+      offsets 3,6,9), then ``--method ETC`` (2 frames, RAFT at 20
+      refinements), four steps each;
+5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC and
+   losses, moving head and encoder parameters, a frozen RAFT) and that the
+   card and the CPU agree on small inputs, a train step included;
 6. prints the kernels' JSON line and, last, the device JSON line.
 
 It exits non-zero without CUDA, on any failed phase, or when run outside
@@ -24,6 +33,7 @@ a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -93,26 +103,23 @@ def lookup_bytes(pyramid, coords, r=4):
     return 4 * (n + c.numel() + out)
 
 
-def check_kernels(torch):
-    """Kernel vs plain at the TC shape; returns the kernels' JSON rows
-    (launches filled in later)."""
+def check_corr_lookup(torch, g, b, h, w):
+    """The corr-lookup kernel vs plain on a [b, h, w] grid of queries with
+    rows of far-out-of-range taps (limit 1e-5); returns the error, the
+    times and the bound at that shape."""
     from cvpr2021_vspw_implement_tpu_torch.models.raft.corr import \
         build_corr_pyramid
     from cvpr2021_vspw_implement_tpu_torch.models.raft.raft import \
         coords_grid
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (
         lookup_corr_pyramid, lookup_corr_pyramid_plain)
-    from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (
-        sep_conv_gru_pass, sep_conv_gru_pass_plain)
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    h, w = 60, 107
-    p = h * w
-    f1 = torch.randn(1, 256, h, w, device="cuda", generator=g)
-    f2 = torch.randn(1, 256, h, w, device="cuda", generator=g)
+    shape = f"{b}x{h}x{w}"
+    f1 = torch.randn(b, 256, h, w, device="cuda", generator=g)
+    f2 = torch.randn(b, 256, h, w, device="cuda", generator=g)
     pyr = build_corr_pyramid(f1, f2)
-    coords = coords_grid(1, h, w, "cuda") + 8 * torch.randn(
-        1, 2, h, w, device="cuda", generator=g)
+    coords = coords_grid(b, h, w, "cuda") + 8 * torch.randn(
+        b, 2, h, w, device="cuda", generator=g)
     coords[:, 0, :3] = -20.0                   # rows of far-out-of-range taps
     coords[:, 1, -3:] = h + 15.5
     coords = coords.contiguous()
@@ -120,27 +127,47 @@ def check_kernels(torch):
     torch.cuda.synchronize()
     want = lookup_corr_pyramid_plain(pyr, coords)
     lib = grid_sample_lookup(pyr, coords)
-    err1 = (got - want).abs().max().item()
-    print(f"corr_lookup: max |kernel - plain| = {err1:.3e} (limit 1e-5); "
-          f"|grid_sample - plain| = {(lib - want).abs().max().item():.3e}")
-    if not err1 <= 1e-5:
-        raise SystemExit("corr_lookup kernel disagrees with its plain version")
-    ops1 = 11 * 4 * 81 * p                     # 4 taps: weights and blend
-    k1 = {
-        "name": "corr_lookup", "route": "cuda",
-        "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
-                  "corr_lookup.cu",
-        "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/corr.py:234",
-        "max_abs_err": err1,
+    err = (got - want).abs().max().item()
+    print(f"corr_lookup at {shape}: max |kernel - plain| = {err:.3e} (limit "
+          f"1e-5); |grid_sample - plain| = "
+          f"{(lib - want).abs().max().item():.3e}")
+    if not err <= 1e-5:
+        raise SystemExit(f"corr_lookup kernel disagrees with its plain "
+                         f"version at {shape}")
+    row = {
+        "shape": shape, "max_abs_err": err,
         "plain_ms": cuda_ms(lambda: lookup_corr_pyramid_plain(pyr, coords)),
         "ms": cuda_ms(lambda: lookup_corr_pyramid(pyr, coords)),
         "library_ms": cuda_ms(lambda: grid_sample_lookup(pyr, coords)),
     }
     t_bytes = lookup_bytes(pyr, coords) / HBM_BYTES_PER_S
-    t_ops = ops1 / F32_FLOP_PER_S
-    k1["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-    k1["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t_ops = 11 * 4 * 81 * b * h * w / F32_FLOP_PER_S   # 4 taps: weights, blend
+    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
 
+
+def check_kernels(torch):
+    """Each kernel vs plain at the shapes the paths give it; returns the
+    kernels' JSON rows (launches filled in later)."""
+    from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (
+        sep_conv_gru_pass, sep_conv_gru_pass_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # both shapes the paths give the lookup: TC at 480x853 (one pair) and
+    # the ETC train step (the 479 crop padded to 480, batch 2)
+    at_tc = check_corr_lookup(torch, g, 1, 60, 107)
+    at_train = check_corr_lookup(torch, g, 2, 60, 60)
+    k1 = {
+        "name": "corr_lookup", "route": "cuda",
+        "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
+                  "corr_lookup.cu",
+        "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/corr.py:234",
+        **at_tc, "also_at": [at_train],
+    }
+
+    h, w = 60, 107
+    p = h * w
     hd, cx = 128, 256
     hh = torch.tanh(torch.randn(1, hd, h, w, device="cuda", generator=g))
     x = torch.randn(1, cx, h, w, device="cuda", generator=g)
@@ -175,18 +202,101 @@ def check_kernels(torch):
         "name": "sep_gru", "route": "cuda",
         "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/sep_gru.cu",
         "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/gru.py:178",
-        "max_abs_err": err2,
+        "shape": f"1x{h}x{w}", "max_abs_err": err2,
         # per pass, the mean of the two axes
         "ms": times["ms"] / 2, "plain_ms": times["plain_ms"] / 2,
         "library_ms": times["library_ms"] / 2,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
-    for k in (k1, k2):
-        print(f"{k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f}"
-              f" ms, library {k['library_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
-    return [k1, k2]
+    rows = [k1, k2, *check_update_kernels(torch, g)]
+    for k in [*rows, {"name": "corr_lookup", **at_train}]:
+        print(f"{k['name']} at {k['shape']}: kernel {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    return rows
+
+
+def check_update_kernels(torch, g):
+    """The fused update-block kernels vs plain at the training shape (crop
+    479 pads to 480: 60x60 features, batch 2); returns their JSON rows."""
+    from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import (
+        gru_flowhead, gru_flowhead_plain)
+    from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import (
+        motion_encoder, motion_encoder_plain)
+
+    b, h, w, ck, hd, cx, cf = 2, 60, 60, 324, 128, 256, 256
+    p = h * w
+
+    def weights(shapes):
+        return {name: (0.03 * torch.randn(*s, device="cuda", generator=g),
+                       0.1 * torch.randn(s[2], device="cuda", generator=g))
+                for name, s in shapes.items()}
+
+    def timed(row, fn, plain, args):
+        row["plain_ms"] = cuda_ms(lambda: plain(*args))
+        row["ms"] = cuda_ms(lambda: fn(*args))
+        # the yardstick: the same F.conv2d composition with PyTorch's
+        # default cuDNN settings (TF32 allowed)
+        torch.backends.cudnn.allow_tf32 = True
+        row["library_ms"] = cuda_ms(lambda: plain(*args))
+        torch.backends.cudnn.allow_tf32 = False
+
+    def bound(row, flops, nbytes):
+        t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+
+    def n_weights(ws):
+        return sum(wt.numel() + bias.numel() for wt, bias in ws.values())
+
+    csrc = "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
+    pallas = "cvpr2021_vspw_implement_tpu/ops/pallas/raft_update.py"
+
+    corr = torch.randn(b, ck, h, w, device="cuda", generator=g)
+    flow = 2 * torch.randn(b, 2, h, w, device="cuda", generator=g)
+    mw = weights({"convc1": (1, ck, 256), "convc2": (9, 256, 192),
+                  "convf1": (49, 2, 128), "convf2": (9, 128, 64),
+                  "conv": (9, 256, 126)})
+    got = motion_encoder(corr, flow, mw)
+    torch.cuda.synchronize()
+    err = (got - motion_encoder_plain(corr, flow, mw)).abs().max().item()
+    print(f"motion_encoder: max |kernel - plain| = {err:.3e} at batch {b} "
+          "(limit 1e-4)")
+    if not err <= 1e-4:
+        raise SystemExit("motion_encoder kernel disagrees with its plain "
+                         "version")
+    k3 = {"name": "motion_encoder", "route": "cuda",
+          "source": csrc + "motion_encoder.cu", "replaces": pallas + ":375",
+          "shape": f"{b}x{h}x{w}", "max_abs_err": err}
+    timed(k3, motion_encoder, motion_encoder_plain, (corr, flow, mw))
+    bound(k3, 2 * b * p * (ck * 256 + 9 * 256 * 192 + 98 * 128 + 9 * 128 * 64
+                           + 9 * 256 * 126),
+          4 * (b * p * (ck + 2 + 128) + n_weights(mw)))
+
+    net = torch.tanh(torch.randn(b, hd, h, w, device="cuda", generator=g))
+    x = torch.randn(b, cx, h, w, device="cuda", generator=g)
+    cin = hd + cx
+    gw = weights({"zr1": (5, cin, 2 * hd), "q1": (5, cin, hd),
+                  "zr2": (5, cin, 2 * hd), "q2": (5, cin, hd),
+                  "fh_conv1": (9, hd, cf), "fh_conv2": (9, cf, 2)})
+    got_net, got_delta = gru_flowhead(net, x, gw)
+    torch.cuda.synchronize()
+    want_net, want_delta = gru_flowhead_plain(net, x, gw)
+    err = max((got_net - want_net).abs().max().item(),
+              (got_delta - want_delta).abs().max().item())
+    print(f"gru_flowhead: max |kernel - plain| = {err:.3e} over net and "
+          f"delta at batch {b} (limit 1e-4)")
+    if not err <= 1e-4:
+        raise SystemExit("gru_flowhead kernel disagrees with its plain "
+                         "version")
+    k4 = {"name": "gru_flowhead", "route": "cuda",
+          "source": csrc + "gru_flowhead.cu", "replaces": pallas + ":396",
+          "shape": f"{b}x{h}x{w}", "max_abs_err": err}
+    timed(k4, gru_flowhead, gru_flowhead_plain, (net, x, gw))
+    bound(k4, 2 * b * p * (2 * 5 * cin * 3 * hd + 9 * hd * cf + 9 * cf * 2),
+          4 * (b * p * (hd + cx + hd + 2) + n_weights(gw)))
+    return [k3, k4]
 
 
 def small_input_agreement(torch):
@@ -226,6 +336,97 @@ def small_input_agreement(torch):
         raise SystemExit("ClipPSP on the card disagrees with the CPU")
 
 
+def train_step_agreement(torch):
+    """One ETC train step (ResNet-18-dilated, RAFT with 2 refinements,
+    dropout off, batch 4) on the card, through the kernels, and on the CPU,
+    through their plain versions: the loss and the norm of the classifier's
+    gradient agree within 1e-3 relative."""
+    from cvpr2021_vspw_implement_tpu_torch.models import layers
+    from cvpr2021_vspw_implement_tpu_torch.models.etc import ETC, etc_loss
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    g = torch.Generator().manual_seed(4)
+    model = ETC(build_encoder("resnet18dilated"), 124, fc_dim=512,
+                raft_iters=2)
+    layers.init_weights(model, torch.Generator().manual_seed(5))
+    model.train()
+    batch = {"img": torch.randn(2, 4, 3, 71, 71, generator=g),
+             "labels": torch.randint(0, 124, (2, 4, 71, 71), generator=g)}
+    layers.set_dropout_override(0.0)
+    out = []
+    for dev in ("cpu", "cuda"):
+        model.to(dev).zero_grad()
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = etc_loss(model(on_dev["img"]), on_dev)
+        loss.backward()
+        out.append((loss.item(),
+                    model.conv_last_[4].weight.grad.norm().item()))
+    layers.set_dropout_override(None)
+    (l0, g0), (l1, g1) = out
+    print(f"ETC train step card vs CPU: loss {l1:.6f} vs {l0:.6f}, "
+          f"classifier gradient norm {g1:.6f} vs {g0:.6f} (limit 1e-3 "
+          "relative)")
+    if not (abs(l1 - l0) <= 1e-3 * abs(l0) and abs(g1 - g0) <= 1e-3 * g0):
+        raise SystemExit("the train step on the card disagrees with the CPU")
+
+
+def train_phase(torch, method, flags, root, work, preset, k, steps):
+    """``steps`` steps of ``train_clip.main`` at full width; prints step
+    times, losses and peak memory and returns the model.  Fails unless the
+    losses are finite, a head and an encoder parameter moved and RAFT did
+    not."""
+    from cvpr2021_vspw_implement_tpu_torch import train_clip
+
+    records, before = [], {}
+    step = train_clip.train_step
+
+    def watched(model):
+        named = dict(model.named_parameters())
+        names = [n for n in named if n.startswith("encoder.")][:1]
+        names += [n for n in named if n.endswith(".4.weight")][:1]
+        names += [n for n in named if n.startswith("raft.")][:1]
+        return {n: named[n] for n in names}
+
+    def timed_step(model, *args):
+        if not before:
+            before.update({n: p.detach().clone()
+                           for n, p in watched(model).items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(model, *args)
+        torch.cuda.synchronize()
+        records.append((time.perf_counter() - t0, float(metrics["loss"])))
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    train_clip.train_step = timed_step
+    try:
+        model = train_clip.main([
+            "--cfg", preset, "--dataroot", root, "--num_class", str(k),
+            "--method", method, *flags, "--batchsize", "2", "--cropsize",
+            "479", "--lr", "0.002", "--totalepoch", str(steps // 2),
+            "--saveroot", os.path.join(work, "ckpt_" + method), "--seed", "0",
+            "DIR", os.path.join(work, "cfg_" + method)])
+    finally:
+        train_clip.train_step = step
+    peak = torch.cuda.max_memory_allocated()
+    times = [t for t, _ in records]
+    losses = [loss for _, loss in records]
+    if len(records) != steps or not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"{method}: {len(records)} steps, losses {losses}")
+    for name, p in watched(model).items():
+        moved = not torch.equal(p.detach(), before[name])
+        if moved == name.startswith("raft."):
+            raise SystemExit(f"{method}: parameter {name} "
+                             f"{'moved' if moved else 'did not move'}")
+    print(f"train {method} (R101, crop 479, batch 2, f32): first step "
+          f"{1e3 * times[0]:.1f} ms, then "
+          f"{1e3 * sum(times[1:]) / (steps - 1):.1f} ms/step over "
+          f"{steps - 1} steps; losses {[round(v, 4) for v in losses]}; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB")
+    return model
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -238,11 +439,17 @@ def main() -> int:
     from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import \
         lookup_corr_pyramid
+    from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import \
+        gru_flowhead
+    from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import \
+        motion_encoder
     from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import \
         sep_conv_gru_pass
 
     wrappers = {"corr_lookup": lookup_corr_pyramid,
-                "sep_gru": sep_conv_gru_pass}
+                "sep_gru": sep_conv_gru_pass,
+                "motion_encoder": motion_encoder,
+                "gru_flowhead": gru_flowhead}
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -265,26 +472,31 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = check_kernels(torch)
     small_input_agreement(torch)
+    train_step_agreement(torch)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     root, preds = os.path.join(work, "vspw"), os.path.join(work, "preds")
     n_frames, hw, k = 10, (480, 853), 124
     make_synthetic_vspw(root, 1, n_frames, hw, k, seed=0)
+    preset = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
+                          "presets",
+                          "vsp-resnet101dilated-ppm_deepsup_clip.yaml")
 
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
 
+    def counts():
+        return {n: fn.launches for n, fn in wrappers.items()}
+
     reset()
     t0 = time.perf_counter()
     metrics, _ = test_clip.main([
-        "--cfg", os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch",
-                              "config", "presets",
-                              "vsp-resnet101dilated-ppm_deepsup_clip.yaml"),
-        "--dataroot", root, "--num_class", str(k), "--method", "clip_psp",
-        "--is_save", "--saveroot", preds, "--seed", "0"])
+        "--cfg", preset, "--dataroot", root, "--num_class", str(k),
+        "--method", "clip_psp", "--is_save", "--saveroot", preds, "--seed",
+        "0"])
     eval_s = time.perf_counter() - t0
-    eval_counts = {n: fn.launches for n, fn in wrappers.items()}
+    eval_counts = counts()
     print(f"TCB-PSP streaming eval (R101, 480x853, {n_frames} frames): "
           f"{1e3 * eval_s / n_frames:.1f} ms/frame including the first "
           f"frame; mIoU {metrics['mIoU']:.6f} VC {metrics['VC']:.6f}; "
@@ -296,10 +508,14 @@ def main() -> int:
         "--dataroot", root, "--predroot", preds, "--num_class", str(k),
         "--allow_random_raft", "--raft_iters", "20", "--seed", "0"])
     tc_s = time.perf_counter() - t0
-    tc_counts = {n: fn.launches for n, fn in wrappers.items()}
+    tc_counts = counts()
     print(f"TC (RAFT 20 iters, {n_frames - 1} pairs): "
           f"{1e3 * tc_s / (n_frames - 1):.1f} ms/pair; TC {tc:.6f}; "
           f"kernel launches {tc_counts}")
+    for name, per_pair in (("corr_lookup", 20), ("sep_gru", 40)):
+        if tc_counts[name] != per_pair * (n_frames - 1):
+            raise SystemExit(f"{name}: {tc_counts[name]} launches in the TC "
+                             f"phase, expected {per_pair * (n_frames - 1)}")
 
     names = sorted(os.listdir(os.path.join(preds, "video_000")))
     if len(names) != n_frames:
@@ -312,15 +528,60 @@ def main() -> int:
                              f"max {pred.max()}")
     if not all(np.isfinite(v) for v in (metrics["mIoU"], metrics["VC"], tc)):
         raise SystemExit("non-finite metric")
+
+    # the trainer: 4 videos of 12 frames (the 3,6,9 offsets need an anchor
+    # with 9 frames after it), batch 2: two steps an epoch
+    train_root, steps, iters = os.path.join(work, "vspw_train"), 4, 20
+    make_synthetic_vspw(train_root, 4, 12, hw, k, seed=1, splits=("train",))
+    reset()
+    train_phase(
+        torch, "clip_psp", ["--clip_num", "4", "--dilation2", "3,6,9"],
+        train_root, work, preset, k, steps)
+    psp_counts = counts()
+    print(f"kernel launches in the clip_psp train phase {psp_counts}")
+    reset()
+    etc = train_phase(
+        torch, "ETC", ["--clip_num", "2", "--dilation_num", "0",
+                       "--st_weight", "0.1"],
+        train_root, work, preset, k, steps)
+    etc_counts = counts()
+    print(f"kernel launches in the ETC train phase {etc_counts} "
+          f"({steps} steps, RAFT at {iters} refinements)")
+    for name in ("corr_lookup", "motion_encoder", "gru_flowhead"):
+        if etc_counts[name] != iters * steps:
+            raise SystemExit(f"{name}: {etc_counts[name]} launches in the "
+                             f"ETC phase, expected {iters * steps}")
+    # where an ETC step's time goes: its frozen RAFT alone, at the step's
+    # shape (the pair of 479 crops padded to 480, batch 2)
+    pair = 255 * torch.rand(2, 2, 3, 480, 480, device="cuda")
+    with torch.no_grad():
+        raft_ms = cuda_ms(lambda: etc.raft(pair[0], pair[1]), n=5, warm=1)
+    per_iter = rows[0]["also_at"][0]["ms"] + sum(
+        r["ms"] for r in rows if r["name"] in ("motion_encoder",
+                                               "gru_flowhead"))
+    print(f"RAFT forward inside an ETC step (batch 2, 480x480, {iters} "
+          f"refinements): {raft_ms:.1f} ms, of which the three kernels "
+          f"{iters} x {per_iter:.3f} = {iters * per_iter:.1f} ms (each timed "
+          "at 2x60x60)")
+
+    by_path = {"eval": eval_counts, "tc": tc_counts, "clip_psp": psp_counts,
+               "etc": etc_counts}
     for row in rows:
-        row["launches"] = eval_counts[row["name"]] + tc_counts[row["name"]]
+        row["launches_by_path"] = {path: c[row["name"]]
+                                   for path, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] <= 0:
             raise SystemExit(f"{row['name']} was not launched on the main "
                              "path")
+    # the lookup's two shapes: 1x60x107 on the TC path, 2x60x60 in ETC
+    rows[0]["also_at"][0]["launches"] = etc_counts["corr_lookup"]
 
+    # "shape" says where ms, bound and error were taken,
+    # "also_at" holds the same numbers at a path's other shape
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: r[key] for key in keys}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path", "also_at")
+    print(json.dumps({"kernels": [{key: r[key] for key in keys if key in r}
                                   for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,101 @@
+"""argparse surface of the clip trainer (a copy of the JAX package's
+config/args.py ``build_train_clip_parser`` and ``postprocess_args``;
+reference train_clip2.py:404-489), plus ``--device`` and ``--seed``.
+
+Flag names and defaults are the reference's, so its shell entry points
+translate 1:1.  Flags of methods that are not ported yet stay parsed and
+unused.
+"""
+
+import argparse
+
+TEMPORAL_METHODS = [
+    "netwarp", "ETC", "nonlocal3d", "tdnet", "our_warp", "propnet",
+    "our_warp_merge", "clip_psp", "clip_ocr", "netwarp_ocr", "etc_ocr",
+]
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--cfg", type=str, metavar="FILE", required=True,
+                        help="path to YAML config preset")
+    parser.add_argument("--gpus", default="0",
+                        help="kept for reference-CLI compatibility; unused")
+    parser.add_argument("--predir", default="")
+    parser.add_argument("--num_class", type=int, default=124)
+    parser.add_argument("--batchsize", type=int, default=16)
+    parser.add_argument("--workers", type=int, default=0)
+    parser.add_argument("--start_gpu", type=int, default=0)
+    parser.add_argument("--gpu_num", type=int, default=1)
+    parser.add_argument("--dataroot", type=str, default="")
+    parser.add_argument("--trainfps", type=int, default=1)
+    parser.add_argument("--lr", type=float, default=0.02)
+    parser.add_argument("--saveroot", type=str, default="")
+    parser.add_argument("--totalepoch", type=int, default=30)
+    parser.add_argument("--dataroot2", type=str, default="")
+    parser.add_argument("--usetwodata", type=str2bool, default=False)
+    parser.add_argument("--cropsize", type=int, default=531)
+    parser.add_argument("--validation", type=str2bool, default=True)
+    parser.add_argument("--lesslabel", type=str2bool, default=False)
+    parser.add_argument("--weight_decay", type=float, default=1e-4)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (raises without a card) or cpu")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="seed of the random init, the data order and "
+                             "the dropout masks (default: TRAIN.seed)")
+    parser.add_argument("opts", help="KEY VALUE config overrides",
+                        default=None, nargs=argparse.REMAINDER)
+
+
+def build_train_clip_parser() -> argparse.ArgumentParser:
+    """Temporal-method trainer flags (reference: train_clip2.py:404-489)."""
+    parser = argparse.ArgumentParser(
+        description="Video segmentation training (PyTorch port)")
+    add_common_args(parser)
+    parser.add_argument("--multi_scale", type=str2bool, default=False)
+    parser.add_argument("--clip_num", type=int, default=5)
+    parser.add_argument("--dilation_num", type=int, default=3)
+    parser.add_argument("--clip_up", type=str2bool, default=False)
+    parser.add_argument("--clip_middle", type=str2bool, default=False)
+    parser.add_argument("--fix", type=str2bool, default=False)
+    parser.add_argument("--othergt", type=str2bool, default=False)
+    parser.add_argument("--propclip2", type=str2bool, default=False)
+    parser.add_argument("--early_usecat", type=str2bool, default=False)
+    parser.add_argument("--earlyfuse", type=str2bool, default=False)
+    parser.add_argument("--allsup", type=str2bool, default=False)
+    parser.add_argument("--allsup_scale", type=float, default=0.3)
+    parser.add_argument("--deepsup_scale", type=float, default=0.4)
+    parser.add_argument("--linear_combine", type=str2bool, default=False)
+    parser.add_argument("--distsoftmax", type=str2bool, default=False)
+    parser.add_argument("--distnearest", type=str2bool, default=False)
+    parser.add_argument("--temp", type=float, default=3)
+    parser.add_argument("--max_distances", type=str, default="10")
+    parser.add_argument("--pre_enc", type=str, default="")
+    parser.add_argument("--pre_dec", type=str, default="")
+    parser.add_argument("--method", type=str, default="",
+                        choices=TEMPORAL_METHODS)
+    parser.add_argument("--dilation2", type=str, default="2,5,9")
+    parser.add_argument("--resume_epoch", type=int, default=0)
+    parser.add_argument("--clipocr_all", type=str2bool, default=False)
+    parser.add_argument("--use_memory", type=str2bool, default=False)
+    parser.add_argument("--memory_num", type=int, default=8)
+    parser.add_argument("--st_weight", type=float, default=0.1)
+    parser.add_argument("--psp_weight", type=str2bool, default=False)
+    return parser
+
+
+def postprocess_args(args) -> None:
+    """Normalise list-valued string flags (reference: train_clip2.py:494-496)."""
+    if hasattr(args, "max_distances") and isinstance(args.max_distances, str):
+        args.max_distances = [int(d) for d in args.max_distances.split(",")]
+    if hasattr(args, "dilation2") and isinstance(args.dilation2, str):
+        args.dilation2 = [int(d) for d in args.dilation2.split(",")]

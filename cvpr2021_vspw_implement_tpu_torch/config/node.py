@@ -4,8 +4,8 @@ The reference drives everything through a yacs ``CfgNode`` merged from a YAML
 preset plus trailing ``KEY VALUE`` CLI pairs (reference: config/defaults.py,
 train.py:401-402).  yacs is not a dependency, so this is a small
 dependency-free re-implementation of the subset the framework needs:
-attribute access, ``merge_from_file``, ``merge_from_list`` and
-``clone``.
+attribute access, ``merge_from_file``, ``merge_from_list``, ``clone`` and
+``dump``.
 """
 
 from __future__ import annotations
@@ -64,6 +64,13 @@ class CfgNode(dict):
     # -- utilities -----------------------------------------------------------
     def clone(self) -> "CfgNode":
         return copy.deepcopy(self)
+
+    def to_dict(self) -> dict:
+        return {k: (v.to_dict() if isinstance(v, CfgNode) else v)
+                for k, v in self.items()}
+
+    def dump(self) -> str:
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
 
     def __deepcopy__(self, memo):
         out = CfgNode()

@@ -1,8 +1,9 @@
 """Carry weights from the JAX package's variable trees into port modules.
 
 ``load_jax_variables(model, variables)`` takes a Flax ``{"params",
-"batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP`` or a
-``RAFT`` one) and fills the port module: conv kernels HWIO → OIHW, BN
+"batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP``, a
+``RAFT`` or an ``ETC`` one, training heads included) and fills the port
+module: conv kernels HWIO → OIHW, BN
 scale/bias/mean/var → weight/bias/running_mean/running_var.  It is the
 inverse of the JAX package's ``models/import_torch.py`` importers, which
 read a port ``state_dict()`` back, since the port keeps the reference's
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from .models.clip_psp import ClipPSP
+from .models.etc import ETC
 from .models.raft import RAFT
 
 # (port module name pattern, Flax path template) — BN paths name the node
@@ -56,6 +58,19 @@ _RAFT = [
     (r"update_block\.flow_head\.(\w+)", r"update_block/flow_head/\1/conv"),
     (r"update_block\.mask\.(\d)", r"update_block/mask_\1/conv"),
 ]
+_ETC = ([(r"raft\." + p, "raft/" + t) for p, t in _RAFT]
+        + [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
+    (r"decoder\.ppm\.(\d+)\.1", r"decoder/ppm/ppm_\1_conv/conv"),
+    (r"decoder\.ppm\.(\d+)\.2", r"decoder/ppm/ppm_\1_bn"),
+    (r"decoder\.conv_last_\.0", "decoder/conv_last_/0/conv"),
+    (r"decoder\.conv_last_\.1", "decoder/conv_last_/1"),
+    (r"decoder\.cbr_deepsup\.0", "decoder/cbr_deepsup/0/conv"),
+    (r"decoder\.cbr_deepsup\.1", "decoder/cbr_deepsup/1"),
+    (r"decoder\.conv_last_deepsup_", "decoder/conv_last_deepsup_/conv"),
+    (r"conv_last_\.0", "conv_last_0/conv"),
+    (r"conv_last_\.1", "conv_last_1"),
+    (r"conv_last_\.4", "conv_last_cls/conv"),
+])
 
 
 def _flax_path(name: str, rules) -> list[str]:
@@ -82,13 +97,10 @@ def _copy(dst: torch.Tensor, src) -> None:
 
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Fill ``model`` (ClipPSP or RAFT) from a Flax variable tree; returns
-    the model."""
-    if isinstance(model, ClipPSP):
-        rules = _CLIP_PSP
-    elif isinstance(model, RAFT):
-        rules = _RAFT
-    else:
+    """Fill ``model`` (ClipPSP, RAFT or ETC) from a Flax variable tree;
+    returns the model."""
+    rules = {ClipPSP: _CLIP_PSP, RAFT: _RAFT, ETC: _ETC}.get(type(model))
+    if rules is None:
         raise TypeError(f"no JAX layout known for {type(model).__name__}")
     params = variables["params"]
     stats = variables.get("batch_stats", {})

@@ -1,15 +1,26 @@
-"""VSPW-480p eval data: layout, normalization, label remap (copies of the
-JAX package's data/datasets.py primitives and ``TestFrameDataset``).
+"""VSPW-480p data: layout, normalization, label remap, clip sampling and
+augmentation (copies of the JAX package's data/datasets.py primitives,
+``ClipDataset``, ``LongClipDataset`` and ``TestFrameDataset``).
 
 Layout ``<root>/data/<video>/{origin,mask}/*`` with ``<root>/<split>.txt``
 video lists; ImageNet mean/std normalization; label remap 0→255 (ignore),
-v→v-1, 254→255 (reference dataset2.py:531-533, 602-609).  Outputs are HWC
-numpy: images float32 normalized, labels int32.
+v→v-1, 254→255 (reference dataset2.py:531-533, 602-609).  Train
+augmentation: one flip, one multiscale {0.8, 1, 1.5, 2} PIL resize (bilinear
+image, nearest mask), one pad-to-cropsize (image 0, label 255) and one
+random crop shared by the clip (dataset2.py:806-845).  Clip sampling: a
+contiguous run from a random dilated sublist (dataset2.py:780-849), or an
+anchor plus offsets with p=0.5 temporal reversal (dataset2.py:984-1048).
+Frames decode with PIL.  The draws come from ``random.Random(seed)`` and
+``np.random.default_rng(seed)`` in the JAX package's order, so one seed gives
+both packages the same batches.  Outputs are HWC numpy: images float32
+normalized, labels int32.
 """
 
 from __future__ import annotations
 
 import os
+import random
+from typing import Sequence
 
 import numpy as np
 from PIL import Image
@@ -56,6 +67,143 @@ def list_videos(dataroot: str, split: str) -> list[str]:
 
 def list_frames(dataroot: str, video: str) -> list[str]:
     return sorted(os.listdir(os.path.join(dataroot, "data", video, "origin")))
+
+
+def dilation_lists(frames: Sequence[str], num: int) -> list[list[str]]:
+    """Split frames into num+1 stride-(num+1) sublists (dataset2.py:143-151)."""
+    return [[f for k, f in enumerate(frames) if k % (num + 1) == a]
+            for a in range(num + 1)]
+
+
+SCALES = (0.8, 1.0, 1.5, 2.0)
+
+
+def _rng_handles(seed):
+    """Per-dataset generators (python-random-like, numpy-random-like)."""
+    return random.Random(seed), np.random.default_rng(seed)
+
+
+def _augment_frame(img: Image.Image, mask: Image.Image, flip: bool,
+                   scale: float):
+    if flip:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        mask = mask.transpose(Image.FLIP_LEFT_RIGHT)
+    if scale != 1.0:
+        w, h = img.size
+        img = img.resize((int(w * scale), int(h * scale)), Image.BILINEAR)
+        mask = mask.resize((int(w * scale), int(h * scale)), Image.NEAREST)
+    return img, mask
+
+
+def _pad_crop_clip(imgs: list[np.ndarray], labels: list[np.ndarray],
+                   cropsize: tuple[int, int], rng: random.Random):
+    """Shared pad + random crop across a clip (dataset2.py:806-845).
+
+    Pads symmetrically by the deficit (the reference pads (pad, pad) on both
+    sides) with 0 for images / 255 for labels, then one crop offset for all.
+    """
+    ch, cw = cropsize
+    h, w = imgs[0].shape[:2]
+    padh = ch - h if h < ch else 0
+    padw = cw - w if w < cw else 0
+    ph, pw = h + 2 * padh, w + 2 * padw
+    x = rng.randint(0, pw - cw)
+    y = rng.randint(0, ph - ch)
+    out_i, out_l = [], []
+    for img, lab in zip(imgs, labels):
+        if padh or padw:
+            img = np.pad(img, ((padh, padh), (padw, padw), (0, 0)), "constant")
+            lab = np.pad(lab, ((padh, padh), (padw, padw)), "constant",
+                         constant_values=255)
+        out_i.append(img[y:y + ch, x:x + cw])
+        out_l.append(lab[y:y + ch, x:x + cw])
+    return out_i, out_l
+
+
+class ClipDataset:
+    """Contiguous-clip train dataset (BaseDataset_clip, dataset2.py:657-849).
+
+    Samples ``clip_num`` consecutive frames from a random temporally-dilated
+    sublist of one video, with one shared flip/scale/crop for the clip.
+    """
+
+    def __init__(self, args, split: str = "train", seed: int | None = None):
+        self.args = args
+        self.split = split
+        self.dataroot = args.dataroot
+        self.cropsize = (args.cropsize, args.cropsize)
+        self.clip_num = args.clip_num
+        self.dilation = args.dilation_num
+        self.rng, self.nprng = _rng_handles(seed)
+        self.videolists = list_videos(self.dataroot, split)
+        self.imgdic = {v: list_frames(self.dataroot, v) for v in self.videolists}
+
+    def __len__(self):
+        return len(self.videolists)
+
+    def __getitem__(self, idx):
+        video = self.videolists[idx]
+        frames = list(self.imgdic[video])
+        sublists = dilation_lists(frames, self.dilation)
+        sub = sublists[0]
+        for _ in range(10):
+            sub = sublists[int(self.nprng.choice(len(sublists)))]
+            if len(sub) > self.clip_num:
+                break
+        sub = list(sub)
+        while len(sub) <= self.clip_num:
+            sub.append(sub[-1])
+        start = int(self.nprng.choice(len(sub) - self.clip_num))
+        names = sub[start:start + self.clip_num]
+        return self._load_clip(video, names)
+
+    def _load_clip(self, video, names):
+        flip = bool(self.nprng.choice([0, 1]))
+        # the reference draws the scale unconditionally and only APPLIES it
+        # under multi_scale (dataset2.py:807-825, 990-1010)
+        scale = float(self.nprng.choice(SCALES))
+        if not getattr(self.args, "multi_scale", False):
+            scale = 1.0
+        lesslabel = getattr(self.args, "lesslabel", False)
+        imgs, labs = [], []
+        for name in names:
+            img, mask = load_frame(self.dataroot, video, name, lesslabel)
+            if self.split == "train":
+                img, mask = _augment_frame(img, mask, flip, scale)
+            imgs.append(np.asarray(img))  # uint8 until after the crop
+            labs.append(remap_label(np.asarray(mask)))
+        if self.split == "train":
+            imgs, labs = _pad_crop_clip(imgs, labs, self.cropsize, self.rng)
+        return ([normalize_image(i) for i in imgs], labs)
+
+
+class LongClipDataset(ClipDataset):
+    """Anchor+offsets train dataset (BaseDataset_longclip, dataset2.py:852-1048).
+
+    Frame order is [anchor, anchor+d1, ..., anchor+dk]; the whole video is
+    temporally reversed with p=0.5 before sampling the anchor.
+    """
+
+    def __init__(self, args, split: str = "train", seed: int | None = None):
+        super().__init__(args, split, seed)
+        dil = args.dilation2
+        self.dilation2 = [int(d) for d in dil.split(",")] \
+            if isinstance(dil, str) else list(dil)
+        if len(self.dilation2) + 1 != self.clip_num:
+            raise ValueError("dilation2 must hold clip_num - 1 offsets")
+
+    def __getitem__(self, idx):
+        video = self.videolists[idx]
+        frames = list(self.imgdic[video])
+        if self.nprng.random() < 0.5:
+            frames = frames[::-1]
+        usable = frames[:-self.dilation2[-1]]
+        while len(usable) < 1:
+            frames.append(frames[-1])
+            usable = frames[:-self.dilation2[-1]]
+        anchor = int(self.nprng.choice(len(usable)))
+        names = [frames[anchor]] + [frames[anchor + d] for d in self.dilation2]
+        return self._load_clip(video, names)
 
 
 class TestFrameDataset:

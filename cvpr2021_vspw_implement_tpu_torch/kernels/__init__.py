@@ -3,7 +3,8 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at the repository root,
 on first use, and loaded with ``ctypes``.  The library name carries a hash
-of the source and the flags, so an edited source is rebuilt.  Nothing here
+of the source, of every header under ``csrc/`` (sources share device code
+through them) and of the flags, so an edited file is rebuilt.  Nothing here
 runs at import time: this module is imported on hosts without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -13,11 +14,14 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -33,8 +37,13 @@ SIGNATURES = {
         "corr_lookup_f32": [_P] * 4 + [_I] * 9 + [_P, _P, _I, _I, _P],
     },
     "sep_gru": {
-        "sep_gru_gate_f32": [_P] * 6 + [_I] * 6 + [_P],
-        "sep_gru_q_f32": [_P] * 7 + [_I] * 6 + [_P],
+        "sep_gru_pass_f32": [_P] * 9 + [_I] * 6 + [_P],
+    },
+    "motion_encoder": {
+        "motion_encoder_f32": [_P] * 14 + [_I] * 4 + [_P],
+    },
+    "gru_flowhead": {
+        "gru_flowhead_f32": [_P] * 17 + [_I] * 6 + [_P],
     },
 }
 
@@ -53,8 +62,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -100,6 +112,17 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def check_inputs(what: str, tensors) -> None:
+    """Raise unless every tensor is contiguous float32 on the first one's
+    device: the kernels take raw pointers."""
+    dev = tensors[0].device
+    for t in tensors:
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"{what}: inputs must be contiguous float32 on "
+                             f"{dev}")
 
 
 def check(rc: int, what: str) -> None:

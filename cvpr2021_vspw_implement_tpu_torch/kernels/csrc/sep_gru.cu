@@ -18,166 +18,29 @@
 // version; tensor cores are for a later version).
 //
 // Design: q needs r*h at the 5 neighbours of each position, so the pass is
-// two launches of one tiled kernel.  The gate launch writes z and r*h to
-// scratch that the caller allocates; the q launch reads r*h in place of h
-// and fuses tanh and the blend into its epilogue.  A block computes a tile
-// of 64 consecutive positions of one row (fixed b, y) by 64 output
-// channels as a small matrix product over K = 5 taps x CIN channels.  Each
-// step stages 16 input channels of the 64 shifted positions of one tap and
-// the matching 16x64 weight block in shared memory; every thread then
-// accumulates a 4x4 register tile.  Both axes read rows of x-consecutive
-// positions (the 5x1 pass shifts the row, the 1x5 pass the column), so
-// loads and stores are coalesced and neither pass needs a transpose.
+// two launches of the tiled tap-convolution of tap_conv.cuh.  The gate launch
+// writes z and r*h to scratch that the caller allocates; the blend launch
+// reads r*h in place of h and fuses tanh and the blend into its epilogue.
+// Both axes read rows of x-consecutive positions (the 5x1 pass shifts the
+// row, the 1x5 pass the column), so neither pass needs a transpose.
 
-#include <cuda_runtime.h>
+#include "tap_conv.cuh"
 
-#include <cstdint>
-
-namespace {
-
-constexpr int kTM = 64;   // positions per tile (along x)
-constexpr int kTN = 64;   // output channels per tile
-constexpr int kTK = 16;   // input channels per step
-constexpr int kTaps = 5;
-constexpr int kThreads = 256;
-
-template <bool kGate>
-__global__ void __launch_bounds__(kThreads)
-sep_gru_kernel(const float* __restrict__ hpart,  // h (gate) or r*h (q)
-               const float* __restrict__ x, const float* __restrict__ wgt,
-               const float* __restrict__ bias,
-               const float* __restrict__ h,  // q launch: the old hidden state
-               float* __restrict__ z,        // gate: written; q: read
-               float* __restrict__ out,      // gate: r*h; q: the new h
-               int H, int W, int HD, int CX, int axis) {
-  __shared__ float As[kTK][kTM];
-  __shared__ float Bs[kTK][kTN];
-
-  const int cin = HD + CX;
-  const int cout = kGate ? 2 * HD : HD;
-  const int n_tiles = cout / kTN;
-  const int x0 = blockIdx.x * kTM;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z / n_tiles;
-  const int n0 = (blockIdx.z % n_tiles) * kTN;
-  const int tid = threadIdx.x;
-  const int tm = tid % 16;  // positions tm + 16*i
-  const int tn = tid / 16;  // channels n0 + 4*tn + j
-  const int64_t plane = (int64_t)H * W;
-  const float* hb = hpart + (int64_t)b * HD * plane;
-  const float* xb = x + (int64_t)b * CX * plane;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k = 0; k < kTaps; ++k) {
-    const int dy = axis == 1 ? k - 2 : 0;
-    const int dx = axis == 0 ? k - 2 : 0;
-    const int yy = y + dy;
-    const bool row_ok = yy >= 0 && yy < H;
-    for (int c0 = 0; c0 < cin; c0 += kTK) {
-#pragma unroll
-      for (int e = tid; e < kTK * kTM; e += kThreads) {
-        const int c = c0 + e / kTM;
-        const int xx = x0 + e % kTM + dx;
-        float v = 0.0f;
-        if (row_ok && xx >= 0 && xx < W) {
-          const int64_t off = (int64_t)yy * W + xx;
-          v = c < HD ? hb[(int64_t)c * plane + off]
-                     : xb[(int64_t)(c - HD) * plane + off];
-        }
-        As[e / kTM][e % kTM] = v;
-      }
-#pragma unroll
-      for (int e = tid; e < kTK * kTN; e += kThreads) {
-        const int c = c0 + e / kTN;
-        Bs[e / kTN][e % kTN] =
-            wgt[((int64_t)k * cin + c) * cout + n0 + e % kTN];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kTK; ++c) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[c][tm + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = Bs[c][4 * tn + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + 4 * tn + j;
-    const float bn = bias[n];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int xx = x0 + tm + 16 * i;
-      if (xx >= W) continue;
-      const float v = acc[i][j] + bn;
-      const int64_t pos = (int64_t)y * W + xx;
-      if (kGate) {
-        const float s = 1.0f / (1.0f + expf(-v));
-        if (n < HD) {
-          z[((int64_t)b * HD + n) * plane + pos] = s;
-        } else {
-          const int64_t idx = ((int64_t)b * HD + (n - HD)) * plane + pos;
-          out[idx] = s * h[idx];
-        }
-      } else {
-        const int64_t idx = ((int64_t)b * HD + n) * plane + pos;
-        const float zz = z[idx];
-        out[idx] = (1.0f - zz) * h[idx] + zz * tanhf(v);
-      }
-    }
-  }
-}
-
-bool shapes_ok(int HD, int CX) {
-  return HD > 0 && HD % kTN == 0 && (HD + CX) % kTK == 0 && CX >= 0;
-}
-
-}  // namespace
-
-// Gate launch: z = sigmoid(conv_z), rh = sigmoid(conv_r) * h.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int sep_gru_gate_f32(const void* h, const void* x, const void* wzr,
-                                const void* bzr, void* z, void* rh, int B,
-                                int H, int W, int HD, int CX, int axis,
+// z, rh: scratch [B, HD, H, W]; out: the new hidden state.  Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int sep_gru_pass_f32(const void* h, const void* x, const void* wzr,
+                                const void* bzr, const void* wq,
+                                const void* bq, void* z, void* rh, void* out,
+                                int B, int H, int W, int HD, int CX, int axis,
                                 void* stream) {
-  if (!shapes_ok(HD, CX) || (axis != 0 && axis != 1))
+  if (HD <= 0 || CX < 0 || (axis != 0 && axis != 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + kTM - 1) / kTM, H, B * (2 * HD / kTN));
-  sep_gru_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<const float*>(x),
-      static_cast<const float*>(wzr), static_cast<const float*>(bzr),
-      static_cast<const float*>(h), static_cast<float*>(z),
-      static_cast<float*>(rh), H, W, HD, CX, axis);
-  return (int)cudaGetLastError();
-}
-
-// q launch: out = (1 - z) * h + z * tanh(conv_q([rh | x])).
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int sep_gru_q_f32(const void* rh, const void* x, const void* wq,
-                             const void* bq, const void* h, const void* z,
-                             void* out, int B, int H, int W, int HD, int CX,
-                             int axis, void* stream) {
-  if (!shapes_ok(HD, CX) || (axis != 0 && axis != 1))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + kTM - 1) / kTM, H, B * (HD / kTN));
-  sep_gru_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rh), static_cast<const float*>(x),
-      static_cast<const float*>(wq), static_cast<const float*>(bq),
-      static_cast<const float*>(h),
-      const_cast<float*>(static_cast<const float*>(z)),
-      static_cast<float*>(out), H, W, HD, CX, axis);
-  return (int)cudaGetLastError();
+  const auto pass = axis == 0 ? tapconv::gru_pass<1, 5> : tapconv::gru_pass<5, 1>;
+  return (int)pass(static_cast<const float*>(h), static_cast<const float*>(x),
+                   static_cast<const float*>(wzr),
+                   static_cast<const float*>(bzr),
+                   static_cast<const float*>(wq), static_cast<const float*>(bq),
+                   static_cast<float*>(z), static_cast<float*>(rh),
+                   static_cast<float*>(out), B, H, W, HD, CX,
+                   static_cast<cudaStream_t>(stream));
 }

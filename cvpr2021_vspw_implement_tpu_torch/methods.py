@@ -1,0 +1,55 @@
+"""Temporal-method registry: model factory, loss and batch collation per
+``--method`` (JAX counterpart: methods.py; reference dispatch
+train_clip2.py:264-321).
+
+Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
+-> outputs`` convention and a loss ``(outputs, batch) -> (loss, acc)``.
+Ported so far: ``clip_psp`` and ``ETC``.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+from .config.args import TEMPORAL_METHODS
+from .data.loader import make_collate_target_last
+
+LONGCLIP_METHODS = ("clip_psp", "clip_ocr")
+
+
+def _build_clip_psp(cfg, args):
+    from .models.clip_psp import build_clip_psp, clip_psp_loss
+    model = build_clip_psp(cfg, args.num_class,
+                           psp_weight=getattr(args, "psp_weight", False))
+    return model, partial(clip_psp_loss, deep_sup_scale=args.deepsup_scale)
+
+
+def _build_etc(cfg, args):
+    from .models.etc import build_etc, etc_loss
+    if args.clip_num != 2 or args.dilation_num != 0:
+        raise ValueError("ETC needs clip_num=2, dilation_num=0 (ETC.py:70)")
+    model = build_etc(cfg, args.num_class, raft_iters=cfg.TPU.raft_iters)
+    return model, partial(etc_loss, deep_sup_scale=args.deepsup_scale,
+                          st_weight=args.st_weight)
+
+
+METHODS = {"clip_psp": _build_clip_psp, "ETC": _build_etc}
+
+
+def get_collate(method: str, clip_num: int):
+    """Batch collation per method (reference: train_clip2.py:50-82): long
+    clips (clip_psp) put the anchor, sample frame 0, last; contiguous clips
+    (ETC) the middle frame, for even ``clip_num`` the later middle."""
+    if method in LONGCLIP_METHODS:
+        return make_collate_target_last(0)
+    mid = clip_num // 2 if clip_num % 2 == 0 else (clip_num - 1) // 2
+    return make_collate_target_last(mid)
+
+
+def build_method(method: str, cfg, args):
+    """→ (model, loss_fn) with a fresh, unseeded init."""
+    if method in METHODS:
+        return METHODS[method](cfg, args)
+    if method in TEMPORAL_METHODS:
+        raise NotImplementedError(f"method {method!r} is not ported yet")
+    raise ValueError(f"unknown method {method!r}")

@@ -1,11 +1,13 @@
-"""TCB-PSP, eval path (JAX counterpart: models/clip_psp.py; reference
+"""TCB-PSP (JAX counterpart: models/clip_psp.py; reference
 models/clip_psp.py:63-217).
 
 Every clip frame goes through the shared encoder; each frame's C5 is
 adaptive-avg-pooled at scales (1, 2, 3, 6); the pooled pyramids are blended
 across frames (mean, or weighted by ``psp_weight``) and fused by a PPM conv
 over the target frame's C5.  ``encode_frame`` and ``fuse_target`` are the
-streaming building blocks (serving.py); ``forward`` is the window form.
+streaming building blocks (serving.py); ``forward`` is the window form, and
+in training mode it also returns the deep-supervision logits over every
+frame's C4 for ``clip_psp_loss``.
 
 Reference quirk kept: with ``psp_weight`` the pooled features are ordered
 [target, others...] while the softmax weights stay in input order
@@ -20,8 +22,10 @@ from torch import nn
 
 from ..ops.interpolate import resize_bilinear
 from ..ops.pooling import adaptive_avg_pool2d, global_avg_pool
+from ..utils.metrics import pixel_acc
 from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
 from .resnet import build_encoder
+from .segmentation import upsampled_logprob_loss_projected
 
 
 class PPMConv(nn.Module):
@@ -53,8 +57,7 @@ class ClipPSP(nn.Module):
         self.pool_scales = tuple(pool_scales)
         self.psp_weight = psp_weight
         self.ppm_conv = PPMConv(num_class, fc_dim, self.pool_scales)
-        # deep supervision head over C4: trained, unused at eval; kept so
-        # the parameters match the reference checkpoint layout
+        # deep supervision head over C4 (training only)
         self.deepsup = nn.Sequential(
             Conv(fc_dim // 2, fc_dim // 4, 3, padding=1, bias=False),
             BatchNorm2d(fc_dim // 4), nn.ReLU(inplace=True), Dropout2d(0.1),
@@ -79,9 +82,12 @@ class ClipPSP(nn.Module):
         return c5, pooled
 
     def forward(self, imgs):
-        """imgs [T+1, B, 3, H, W], target LAST → (main logits,)."""
+        """imgs [T+1, B, 3, H, W], target LAST → (main logits [B, K, h, w],)
+        and, in training mode, the deep-supervision logits
+        [(T+1)*B, K, h, w] over all frames (reference clip_psp.py:205-215)."""
         t1, b = imgs.shape[:2]
-        c5 = self.encoder(imgs.flatten(0, 1))[-1]
+        conv_out = self.encoder(imgs.flatten(0, 1))
+        c5 = conv_out[-1]
         c5_t = c5.unflatten(0, (t1, b))
         psp_w = None
         if self.psp_weight:
@@ -95,7 +101,28 @@ class ClipPSP(nn.Module):
             if psp_w is not None:
                 p = p * psp_w
             blended.append(p.mean(0))
-        return (self.fuse_target(c5_t[-1], blended),)
+        main = self.fuse_target(c5_t[-1], blended)
+        if not self.training:
+            return (main,)
+        return main, self.deepsup(conv_out[-2])
+
+
+def clip_psp_loss(outs, batch, deep_sup_scale: float | None = 0.4):
+    """Training loss of ClipPSP → (loss, acc) (reference clip_psp.py:
+    196-217).  ``batch["labels"]``: [T+1, B, H, W], target last, 255 =
+    ignore.  The loss is the reference order (log_softmax at feature
+    resolution, bilinear upsample, NLL) in its projected form; the accuracy
+    argmaxes the upsampled raw logits, which is the same argmax."""
+    main, deepsup = outs
+    labels = batch["labels"]
+    label = labels[-1]
+    loss = upsampled_logprob_loss_projected(main, label)
+    if deep_sup_scale is not None:
+        loss = loss + deep_sup_scale * upsampled_logprob_loss_projected(
+            deepsup, labels.flatten(0, 1))
+    up = resize_bilinear(main.detach().float(), label.shape[1:3])
+    acc = pixel_acc(up, torch.where(label == 255, -1, label))
+    return loss, acc
 
 
 def build_clip_psp(cfg, num_class: int, psp_weight: bool = False) -> ClipPSP:

@@ -1,0 +1,71 @@
+"""PPM decoder pieces of the temporal heads (JAX counterpart:
+models/decoders.py ``PPMPyramid``, ``PPMLastConv``, ``PPMDeepsupClip``;
+reference models/models.py:889-1044).
+
+Decoders return raw logits; log_softmax and NLL are in the loss
+(segmentation.py).  Module names are the reference's (``ppm.{i}.1/2``,
+``conv_last_.0/1/4``, ``cbr_deepsup.0/1``, ``conv_last_deepsup_``), so a
+``state_dict()`` reads back through the JAX package's
+``import_ppm_decoder_state_dict``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.interpolate import resize_bilinear
+from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
+
+
+class PPMPyramid(nn.ModuleList):
+    """Pooling pyramid: cat([conv5, branches...]) along channels, each branch
+    adaptive-avg-pool at its scale, 1x1 conv + BN + ReLU, bilinear back."""
+
+    def __init__(self, fc_dim: int, pool_scales=(1, 2, 3, 6)):
+        super().__init__(
+            nn.Sequential(nn.AdaptiveAvgPool2d(scale),
+                          Conv(fc_dim, 512, 1, bias=False),
+                          BatchNorm2d(512), nn.ReLU(inplace=True))
+            for scale in pool_scales)
+
+    def forward(self, conv5):
+        size = conv5.shape[-2:]
+        return torch.cat([conv5] + [resize_bilinear(branch(conv5), size)
+                                    for branch in self], 1)
+
+
+class PPMLastConv(nn.Sequential):
+    """conv3x3 + BN + ReLU (+ dropout + classifier) tail of the PPM heads;
+    ``num_class=None`` stops at the 512-d embedding."""
+
+    def __init__(self, num_class: int | None, in_dim: int):
+        layers = [Conv(in_dim, 512, 3, padding=1, bias=False),
+                  BatchNorm2d(512), nn.ReLU(inplace=True)]
+        if num_class is not None:
+            layers += [Dropout2d(0.1), Conv(512, num_class, 1)]
+        super().__init__(*layers)
+
+
+class PPMDeepsupClip(nn.Module):
+    """PPM head returning (deepsup logits, 512-d embedding, ppm concat) for
+    the temporal fusion modules (reference models/models.py:997-1044).  The
+    deep-supervision branch over C4 only feeds training losses: it is None
+    in eval mode."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6)):
+        super().__init__()
+        self.ppm = PPMPyramid(fc_dim, pool_scales)
+        self.conv_last_ = PPMLastConv(None, fc_dim + len(pool_scales) * 512)
+        self.cbr_deepsup = ConvBNReLU(fc_dim // 2, fc_dim // 4)
+        self.dropout_deepsup = Dropout2d(0.1)
+        self.conv_last_deepsup_ = Conv(fc_dim // 4, num_class, 1)
+
+    def forward(self, conv_out):
+        ppm_out = self.ppm(conv_out[-1])
+        emb = self.conv_last_(ppm_out)
+        if not self.training:
+            return None, emb, ppm_out
+        d = self.dropout_deepsup(self.cbr_deepsup(conv_out[-2]))
+        return self.conv_last_deepsup_(d), emb, ppm_out

@@ -1,13 +1,17 @@
 """Core layers (JAX counterpart: models/layers.py), NCHW.
 
-``BatchNorm2d`` here is eval-only: running statistics, eps 1e-5 (training
-waits for a later slice).  Parameter names are the reference torch ones, so
+``BatchNorm2d`` is ``nn.BatchNorm2d``: eps 1e-5; in training it normalises
+with the biased batch variance and updates the running statistics with the
+unbiased one at momentum 0.1, which is the JAX layer's contract (the JAX
+layer takes the variance in one pass, clamped at 0, torch in two: they
+differ by f32 rounding).  Parameter names are the reference torch ones, so
 a port ``state_dict()`` reads back through the JAX package's importers.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -29,7 +33,46 @@ def ConvBNReLU(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                          BatchNorm2d(cout), nn.ReLU(inplace=True))
 
 
-Dropout2d = nn.Dropout2d
+#: test/debug hook: overrides every Dropout2d rate (0.0 for deterministic
+#: training-curve comparisons against the JAX package, whose dropout draws
+#: cannot be matched).  Read at every forward.
+_DROPOUT_OVERRIDE: float | None = None
+
+
+def set_dropout_override(rate: float | None) -> None:
+    global _DROPOUT_OVERRIDE
+    _DROPOUT_OVERRIDE = rate
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout over NCHW (``nn.Dropout2d``) with the rate override;
+    the masks come from ``generator`` (on the input's device) when one is
+    set, else from the global RNG."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        rate = self.rate if _DROPOUT_OVERRIDE is None else _DROPOUT_OVERRIDE
+        if not self.training or rate == 0.0:
+            return x
+        keep = torch.rand(x.shape[:2] + (1, 1), device=x.device,
+                          generator=self.generator) >= rate
+        return x * (keep / (1.0 - rate))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: torch.Generator | None) -> None:
+    """Give every ``Dropout2d`` of ``model`` the generator of its masks."""
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.generator = generator
+
+
+def log_softmax(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    return F.log_softmax(x.float(), dim=dim)
 
 
 @torch.no_grad()

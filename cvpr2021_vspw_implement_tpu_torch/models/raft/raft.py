@@ -67,10 +67,12 @@ class RAFT(nn.Module):
         b, _, h8, w8 = fmap1.shape
         coords0 = coords_grid(b, h8, w8, image1.device)
         coords1 = coords0
+        taps = self.update_block.taps()
         for _ in range(self.iters):
             corr = lookup_corr_pyramid(pyramid, coords1.contiguous(),
                                        self.corr_radius)
-            net, delta = self.update_block(net, inp, corr, coords1 - coords0)
+            net, delta = self.update_block(net, inp, corr, coords1 - coords0,
+                                           taps)
             coords1 = coords1 + delta
         flow_low = coords1 - coords0
         flow_up = upsample_flow_convex(flow_low,

@@ -2,11 +2,11 @@
 heads (JAX counterpart: models/raft/update.py; reference
 RAFT_core/update.py).
 
-The GRU's two passes go through the hand-written kernel of
-``ops/sep_gru.py`` (the TPU kernel's counterpart); the motion encoder and
-the heads stay ``F.conv2d``, as the JAX package runs them above 4096
-positions.  The mask head is a separate method so the driver computes it
-once after the loop.
+Up to ``FUSED_MAX_POSITIONS`` feature positions an iteration is two
+hand-written kernels: ``ops/motion_encoder.py`` and ``ops/gru_flowhead.py``.
+Above it the GRU's two passes go through the kernel of ``ops/sep_gru.py``
+and the motion encoder and the flow head stay ``F.conv2d``.  The mask head
+is a separate method so RAFT computes it once after the loop.
 """
 
 from __future__ import annotations
@@ -14,7 +14,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...ops.gru_flowhead import gru_flowhead
+from ...ops.motion_encoder import conv_taps, motion_encoder
 from ...ops.sep_gru import sep_conv_gru_pass
+
+#: the largest H*W (feature positions) that takes the fused kernels.  Mirrors
+#: the JAX dispatch (models/raft/update.py:185-189), which keeps RAFT at the
+#: 479 training crop (60x60) on the fused pair and the TC metric's 480x853
+#: frames (60x107) on the row-tiled GRU pass.
+FUSED_MAX_POSITIONS = 4096
 
 
 class FlowHead(nn.Module):
@@ -26,14 +34,6 @@ class FlowHead(nn.Module):
 
     def forward(self, x):
         return self.conv2(self.relu(self.conv1(x)))
-
-
-def _taps(convs):
-    """Conv2d weights [cout, cin, 1, 5] or [cout, cin, 5, 1] of several
-    convs → one [5, cin, sum(cout)] kernel and its bias."""
-    w = torch.cat([c.weight for c in convs], 0)
-    w = w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0).contiguous()
-    return w, torch.cat([c.bias for c in convs], 0)
 
 
 class SepConvGRU(nn.Module):
@@ -48,12 +48,19 @@ class SepConvGRU(nn.Module):
                 self.add_module(f"conv{g}{i}",
                                 nn.Conv2d(cin, hidden_dim, k, padding=pad))
 
-    def forward(self, h, x):
+    def taps(self):
+        """{"zr1", "q1", "zr2", "q2"}: each pass's fused z|r kernel and its
+        q kernel as ([5, cin, cout], bias)."""
+        out = {}
+        for i in (1, 2):
+            out[f"zr{i}"] = conv_taps([getattr(self, f"convz{i}"),
+                                       getattr(self, f"convr{i}")])
+            out[f"q{i}"] = conv_taps([getattr(self, f"convq{i}")])
+        return out
+
+    def forward(self, h, x, taps):
         for axis, i in ((0, 1), (1, 2)):
-            wzr, bzr = _taps([getattr(self, f"convz{i}"),
-                              getattr(self, f"convr{i}")])
-            wq, bq = _taps([getattr(self, f"convq{i}")])
-            h = sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis)
+            h = sep_conv_gru_pass(h, x, *taps[f"zr{i}"], *taps[f"q{i}"], axis)
         return h
 
 
@@ -91,7 +98,24 @@ class BasicUpdateBlock(nn.Module):
         """Convex-upsampling mask (scaled by 0.25 as the reference)."""
         return 0.25 * self.mask(net)
 
-    def forward(self, net, inp, corr, flow):
+    def taps(self):
+        """Every conv of an iteration in the kernels' [taps, cin, cout]
+        layout: ``{"encoder": ..., "gru": ...}`` as ``ops/motion_encoder.py``
+        and ``ops/gru_flowhead.py`` take them.  The weights are the same for
+        all refinements, so RAFT packs them once per forward."""
+        enc = {name: conv_taps([getattr(self.encoder, name)])
+               for name in ("convc1", "convc2", "convf1", "convf2", "conv")}
+        gru = self.gru.taps()
+        gru["fh_conv1"] = conv_taps([self.flow_head.conv1])
+        gru["fh_conv2"] = conv_taps([self.flow_head.conv2])
+        return {"encoder": enc, "gru": gru}
+
+    def forward(self, net, inp, corr, flow, taps):
+        """One refinement → (net', delta_flow); ``taps`` from
+        :meth:`taps`."""
+        if net.shape[2] * net.shape[3] <= FUSED_MAX_POSITIONS:
+            motion = motion_encoder(corr, flow.contiguous(), taps["encoder"])
+            return gru_flowhead(net, torch.cat([inp, motion], 1), taps["gru"])
         motion = self.encoder(flow, corr)
-        net = self.gru(net, torch.cat([inp, motion], 1))
+        net = self.gru(net, torch.cat([inp, motion], 1), taps["gru"])
         return net, self.flow_head(net)

@@ -1,0 +1,91 @@
+"""RAFT's motion encoder as one call: the CUDA kernel and its plain version
+(JAX counterparts: ops/pallas/raft_update.py::motion_encoder_fused and
+motion_encoder_xla).
+
+    cor = relu(convc2(relu(convc1(corr))))          1x1 then 3x3
+    flo = relu(convf2(relu(convf1(flow))))          7x7 then 3x3
+    out = cat(relu(conv(cat(cor, flo))), flow)      3x3, 126 + 2 channels
+
+Tensors are NCHW.  ``weights`` maps each conv's name (``convc1``, ``convc2``,
+``convf1``, ``convf2``, ``conv``) to ``(w, bias)`` with w [taps, cin, cout]
+(tap row-major, input channel, output channel).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+CONVS = ("convc1", "convc2", "convf1", "convf2", "conv")
+# (taps, cin, cout) of each conv for ck correlation channels
+_CHANNELS = {"convc1": (1, None, 256), "convc2": (9, 256, 192),
+             "convf1": (49, 2, 128), "convf2": (9, 128, 64),
+             "conv": (9, 256, 126)}
+
+
+def conv_taps(convs):
+    """``nn.Conv2d`` weights [cout, cin, kh, kw] of several convs over one
+    input → one [kh*kw, cin, sum(cout)] kernel and its bias."""
+    w = torch.cat([c.weight for c in convs], 0)
+    w = w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0).contiguous()
+    return w, torch.cat([c.bias for c in convs], 0)
+
+
+def tap_conv_plain(x, w, bias):
+    """``F.conv2d`` with a square [k*k, cin, cout] kernel, zero padded to
+    the input's size."""
+    taps, cin, cout = w.shape
+    k = math.isqrt(taps)
+    return F.conv2d(x, w.permute(2, 1, 0).reshape(cout, cin, k, k), bias,
+                    padding=k // 2)
+
+
+def motion_encoder_plain(corr, flow, weights):
+    """``F.conv2d`` formulation; corr [B, ck, H, W], flow [B, 2, H, W] →
+    [B, 128, H, W]."""
+    def c(x, name):
+        return torch.relu(tap_conv_plain(x, *weights[name]))
+
+    cor = c(c(corr, "convc1"), "convc2")
+    flo = c(c(flow, "convf1"), "convf2")
+    return torch.cat([c(torch.cat([cor, flo], 1), "conv"), flow], 1)
+
+
+def motion_encoder(corr, flow, weights):
+    """The layout of :func:`motion_encoder_plain`.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``kernels/csrc/motion_encoder.cu``
+    (five launches behind one C entry point)."""
+    if corr.device.type == "cpu":
+        return motion_encoder_plain(corr, flow, weights)
+    if corr.device.type != "cuda":
+        raise RuntimeError(f"no motion encoder for device {corr.device}")
+    b, ck, hh, ww = corr.shape
+    if flow.shape != (b, 2, hh, ww):
+        raise ValueError("the motion-encoder kernel takes corr [B, ck, H, W] "
+                         "and flow [B, 2, H, W]")
+    flat = []
+    for name in CONVS:
+        taps, cin, cout = _CHANNELS[name]
+        w, bias = weights[name]
+        if w.shape != (taps, cin or ck, cout) or bias.shape != (cout,):
+            raise ValueError(f"{name}: weights must be [{taps}, {cin or ck}, "
+                             f"{cout}] with a [{cout}] bias")
+        flat += [w, bias]
+    kernels.check_inputs("motion_encoder", (corr, flow, *flat))
+    scratch = torch.empty(b * 640 * hh * ww, device=corr.device)
+    out = torch.empty(b, 128, hh, ww, device=corr.device)
+    lib = kernels.load("motion_encoder")
+    kernels.check(lib.motion_encoder_f32(
+        corr.data_ptr(), flow.data_ptr(), *[t.data_ptr() for t in flat],
+        scratch.data_ptr(), out.data_ptr(), b, hh, ww, ck,
+        torch.cuda.current_stream(corr.device).cuda_stream),
+        "motion_encoder_f32")
+    motion_encoder.launches += 1
+    return out
+
+
+motion_encoder.launches = 0

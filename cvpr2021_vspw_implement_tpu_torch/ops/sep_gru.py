@@ -37,8 +37,8 @@ def sep_conv_gru_pass_plain(h, x, wzr, bzr, wq, bq, axis: int):
 
 def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
     """One pass, the layout of :func:`sep_conv_gru_pass_plain`.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the two kernels
-    of ``kernels/csrc/sep_gru.cu`` (gate, then q and blend)."""
+    tensor takes the plain version; a CUDA tensor launches
+    ``kernels/csrc/sep_gru.cu`` (gate, then q and blend)."""
     if h.device.type == "cpu":
         return sep_conv_gru_pass_plain(h, x, wzr, bzr, wq, bq, axis)
     if h.device.type != "cuda":
@@ -48,29 +48,21 @@ def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
     cin = hd + cx
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
-    if (hd % 64 or cin % 16 or x.shape != (b, cx, hh, ww)
+    if (x.shape != (b, cx, hh, ww)
             or wzr.shape != (5, cin, 2 * hd) or wq.shape != (5, cin, hd)
             or bzr.shape != (2 * hd,) or bq.shape != (hd,)):
-        raise ValueError("the GRU kernel takes hd % 64 == 0, (hd+cx) % 16 "
-                         "== 0 and 5-tap weights [5, hd+cx, cout]")
-    ts = (h, x, wzr, bzr, wq, bq)
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           or t.device != h.device for t in ts):
-        raise ValueError("GRU kernel inputs must be contiguous float32 on "
-                         f"{h.device}")
+        raise ValueError("the GRU kernel takes h [B, hd, H, W], x [B, cx, H, "
+                         "W] and 5-tap weights [5, hd+cx, cout]")
+    kernels.check_inputs("sep_conv_gru_pass", (h, x, wzr, bzr, wq, bq))
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
     out = torch.empty_like(h)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
     lib = kernels.load("sep_gru")
-    kernels.check(lib.sep_gru_gate_f32(
+    kernels.check(lib.sep_gru_pass_f32(
         h.data_ptr(), x.data_ptr(), wzr.data_ptr(), bzr.data_ptr(),
-        z.data_ptr(), rh.data_ptr(), b, hh, ww, hd, cx, axis, stream),
-        "sep_gru_gate_f32")
-    kernels.check(lib.sep_gru_q_f32(
-        rh.data_ptr(), x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-        h.data_ptr(), z.data_ptr(), out.data_ptr(), b, hh, ww, hd, cx, axis,
-        stream), "sep_gru_q_f32")
+        wq.data_ptr(), bq.data_ptr(), z.data_ptr(), rh.data_ptr(),
+        out.data_ptr(), b, hh, ww, hd, cx, axis,
+        torch.cuda.current_stream(h.device).cuda_stream), "sep_gru_pass_f32")
     sep_conv_gru_pass.launches += 1
     return out
 

@@ -5,7 +5,8 @@ Per video: every frame is encoded once and each window fused as its
 context arrives (serving.py); global and per-video mIoU, VC, and optional
 palette PNG dumps (``--is_save``).  Exact shapes only.  Flags keep the JAX
 driver's names.  ``--load`` takes a port checkpoint (``torch.save`` of the
-model's ``state_dict``); without it the weights are a seeded random init.
+model's ``state_dict``, or the trainer's ``model_epoch_N.pth``); without it
+the weights are a seeded random init.
 
     python -m cvpr2021_vspw_implement_tpu_torch.test_clip \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup_clip.yaml \\
@@ -45,7 +46,8 @@ def build_eval_clip_parser():
     p.add_argument("--method", type=str, default="clip_psp",
                    choices=("clip_psp",))
     p.add_argument("--load", type=str, default="",
-                   help="port checkpoint: torch.save of the state_dict")
+                   help="port checkpoint: torch.save of the state_dict, or "
+                        "a checkpoint of train_clip")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init when --load is not given")
     p.add_argument("--saveroot", type=str, default="")
@@ -65,7 +67,8 @@ def build_model(cfg, args, device) -> torch.nn.Module:
     model = build_clip_psp(cfg, args.num_class,
                            psp_weight=args.psp_weight)
     if args.load:
-        model.load_state_dict(torch.load(args.load, map_location="cpu"))
+        state = torch.load(args.load, map_location="cpu")
+        model.load_state_dict(state.get("model", state))
     else:
         init_weights(model, torch.Generator().manual_seed(args.seed))
     return model.to(device).eval()

@@ -1,5 +1,5 @@
-from .metrics import Evaluator, get_common
-from .misc import resolve_device, setup_logger, vspw_palette
+from .metrics import Evaluator, get_common, pixel_acc
+from .misc import AverageMeter, resolve_device, setup_logger, vspw_palette
 
-__all__ = ["Evaluator", "get_common", "resolve_device", "setup_logger",
-           "vspw_palette"]
+__all__ = ["AverageMeter", "Evaluator", "get_common", "pixel_acc",
+           "resolve_device", "setup_logger", "vspw_palette"]

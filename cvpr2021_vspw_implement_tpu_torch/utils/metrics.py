@@ -1,6 +1,6 @@
-"""Segmentation and video-consistency metrics, numpy (copies of the JAX
-package's utils/metrics.py ``Evaluator`` and ``get_common``; reference
-utils.py:37-107).
+"""Segmentation and video-consistency metrics (copies of the JAX package's
+utils/metrics.py: ``Evaluator`` and ``get_common`` in numpy, reference
+utils.py:37-107; ``pixel_acc`` on tensors).
 
 Labels >= num_class (255 after remap) are ignored; mIoU averages over the
 classes present in the ground truth; VC over a window of ``clip_num`` frames
@@ -11,6 +11,7 @@ whose ground truth does.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def confusion_matrix_np(gt, pred, num_class: int) -> np.ndarray:
@@ -78,3 +79,13 @@ def get_common(gt_list, pred_list, clip_num: int, h: int, w: int):
         denom = gt_common.sum()
         accs.append(agree.sum() / denom if denom else np.nan)
     return accs
+
+
+def pixel_acc(pred_logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Training pixel accuracy (reference: models/models.py:65-71):
+    pred_logits [N, C, H, W] (any monotone score), label [N, H, W] with
+    negative = ignore."""
+    preds = torch.argmax(pred_logits, dim=1)
+    valid = label >= 0
+    acc_sum = (valid & (preds == label)).sum()
+    return acc_sum.float() / (valid.sum().float() + 1e-10)

@@ -1,5 +1,5 @@
-"""Host helpers: device choice, logging, the PNG palette (the last two are
-copies of the JAX package's utils/misc.py)."""
+"""Host helpers: device choice, and copies of the JAX package's
+utils/misc.py running average, logger and PNG palette."""
 
 from __future__ import annotations
 
@@ -17,6 +17,26 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass --device cpu "
                            "(device='cpu') to run on the CPU")
     return dev
+
+
+class AverageMeter:
+    """Running average (reference: utils.py:135-167)."""
+
+    def __init__(self):
+        self.val = None
+        self.sum = 0.0
+        self.count = 0.0
+
+    def update(self, val, weight: float = 1.0):
+        self.val = val
+        self.sum += val * weight
+        self.count += weight
+
+    def value(self):
+        return self.val
+
+    def average(self):
+        return self.sum / self.count if self.count else None
 
 
 def setup_logger(distributed_rank: int = 0, filename: str = "log.txt"):

@@ -5,8 +5,9 @@ Needs an NVIDIA GPU and imports no JAX, so it runs on the card's machine:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Without a card every test skips.  Tolerances: the corr lookup is the same
-f32 arithmetic (atol 1e-5); the GRU pass sums 1920-term products in another
-order than cuDNN (atol 1e-4).
+f32 arithmetic (atol 1e-5); the GRU pass, the motion encoder and the GRU +
+flow head sum products of up to 2304 terms in another order than cuDNN, the
+last two through chains of five and six convolutions (atol 1e-4).
 """
 
 import os
@@ -17,10 +18,16 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_port_util import (gru_inputs, port_gru_args, pyramid,  # noqa: E402
-                             query_coords)
+from torch_port_util import (gru_flowhead_inputs, gru_inputs,  # noqa: E402
+                             motion_inputs, port_gru_args,
+                             port_gru_flowhead_weights, port_motion_weights,
+                             pyramid, query_coords, to_nchw, weights_to)
 from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (  # noqa: E402
     lookup_corr_pyramid, lookup_corr_pyramid_plain)
+from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import (  # noqa: E402
+    gru_flowhead, gru_flowhead_plain)
+from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import (  # noqa: E402
+    motion_encoder, motion_encoder_plain)
 from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (  # noqa: E402
     sep_conv_gru_pass, sep_conv_gru_pass_plain)
 
@@ -61,3 +68,35 @@ def test_sep_gru_kernel_matches_plain(cuda_device, axis):
     assert sep_conv_gru_pass.launches == before + 1
     torch.testing.assert_close(got, sep_conv_gru_pass_plain(*args, axis),
                                rtol=0, atol=1e-4)
+
+
+SHAPES = [(1, 37, 53), (2, 37, 53), (1, 60, 60), (2, 60, 60)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", SHAPES)
+def test_motion_encoder_kernel_matches_plain(cuda_device, b, h, w):
+    corr, flow, p = motion_inputs(np.random.default_rng(5), b, h, w)
+    corr, flow = to_nchw(corr).to(cuda_device), to_nchw(flow).to(cuda_device)
+    weights = weights_to(port_motion_weights(p), cuda_device)
+    before = motion_encoder.launches
+    got = motion_encoder(corr, flow, weights)
+    torch.cuda.synchronize()
+    assert motion_encoder.launches == before + 1
+    torch.testing.assert_close(got, motion_encoder_plain(corr, flow, weights),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", SHAPES)
+def test_gru_flowhead_kernel_matches_plain(cuda_device, b, h, w):
+    net, x, p = gru_flowhead_inputs(np.random.default_rng(6), b, h, w)
+    net, x = to_nchw(net).to(cuda_device), to_nchw(x).to(cuda_device)
+    weights = weights_to(port_gru_flowhead_weights(p), cuda_device)
+    before = gru_flowhead.launches
+    got_net, got_delta = gru_flowhead(net, x, weights)
+    torch.cuda.synchronize()
+    assert gru_flowhead.launches == before + 1
+    want_net, want_delta = gru_flowhead_plain(net, x, weights)
+    torch.testing.assert_close(got_net, want_net, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_delta, want_delta, rtol=0, atol=1e-4)

@@ -110,3 +110,61 @@ def port_gru_args(hh, x, kzr, bzr, kq, bq):
 
     return (nchw(hh), nchw(x), taps(kzr), torch.from_numpy(bzr), taps(kq),
             torch.from_numpy(bq))
+
+
+_MOTION_KERNELS = {"convc1": (1, 1, 324, 256), "convc2": (3, 3, 256, 192),
+                   "convf1": (7, 7, 2, 128), "convf2": (3, 3, 128, 64),
+                   "conv": (3, 3, 256, 126)}
+
+
+def _conv_params(rng, shapes, scale):
+    return {name: {"kernel": (scale * rng.normal(size=s)).astype(np.float32),
+                   "bias": (0.1 * rng.normal(size=s[-1:])).astype(np.float32)}
+            for name, s in shapes.items()}
+
+
+def motion_inputs(rng, b, h, w, scale=0.05):
+    """NHWC corr and flow and the HWIO parameter dict of the JAX motion
+    encoder (``motion_encoder_xla`` / ``motion_encoder_fused``)."""
+    corr = rng.normal(size=(b, h, w, 324)).astype(np.float32)
+    flow = rng.normal(0, 2, size=(b, h, w, 2)).astype(np.float32)
+    return corr, flow, _conv_params(rng, _MOTION_KERNELS, scale)
+
+
+def gru_flowhead_inputs(rng, b, h, w, hd=128, cx=256, scale=0.05):
+    """NHWC net and x and the HWIO parameter dict of the JAX GRU + flow head
+    (``gru_flowhead_xla`` / ``gru_flowhead_fused``)."""
+    cin = hd + cx
+    shapes = {}
+    for i, k in ((1, (1, 5)), (2, (5, 1))):
+        for g in "zrq":
+            shapes[f"conv{g}{i}"] = k + (cin, hd)
+    shapes["fh_conv1"] = (3, 3, hd, 256)
+    shapes["fh_conv2"] = (3, 3, 256, 2)
+    net = np.tanh(rng.normal(size=(b, h, w, hd))).astype(np.float32)
+    x = rng.normal(size=(b, h, w, cx)).astype(np.float32)
+    return net, x, _conv_params(rng, shapes, scale)
+
+
+def _port_taps(p, names):
+    """HWIO kernels of several convs over one input → the port's
+    ([taps, cin, sum(cout)], bias) pair."""
+    k = np.concatenate([p[n]["kernel"] for n in names], -1)
+    return (torch.from_numpy(k.reshape(-1, *k.shape[2:]).copy()),
+            torch.from_numpy(np.concatenate([p[n]["bias"] for n in names])))
+
+
+def port_motion_weights(p):
+    return {name: _port_taps(p, [name]) for name in _MOTION_KERNELS}
+
+
+def port_gru_flowhead_weights(p):
+    out = {name: _port_taps(p, [name]) for name in ("fh_conv1", "fh_conv2")}
+    for i in (1, 2):
+        out[f"zr{i}"] = _port_taps(p, [f"convz{i}", f"convr{i}"])
+        out[f"q{i}"] = _port_taps(p, [f"convq{i}"])
+    return out
+
+
+def weights_to(weights, device):
+    return {k: (w.to(device), b.to(device)) for k, (w, b) in weights.items()}
