@@ -7,7 +7,8 @@
 3. holds each kernel against its plain PyTorch version at the main paths'
    shapes (corr lookup and GRU pass: TC at VSPW-480p, 60x107 RAFT features;
    corr lookup, motion encoder and GRU + flow head: the 479 training crop,
-   batch 2, 60x60)
+   batch 2, 60x60; the three local aggregations of our_warp: 1x60x107,
+   128-d distances, 256-d values, r = 10)
    with TF32 off, and times kernel, plain version, bound and the PyTorch
    yardstick;
 4. drives the main paths through the user entry points, the kernel launch
@@ -21,9 +22,15 @@
       R101 preset, crop 479, batch 2: ``--method clip_psp`` (4 frames,
       offsets 3,6,9), then ``--method ETC`` (2 frames, RAFT at 20
       refinements), four steps each;
+   d. our_warp window eval (``test_clip --method our_warp``, seeded random
+      R101 ClipWarpNet, clip_num 4, max_distances 10) in each mode: sigmoid
+      over the 10-frame video, ``--distsoftmax`` and ``--distnearest`` over
+      a 5-frame one, each launching its kernel exactly 3 times a frame;
+   e. ETC window eval (``test_clip --method ETC``) over the 5-frame video;
 5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC and
    losses, moving head and encoder parameters, a frozen RAFT) and that the
-   card and the CPU agree on small inputs, a train step included;
+   card and the CPU agree on small inputs, a train step and ClipWarpNet in
+   its three modes included;
 6. prints the kernels' JSON line and, last, the device JSON line.
 
 It exits non-zero without CUDA, on any failed phase, or when run outside
@@ -103,10 +110,11 @@ def lookup_bytes(pyramid, coords, r=4):
     return 4 * (n + c.numel() + out)
 
 
-def check_corr_lookup(torch, g, b, h, w):
+def check_corr_lookup(torch, g, b, h, w, levels=4):
     """The corr-lookup kernel vs plain on a [b, h, w] grid of queries with
-    rows of far-out-of-range taps (limit 1e-5); returns the error, the
-    times and the bound at that shape."""
+    rows of far-out-of-range taps (limit 1e-5), over the first ``levels``
+    levels of the pyramid; returns the error, the times and the bound at
+    that shape."""
     from cvpr2021_vspw_implement_tpu_torch.models.raft.corr import \
         build_corr_pyramid
     from cvpr2021_vspw_implement_tpu_torch.models.raft.raft import \
@@ -114,10 +122,10 @@ def check_corr_lookup(torch, g, b, h, w):
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (
         lookup_corr_pyramid, lookup_corr_pyramid_plain)
 
-    shape = f"{b}x{h}x{w}"
+    shape = f"{b}x{h}x{w}" + ("" if levels == 4 else f", {levels} level")
     f1 = torch.randn(b, 256, h, w, device="cuda", generator=g)
     f2 = torch.randn(b, 256, h, w, device="cuda", generator=g)
-    pyr = build_corr_pyramid(f1, f2)
+    pyr = build_corr_pyramid(f1, f2)[:levels]
     coords = coords_grid(b, h, w, "cuda") + 8 * torch.randn(
         b, 2, h, w, device="cuda", generator=g)
     coords[:, 0, :3] = -20.0                   # rows of far-out-of-range taps
@@ -141,7 +149,8 @@ def check_corr_lookup(torch, g, b, h, w):
         "library_ms": cuda_ms(lambda: grid_sample_lookup(pyr, coords)),
     }
     t_bytes = lookup_bytes(pyr, coords) / HBM_BYTES_PER_S
-    t_ops = 11 * 4 * 81 * b * h * w / F32_FLOP_PER_S   # 4 taps: weights, blend
+    # 4 taps a window position: weights and blend
+    t_ops = 11 * 4 * 81 * levels * b * h * w / F32_FLOP_PER_S
     row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
@@ -158,12 +167,16 @@ def check_kernels(torch):
     # the ETC train step (the 479 crop padded to 480, batch 2)
     at_tc = check_corr_lookup(torch, g, 1, 60, 107)
     at_train = check_corr_lookup(torch, g, 2, 60, 60)
+    # the per-level variant of the TPU kernel (_lookup_level_pallas, corr.py
+    # :186) is this kernel with one level; no path launches it alone
+    one_level = check_corr_lookup(torch, g, 1, 60, 107, levels=1)
+    one_level["launches"] = 0
     k1 = {
         "name": "corr_lookup", "route": "cuda",
         "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
                   "corr_lookup.cu",
         "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/corr.py:234",
-        **at_tc, "also_at": [at_train],
+        **at_tc, "also_at": [at_train, one_level],
     }
 
     h, w = 60, 107
@@ -209,8 +222,9 @@ def check_kernels(torch):
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
-    rows = [k1, k2, *check_update_kernels(torch, g)]
-    for k in [*rows, {"name": "corr_lookup", **at_train}]:
+    rows = [k1, k2, *check_update_kernels(torch, g), *check_local_agg(torch)]
+    for k in [*rows, {"name": "corr_lookup", **at_train},
+              {"name": "corr_lookup", **one_level}]:
         print(f"{k['name']} at {k['shape']}: kernel {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
@@ -299,6 +313,151 @@ def check_update_kernels(torch, g):
     return [k3, k4]
 
 
+def unfold_local_agg(x, yd, yv, r, mode, temp=3.0):
+    """The reference's formulation of one warp aggregation
+    (models/warp_our.py:20-50 and 131-160, as tests/test_warp_our.py:21-40
+    replays it): ``F.unfold`` of the padded context over every window
+    offset, distances by ``matmul``, then the weighted sum, or the gather at
+    the argmax, over the unfolded values.  Timed as the PyTorch yardstick of
+    the local-aggregation kernels; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    n, c, h, w = x.shape
+    kk = (2 * r + 1) ** 2
+    x2 = x.square().sum(1).view(n, h * w, 1)
+    y2 = yd.square().sum(1, keepdim=True)
+    oy = F.unfold(F.pad(yd, (r, r, r, r)), kernel_size=(h, w)).view(
+        n, c, h * w, kk).permute(0, 2, 1, 3)               # [n, hw, c, kk]
+    oy2 = F.unfold(F.pad(y2, (r, r, r, r), value=1e20),
+                   kernel_size=(h, w)).view(n, h * w, kk)
+    xq = x.view(n, c, h * w).permute(0, 2, 1).unsqueeze(2)  # [n, hw, 1, c]
+    dist = x2 + oy2 - 2.0 * torch.matmul(xq, oy).view(n, h * w, kk)
+    cv = yv.shape[1]
+    ov = F.unfold(F.pad(yv, (r, r, r, r)), kernel_size=(h, w)).view(
+        n, cv, h * w, kk)
+    if mode == "nearest":
+        idx = dist.argmax(-1)[:, None, :, None].expand(n, cv, h * w, 1)
+        return torch.gather(ov, 3, idx).view(n, cv, h, w)
+    if mode == "softmax":
+        wts = torch.softmax(1.0 / (dist * temp + 1e-5), -1)
+    else:
+        wts = 1.0 - (torch.sigmoid(dist) - 0.5) * 2.0
+    out = torch.matmul(ov.permute(0, 2, 1, 3), wts.unsqueeze(-1))
+    return out.view(n, h * w, cv).permute(0, 2, 1).reshape(n, cv, h, w) / kk
+
+
+def weight_spread(torch, dist, mode, temp=3.0):
+    """Quantiles 0.1, 0.5 and 0.9 over positions of the largest window
+    weight over the window's mean weight (1 where the weights are uniform);
+    dist [B, k, k, H, W]."""
+    dist = dist.flatten(1, 2)
+    if mode == "softmax":
+        wts = torch.softmax(1.0 / (dist * temp + 1e-5), 1)
+    else:
+        wts = 1.0 - (torch.sigmoid(dist) - 0.5) * 2.0
+    ratio = (wts.max(1).values / wts.mean(1)).flatten()
+    return torch.quantile(ratio, torch.tensor([0.1, 0.5, 0.9],
+                                              device=ratio.device)).tolist()
+
+
+def near_ties(dist):
+    """[B, H, W] mask of the positions whose two largest window distances
+    are in the image and lie within 1e-4 relative, where rounding may flip
+    the argmax; dist [B, k, k, H, W]."""
+    top = dist.flatten(1, 2).topk(2, dim=1).values
+    return (top[:, 0] < 1e19) & (top[:, 0] - top[:, 1]
+                                 <= 1e-4 * top[:, 0].abs())
+
+
+def check_local_agg(torch):
+    """The three local-aggregation kernels vs plain at our_warp's eval shape
+    (R101 at 480x853: 1x60x107 features, 128-d distance embedding, 256-d
+    values, r = 10, temp 3); returns their JSON rows.  The inputs make the
+    window weights far from uniform: y_dist is the N(0, 0.05^2) x shifted by
+    one pixel down and one left, plus noise whose squared norm at each pixel
+    lies in [0.01, 0.1], so the match's softmax score is 3.3 to 33 against
+    about 0.5 elsewhere, far from the pole of 1 / (dist * 3 + 1e-5).
+    Sigmoid and softmax: max abs error at most 1e-4 and at most 1e-4 of the
+    largest output.  Nearest: the positions whose two largest in-image
+    window distances lie within 1e-4 relative are excused (rounding may flip
+    the argmax there); every other position must be equal."""
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
+    from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import \
+        local_pairwise_dist
+
+    b, cd, cv, h, w, r, temp = 1, 128, 256, 60, 107, 10, 3.0
+    p, kk = h * w, (2 * r + 1) ** 2
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = 0.05 * torch.randn(b, cd, h, w, device="cuda", generator=g)
+    sq = 10.0 ** (torch.rand(b, 1, h, w, device="cuda", generator=g) - 2.0)
+    yd = torch.roll(x, (1, -1), (2, 3)) + (sq / cd).sqrt() * torch.randn(
+        b, cd, h, w, device="cuda", generator=g)
+    yv = torch.randn(b, cv, h, w, device="cuda", generator=g)
+    dist = local_pairwise_dist(x, yd, r)
+    tie = near_ties(dist)
+    rows = []
+    for mode in ("sigmoid", "softmax", "nearest"):
+        fn = getattr(local_agg, f"local_{mode}_aggregate")
+        plain = getattr(local_agg, f"local_{mode}_aggregate_plain")
+        kw = {"temp": temp} if mode == "softmax" else {}
+        got = fn(x, yd, yv, r, **kw)
+        torch.cuda.synchronize()
+        want = plain(x, yd, yv, r, **kw)
+        lib_err = (unfold_local_agg(x, yd, yv, r, mode, temp)
+                   - want).abs().max().item()
+        err = (got - want).abs().max().item()
+        row = {"name": f"local_{mode}_aggregate", "route": "cuda",
+               "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
+                         "local_agg.cu",
+               "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/"
+                           "local_agg.py:" + {"sigmoid": "229",
+                                              "softmax": "121",
+                                              "nearest": "197"}[mode],
+               "shape": f"{b}x{h}x{w}, Cd {cd}, Cv {cv}, r {r}",
+               "max_abs_err": err}
+        if mode == "nearest":
+            differ = (got != want).any(1)
+            bad = int((differ & ~tie).sum().item())
+            row["excused_near_ties"] = int(tie.sum().item())
+            row["mismatches"] = bad
+            picks_in = int((dist.flatten(1, 2).max(1).values < 1e19).sum()
+                           .item())
+            print(f"local_nearest_aggregate: {bad} mismatching positions of "
+                  f"{p} after excusing {row['excused_near_ties']} near-ties "
+                  f"(max abs error {err:.3e}, out-of-image picks "
+                  f"{p - picks_in}); |unfold - plain| = {lib_err:.3e}")
+            ok = bad == 0
+            flops = 2 * b * p * kk * cd
+            nbytes = 4 * (b * p * (2 * cd + cv) + picks_in * cv)
+        else:
+            q = weight_spread(torch, dist, mode, temp)
+            scale = want.abs().max().item()
+            row["rel_err"] = err / scale
+            row["weight_spread_q10_q50_q90"] = q
+            print(f"local_{mode}_aggregate: max |kernel - plain| = "
+                  f"{err:.3e} = {row['rel_err']:.3e} of max |plain| "
+                  f"{scale:.3e} (limits 1e-4 and 1e-4 of max |plain|); "
+                  f"largest over mean window weight, quantiles 0.1/0.5/0.9 "
+                  f"over positions: {q[0]:.4g}/{q[1]:.4g}/{q[2]:.4g} (1 if "
+                  f"uniform, {kk} at most); |unfold - plain| = "
+                  f"{lib_err:.3e}")
+            ok = err <= 1e-4 and err <= 1e-4 * scale
+            flops = 2 * b * p * kk * (cd + cv)
+            nbytes = 4 * b * p * (2 * cd + 2 * cv)
+        if not ok:
+            raise SystemExit(f"local_{mode}_aggregate kernel disagrees with "
+                             "its plain version")
+        row["plain_ms"] = cuda_ms(lambda: plain(x, yd, yv, r, **kw), n=5)
+        row["ms"] = cuda_ms(lambda: fn(x, yd, yv, r, **kw))
+        row["library_ms"] = cuda_ms(
+            lambda: unfold_local_agg(x, yd, yv, r, mode, temp), n=5)
+        t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rows.append(row)
+    return rows
+
+
 def small_input_agreement(torch):
     """The card (kernels) and the CPU (plain versions) on one small input:
     RAFT flow (one refinement, atol 1e-3 px) and ClipPSP logits (relative
@@ -334,6 +493,77 @@ def small_input_agreement(torch):
           f"{rel:.3e} (limit 1e-3)")
     if not rel <= 1e-3:
         raise SystemExit("ClipPSP on the card disagrees with the CPU")
+
+
+def clip_warp_agreement(torch):
+    """ClipWarpNet (ResNet-18-dilated, 124 classes, r = 3 over 16x24
+    features) in each aggregation mode on the card, through the kernels,
+    and on the CPU, through their plain versions.  The context frames are
+    the target shifted by whole feature pixels plus noise, and emb_2's
+    BatchNorm scale is set so the median window distance is 2 (sigmoid,
+    nearest) or 0.3 (softmax): the match then weighs far more than the rest
+    of its window.  Each context frame's aggregation, on the CPU's
+    embeddings, within 1e-4 of its largest value (nearest: equal off
+    near-ties); logits within 1e-4 of their range."""
+    from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+    from cvpr2021_vspw_implement_tpu_torch.models.warp_our import (
+        ClipWarpNet, warp_one_scale)
+    from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import \
+        local_pairwise_dist
+
+    g = torch.Generator().manual_seed(6)
+    base = torch.randn(1, 3, 128, 192, generator=g)
+    imgs = torch.stack([torch.roll(base, (8 * s, -8 * s), (2, 3))
+                        + 0.1 * torch.randn(1, 3, 128, 192, generator=g)
+                        for s in (3, 2, 1, 0)])        # target last, unshifted
+    for mode, median in (("sigmoid", 2.0), ("softmax", 0.3),
+                         ("nearest", 2.0)):
+        model = ClipWarpNet(build_encoder("resnet18dilated"), 124, fc_dim=512,
+                            max_distances=(3,),
+                            distsoftmax=mode == "softmax",
+                            distnearest=mode == "nearest")
+        init_weights(model, torch.Generator().manual_seed(7))
+        model.eval()
+        head = model.prop_clip
+        flags = (3, mode == "softmax", mode == "nearest")
+        with torch.inference_mode():
+            _, embs, _ = model.decoder(model.encoder(imgs.flatten(0, 1)))
+            dist = local_pairwise_dist(head.emb_2(embs)[-1:],
+                                       head.emb_2(embs)[:1], 3)
+            scale = (median / dist[dist < 1e19].median()).sqrt()
+            head.emb_2[1].weight.mul_(scale)
+            head.emb_2[1].bias.mul_(scale)
+            e2, es = head.emb_2(embs), head.emb(embs)
+            spread = "{:.4g}/{:.4g}/{:.4g}".format(*weight_spread(
+                torch, local_pairwise_dist(e2[-1:], e2[:1], 3), mode))
+            err, bad, excused = 0.0, 0, 0
+            for f in range(3):
+                args = (e2[-1:], e2[f:f + 1], es[f:f + 1])
+                want = warp_one_scale(*args, *flags)
+                got = warp_one_scale(*(a.cuda() for a in args), *flags).cpu()
+                err = max(err, ((got - want).abs().max()
+                                / want.abs().max()).item())
+                if mode == "nearest":
+                    tie = near_ties(local_pairwise_dist(*args[:2], 3))
+                    bad += int(((got != want).any(1) & ~tie).sum())
+                    excused += int(tie.sum())
+            cpu = model(imgs)[0]
+            gpu = model.cuda()(imgs.cuda())[0].cpu()
+        rel = ((cpu - gpu).abs().max() / (cpu.max() - cpu.min())).item()
+        if mode == "nearest":
+            agg = (f"{bad} mismatching positions of {3 * 16 * 24} after "
+                   f"excusing {excused} near-ties")
+            err = 0.0 if bad == 0 else float("inf")
+        else:
+            agg = (f"max |diff| / max |plain| = {err:.3e} (largest over mean "
+                   f"window weight, quantiles 0.1/0.5/0.9: {spread})")
+        print(f"ClipWarpNet ({mode}): aggregations kernel vs plain on the "
+              f"model's embeddings, {agg}; logits card vs CPU, max |diff| / "
+              f"range = {rel:.3e} (limits 1e-4)")
+        if not (err <= 1e-4 and rel <= 1e-4):
+            raise SystemExit(f"ClipWarpNet ({mode}) on the card disagrees "
+                             "with the CPU")
 
 
 def train_step_agreement(torch):
@@ -439,6 +669,7 @@ def main() -> int:
     from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import \
         lookup_corr_pyramid
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
     from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import \
         gru_flowhead
     from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import \
@@ -449,7 +680,10 @@ def main() -> int:
     wrappers = {"corr_lookup": lookup_corr_pyramid,
                 "sep_gru": sep_conv_gru_pass,
                 "motion_encoder": motion_encoder,
-                "gru_flowhead": gru_flowhead}
+                "gru_flowhead": gru_flowhead,
+                **{f"local_{m}_aggregate":
+                   getattr(local_agg, f"local_{m}_aggregate")
+                   for m in ("sigmoid", "softmax", "nearest")}}
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -472,6 +706,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = check_kernels(torch)
     small_input_agreement(torch)
+    clip_warp_agreement(torch)
     train_step_agreement(torch)
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -517,15 +752,18 @@ def main() -> int:
             raise SystemExit(f"{name}: {tc_counts[name]} launches in the TC "
                              f"phase, expected {per_pair * (n_frames - 1)}")
 
-    names = sorted(os.listdir(os.path.join(preds, "video_000")))
-    if len(names) != n_frames:
-        raise SystemExit(f"expected {n_frames} prediction PNGs, got "
-                         f"{len(names)}")
-    for name in names:
-        pred = np.asarray(Image.open(os.path.join(preds, "video_000", name)))
-        if pred.shape != hw or pred.max() >= k:
-            raise SystemExit(f"bad prediction {name}: {pred.shape}, "
-                             f"max {pred.max()}")
+    def check_pngs(pred_dir, n):
+        names = sorted(os.listdir(pred_dir))
+        if len(names) != n:
+            raise SystemExit(f"expected {n} prediction PNGs in {pred_dir}, "
+                             f"got {len(names)}")
+        for name in names:
+            pred = np.asarray(Image.open(os.path.join(pred_dir, name)))
+            if pred.shape != hw or pred.max() >= k:
+                raise SystemExit(f"bad prediction {name}: {pred.shape}, "
+                                 f"max {pred.max()}")
+
+    check_pngs(os.path.join(preds, "video_000"), n_frames)
     if not all(np.isfinite(v) for v in (metrics["mIoU"], metrics["VC"], tc)):
         raise SystemExit("non-finite metric")
 
@@ -564,8 +802,45 @@ def main() -> int:
           f"{iters} x {per_iter:.3f} = {iters * per_iter:.1f} ms (each timed "
           "at 2x60x60)")
 
+    # the window eval path: our_warp in its three modes (the main video for
+    # the default mode, a 5-frame one for the other two), then ETC
+    short_root = os.path.join(work, "vspw_short")
+    make_synthetic_vspw(short_root, 1, 5, hw, k, seed=2)
+    window_counts = {}
+    for path, flags, root_v, n_v in (
+            ("our_warp", [], root, n_frames),
+            ("our_warp_softmax", ["--distsoftmax", "true"], short_root, 5),
+            ("our_warp_nearest", ["--distnearest", "true"], short_root, 5),
+            ("etc_eval", ["--clip_num", "2"], short_root, 5)):
+        method = "ETC" if path == "etc_eval" else "our_warp"
+        out_dir = os.path.join(work, "preds_" + path)
+        reset()
+        t0 = time.perf_counter()
+        m, _ = test_clip.main([
+            "--cfg", preset, "--dataroot", root_v, "--num_class", str(k),
+            "--method", method, *flags, "--vc_clip_num", "4",
+            "--is_save", "--saveroot", out_dir, "--seed", "0"])
+        secs = time.perf_counter() - t0
+        window_counts[path] = c = counts()
+        print(f"{path} window eval (R101, 480x853, {n_v} frames): "
+              f"{1e3 * secs / n_v:.1f} ms/frame including the first frame "
+              f"and model set-up; per window (evaluate_clip's frame times: "
+              f"decode, forward, argmax) {m['first_frame_ms']:.1f} ms for "
+              f"the first, then {m['frame_ms']:.1f} ms; mIoU "
+              f"{m['mIoU']:.6f} VC {m['VC']:.6f}; kernel launches {c}")
+        mode = {"our_warp": "sigmoid", "our_warp_softmax": "softmax",
+                "our_warp_nearest": "nearest"}.get(path)
+        for name, n in c.items():
+            want = 3 * n_v if name == f"local_{mode}_aggregate" else 0
+            if n != want:
+                raise SystemExit(f"{name}: {n} launches on the {path} path, "
+                                 f"expected {want}")
+        check_pngs(os.path.join(out_dir, "video_000"), n_v)
+        if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
+            raise SystemExit(f"{path}: non-finite metric")
+
     by_path = {"eval": eval_counts, "tc": tc_counts, "clip_psp": psp_counts,
-               "etc": etc_counts}
+               "etc": etc_counts, **window_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -577,10 +852,12 @@ def main() -> int:
     rows[0]["also_at"][0]["launches"] = etc_counts["corr_lookup"]
 
     # "shape" says where ms, bound and error were taken,
-    # "also_at" holds the same numbers at a path's other shape
+    # "also_at" holds the same numbers at a path's other shape, or (one
+    # level) at the shape of the per-level variant
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_path", "also_at")
+            "launches_by_path", "also_at", "rel_err",
+            "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches")
     print(json.dumps({"kernels": [{key: r[key] for key in keys if key in r}
                                   for r in rows]}))
     print(smi)

@@ -2,9 +2,10 @@
 
 ``load_jax_variables(model, variables)`` takes a Flax ``{"params",
 "batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP``, a
-``RAFT`` or an ``ETC`` one, training heads included) and fills the port
-module: conv kernels HWIO → OIHW, BN
-scale/bias/mean/var → weight/bias/running_mean/running_var.  It is the
+``RAFT``, an ``ETC`` or a ``ClipWarpNet`` one, training heads included) and
+fills the port module: conv kernels HWIO → OIHW, BN
+scale/bias/mean/var → weight/bias/running_mean/running_var, free parameters
+(our_warp's ``w{i}``) as they are.  It is the
 inverse of the JAX package's ``models/import_torch.py`` importers, which
 read a port ``state_dict()`` back, since the port keeps the reference's
 torch parameter names.  Every parameter and buffer of the module must be
@@ -22,6 +23,7 @@ from torch import nn
 from .models.clip_psp import ClipPSP
 from .models.etc import ETC
 from .models.raft import RAFT
+from .models.warp_our import ClipWarpNet
 
 # (port module name pattern, Flax path template) — BN paths name the node
 # holding scale/bias (params) and mean/var (batch_stats); conv paths the
@@ -58,8 +60,7 @@ _RAFT = [
     (r"update_block\.flow_head\.(\w+)", r"update_block/flow_head/\1/conv"),
     (r"update_block\.mask\.(\d)", r"update_block/mask_\1/conv"),
 ]
-_ETC = ([(r"raft\." + p, "raft/" + t) for p, t in _RAFT]
-        + [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
+_ENCODER_DECODER = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
     (r"decoder\.ppm\.(\d+)\.1", r"decoder/ppm/ppm_\1_conv/conv"),
     (r"decoder\.ppm\.(\d+)\.2", r"decoder/ppm/ppm_\1_bn"),
     (r"decoder\.conv_last_\.0", "decoder/conv_last_/0/conv"),
@@ -67,10 +68,20 @@ _ETC = ([(r"raft\." + p, "raft/" + t) for p, t in _RAFT]
     (r"decoder\.cbr_deepsup\.0", "decoder/cbr_deepsup/0/conv"),
     (r"decoder\.cbr_deepsup\.1", "decoder/cbr_deepsup/1"),
     (r"decoder\.conv_last_deepsup_", "decoder/conv_last_deepsup_/conv"),
+]
+_ETC = [(r"raft\." + p, "raft/" + t) for p, t in _RAFT] + _ENCODER_DECODER + [
     (r"conv_last_\.0", "conv_last_0/conv"),
     (r"conv_last_\.1", "conv_last_1"),
     (r"conv_last_\.4", "conv_last_cls/conv"),
-])
+]
+_CLIP_WARP = _ENCODER_DECODER + [
+    (r"prop_clip\.(emb|emb_2)\.0", r"prop_clip/\1/0/conv"),
+    (r"prop_clip\.(emb|emb_2)\.1", r"prop_clip/\1/1"),
+    (r"prop_clip\.(w\d+)", r"prop_clip/\1"),
+    (r"prop_clip\.last_layer\.1", "prop_clip/last_conv/conv"),
+    (r"last_layer\.1", "last_layer/conv"),
+]
+_RULES = {ClipPSP: _CLIP_PSP, RAFT: _RAFT, ETC: _ETC, ClipWarpNet: _CLIP_WARP}
 
 
 def _flax_path(name: str, rules) -> list[str]:
@@ -97,9 +108,9 @@ def _copy(dst: torch.Tensor, src) -> None:
 
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Fill ``model`` (ClipPSP, RAFT or ETC) from a Flax variable tree;
-    returns the model."""
-    rules = {ClipPSP: _CLIP_PSP, RAFT: _RAFT, ETC: _ETC}.get(type(model))
+    """Fill ``model`` (ClipPSP, RAFT, ETC or ClipWarpNet) from a Flax
+    variable tree; returns the model."""
+    rules = _RULES.get(type(model))
     if rules is None:
         raise TypeError(f"no JAX layout known for {type(model).__name__}")
     params = variables["params"]
@@ -117,4 +128,7 @@ def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
             _copy(m.bias, _get(params, path)["bias"])
             _copy(m.running_mean, _get(stats, path)["mean"])
             _copy(m.running_var, _get(stats, path)["var"])
+        else:
+            for pname, p in m.named_parameters(prefix=name, recurse=False):
+                _copy(p, _get(params, _flax_path(pname, rules)))
     return model

@@ -1,6 +1,7 @@
 """VSPW-480p data: layout, normalization, label remap, clip sampling and
 augmentation (copies of the JAX package's data/datasets.py primitives,
-``ClipDataset``, ``LongClipDataset`` and ``TestFrameDataset``).
+``ClipDataset``, ``LongClipDataset``, ``TestFrameDataset`` and
+``TestClipDataset``).
 
 Layout ``<root>/data/<video>/{origin,mask}/*`` with ``<root>/<split>.txt``
 video lists; ImageNet mean/std normalization; label remap 0→255 (ignore),
@@ -227,3 +228,44 @@ class TestFrameDataset:
         arr = normalize_image(np.asarray(img))
         lab = remap_label(np.asarray(mask))
         return arr, lab, os.path.splitext(name)[0] + ".png"
+
+
+class TestClipDataset(TestFrameDataset):
+    """Centred neighbour window per eval frame (TestDataset_clip,
+    dataset2.py:154-338): within the frame's dilated sublist, a
+    ``clip_num`` window centred on it (edge-clamped), the eval frame itself
+    excluded from the context.  Items are (image, label, context images,
+    context labels, PNG name)."""
+
+    def __init__(self, dataroot: str, video: str, args):
+        super().__init__(dataroot, video, args)
+        self.clip_num = args.clip_num
+        self.dilists = dilation_lists(self.imglist, args.dilation_num)
+
+    def __getitem__(self, idx):
+        arr, lab, gtname = super().__getitem__(idx)
+        name = self.imglist[idx]
+        thelist = next(dl for dl in self.dilists if name in dl)
+        i = thelist.index(name)
+        addleft = self.clip_num // 2
+        addright = addleft if self.clip_num % 2 else addleft - 1
+        if i - addleft < 0:
+            start, end = 0, min(self.clip_num, len(thelist))
+        elif i + addright >= len(thelist):
+            end = len(thelist)
+            start = max(end - self.clip_num, 0)
+        else:
+            start, end = i - addleft, i - addleft + self.clip_num
+
+        if end - start < 2:
+            return arr, lab, [arr], [lab], gtname
+        clips, cliplabs = [], []
+        lesslabel = getattr(self.args, "lesslabel", False)
+        for j in range(start, end):
+            if j == i:
+                continue
+            cimg, cmask = load_frame(self.dataroot, self.video, thelist[j],
+                                     lesslabel)
+            clips.append(normalize_image(np.asarray(cimg)))
+            cliplabs.append(remap_label(np.asarray(cmask)))
+        return arr, lab, clips, cliplabs, gtname

@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points of each source and their argument types
 SIGNATURES = {
     "corr_lookup": {
@@ -44,6 +44,11 @@ SIGNATURES = {
     },
     "gru_flowhead": {
         "gru_flowhead_f32": [_P] * 17 + [_I] * 6 + [_P],
+    },
+    "local_agg": {
+        "local_sigmoid_agg_f32": [_P] * 4 + [_I] * 6 + [_P],
+        "local_softmax_agg_f32": [_P] * 4 + [_I] * 6 + [_F, _P],
+        "local_nearest_agg_f32": [_P] * 4 + [_I] * 6 + [_P],
     },
 }
 

@@ -4,7 +4,8 @@ train_clip2.py:264-321).
 
 Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
 -> outputs`` convention and a loss ``(outputs, batch) -> (loss, acc)``.
-Ported so far: ``clip_psp`` and ``ETC``.
+Ported so far: ``clip_psp`` and ``ETC`` (train and eval) and ``our_warp``
+(eval only: its loss is None, and the trainer refuses it).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ def _build_clip_psp(cfg, args):
     from .models.clip_psp import build_clip_psp, clip_psp_loss
     model = build_clip_psp(cfg, args.num_class,
                            psp_weight=getattr(args, "psp_weight", False))
-    return model, partial(clip_psp_loss, deep_sup_scale=args.deepsup_scale)
+    return model, partial(clip_psp_loss,
+                          deep_sup_scale=getattr(args, "deepsup_scale", 0.4))
 
 
 def _build_etc(cfg, args):
@@ -29,11 +31,18 @@ def _build_etc(cfg, args):
     if args.clip_num != 2 or args.dilation_num != 0:
         raise ValueError("ETC needs clip_num=2, dilation_num=0 (ETC.py:70)")
     model = build_etc(cfg, args.num_class, raft_iters=cfg.TPU.raft_iters)
-    return model, partial(etc_loss, deep_sup_scale=args.deepsup_scale,
-                          st_weight=args.st_weight)
+    return model, partial(etc_loss,
+                          deep_sup_scale=getattr(args, "deepsup_scale", 0.4),
+                          st_weight=getattr(args, "st_weight", 0.1))
 
 
-METHODS = {"clip_psp": _build_clip_psp, "ETC": _build_etc}
+def _build_our_warp(cfg, args):
+    from .models.warp_our import build_clip_warp
+    return build_clip_warp(cfg, args.num_class, args), None
+
+
+METHODS = {"clip_psp": _build_clip_psp, "ETC": _build_etc,
+           "our_warp": _build_our_warp}
 
 
 def get_collate(method: str, clip_num: int):

@@ -1,0 +1,130 @@
+"""our_warp: local cost-volume feature warping (JAX counterpart:
+models/warp_our.py; reference models/warp_our.py and the ClipWarpNet
+wrapper at models/models.py:116-282).
+
+WarpNet embeds the decoder's 512-d clip features twice (128-d ``emb_2`` for
+the distance maps, 256-d ``emb`` for the warped features), aggregates each
+context frame's ``emb`` over a local window around every target pixel at
+each radius of ``max_distances`` (ops/local_agg.py: sigmoid, inverse-distance
+softmax or the argmax "nearest" quirk), means the scales, means the frames
+with the target's own embedding (optionally scaled per frame by ``w{i}``
+under ``linear_combine``) and classifies with a 1x1 conv.
+
+Only the eval forward is ported: B5 has no backward (the JAX package
+defines none either), so training raises.  Every parameter of the training
+heads exists, with the reference's torch names (``prop_clip.emb.{0,1}``,
+``prop_clip.emb_2.{0,1}``, ``prop_clip.w{i}``, ``prop_clip.last_layer.1``,
+``last_layer.1``), so a ``state_dict()`` reads back through the JAX
+package's ``import_clip_warp_state_dict``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.local_agg import (local_nearest_aggregate, local_sigmoid_aggregate,
+                             local_softmax_aggregate)
+from .decoders import PPMDeepsupClip
+from .layers import Conv, ConvBNReLU, Dropout2d
+from .resnet import build_encoder
+
+TRAINING_NOT_PORTED = ("training of our_warp needs B5's backward, not "
+                       "ported yet")
+
+
+def warp_one_scale(target_e2, e2, es, r: int, distsoftmax: bool = False,
+                   distnearest: bool = False, temp: float = 3.0):
+    """One (scale, context frame) aggregation (reference:
+    warp_our.py:131-160): the kernel wrapper of the mode."""
+    if distsoftmax:
+        return local_softmax_aggregate(target_e2, e2, es, r, temp=temp)
+    if distnearest:
+        return local_nearest_aggregate(target_e2, e2, es, r)
+    return local_sigmoid_aggregate(target_e2, e2, es, r)
+
+
+class WarpNet(nn.Module):
+    """Cost-volume warping head over clip embeddings (warp_our.py:84-189)."""
+
+    def __init__(self, num_class: int, clip_num: int, max_distances=(10,),
+                 emb_dim: int = 256, fc_dim: int = 128,
+                 linear_combine: bool = False, distsoftmax: bool = False,
+                 distnearest: bool = False, temp: float = 3.0,
+                 in_dim: int = 512):
+        super().__init__()
+        self.max_distances = tuple(max_distances)
+        self.linear_combine = linear_combine
+        self.distsoftmax = distsoftmax
+        self.distnearest = distnearest
+        self.temp = temp
+        self.emb = ConvBNReLU(in_dim, emb_dim)
+        self.emb_2 = ConvBNReLU(in_dim, fc_dim)
+        if linear_combine:
+            for i in range(clip_num):
+                self.register_parameter(f"w{i}", nn.Parameter(torch.full(
+                    (emb_dim,), 1.0 if i == 0 else 0.2)))
+        self.last_layer = nn.Sequential(Dropout2d(0.1),
+                                        Conv(emb_dim, num_class, 1))
+
+    def forward(self, clip_embs, t1: int):
+        """clip_embs [t1*B, 512, h, w], target frame LAST group → (logits
+        [B, K, h, w], emb2 [t1*B, fc_dim, h, w])."""
+        emb2 = self.emb_2(clip_embs)
+        e2 = emb2.unflatten(0, (t1, -1))
+        es = self.emb(clip_embs).unflatten(0, (t1, -1))
+        final = [es[-1]]
+        for f in range(t1 - 1):
+            per_scale = [warp_one_scale(e2[-1], e2[f], es[f], r,
+                                        self.distsoftmax, self.distnearest,
+                                        self.temp)
+                         for r in self.max_distances]
+            final.append(torch.stack(per_scale, 0).mean(0))
+        if self.linear_combine:
+            final = [getattr(self, f"w{i}").view(1, -1, 1, 1) * emb
+                     for i, emb in enumerate(final)]
+        fea = torch.stack(final, 0).mean(0)
+        return self.last_layer(fea), emb2
+
+
+class ClipWarpNet(nn.Module):
+    """Encoder + PPM-clip decoder + WarpNet (models/models.py:116-282)."""
+
+    def __init__(self, encoder: nn.Module, num_class: int,
+                 fc_dim: int = 2048, clip_num: int = 4, max_distances=(10,),
+                 linear_combine: bool = False, distsoftmax: bool = False,
+                 distnearest: bool = False, temp: float = 3.0):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = PPMDeepsupClip(num_class, fc_dim)
+        self.prop_clip = WarpNet(num_class, clip_num, max_distances,
+                                 linear_combine=linear_combine,
+                                 distsoftmax=distsoftmax,
+                                 distnearest=distnearest, temp=temp)
+        # the all-frame supervision head over emb_2 (training only)
+        self.last_layer = nn.Sequential(Dropout2d(0.1),
+                                        Conv(128, num_class, 1))
+
+    def forward(self, imgs):
+        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],)."""
+        if self.training:
+            raise NotImplementedError(TRAINING_NOT_PORTED)
+        t1 = imgs.shape[0]
+        _, clip_embs, _ = self.decoder(self.encoder(imgs.flatten(0, 1)))
+        pred, _ = self.prop_clip(clip_embs, t1)
+        return (pred,)
+
+
+def _int_list(v):
+    return [int(d) for d in v.split(",")] if isinstance(v, str) else list(v)
+
+
+def build_clip_warp(cfg, num_class: int, args) -> ClipWarpNet:
+    return ClipWarpNet(
+        build_encoder(cfg.MODEL.arch_encoder), num_class,
+        fc_dim=cfg.MODEL.fc_dim, clip_num=args.clip_num,
+        max_distances=_int_list(getattr(args, "max_distances", [10])),
+        linear_combine=getattr(args, "linear_combine", False),
+        distsoftmax=getattr(args, "distsoftmax", False),
+        distnearest=getattr(args, "distnearest", False),
+        temp=getattr(args, "temp", 3.0))

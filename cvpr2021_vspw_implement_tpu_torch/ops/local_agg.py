@@ -1,0 +1,109 @@
+"""Local cost-volume window aggregation: the CUDA kernels and their plain
+versions (JAX counterparts: ops/pallas/local_agg.py::local_sigmoid_aggregate,
+local_softmax_aggregate, local_nearest_aggregate, and the XLA composition
+of models/warp_our.py::warp_one_scale over ops/local_pairwise.py).
+
+Each function maps (x [B, Cd, H, W] query embedding, y_dist [B, Cd, H, W]
+context embedding for the distances, y_val [B, Cv, H, W] context features,
+radius r) to [B, Cv, H, W], with dist(p, q) over the (2r+1)^2 window as in
+ops/local_pairwise.py (|y|^2 = 1e20 and y = 0 outside the image):
+
+* sigmoid: sum_q 2 (1 - sigmoid(dist)) y_val(q) / k^2;
+* softmax: weights softmax_q(1 / (dist * temp + 1e-5)), out-of-image
+  positions kept in the denominator, sum_q w y_val(q) / k^2 (the
+  reference's avgpool quirk);
+* nearest: y_val at the window's argMAX of dist (the reference's quirk; an
+  out-of-image position wins and gives 0), first occurrence in (dy, dx)
+  order.
+
+A CPU tensor takes the plain version; a CUDA tensor launches
+``kernels/csrc/local_agg.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .local_pairwise import (local_pairwise_dist, local_weighted_aggregate,
+                             local_window_gather)
+
+#: limits of the kernels' shared-memory staging (local_agg.cu)
+MAX_RADIUS = 15
+MAX_DIST_CHANNELS = 256
+
+
+def local_sigmoid_aggregate_plain(x, y_dist, y_val, r: int):
+    k = 2 * r + 1
+    dist = local_pairwise_dist(x, y_dist, r)
+    wts = 1.0 - (torch.sigmoid(dist) - 0.5) * 2.0
+    return local_weighted_aggregate(y_val, wts, r) / (k * k)
+
+
+def local_softmax_aggregate_plain(x, y_dist, y_val, r: int,
+                                  temp: float = 3.0):
+    k = 2 * r + 1
+    flat = local_pairwise_dist(x, y_dist, r).flatten(1, 2)   # [B, k*k, H, W]
+    wts = torch.softmax(1.0 / (flat * temp + 1e-5), dim=1)
+    return local_weighted_aggregate(y_val, wts.unflatten(1, (k, k)),
+                                    r) / (k * k)
+
+
+def local_nearest_aggregate_plain(x, y_dist, y_val, r: int):
+    idx = torch.argmax(local_pairwise_dist(x, y_dist, r).flatten(1, 2),
+                       dim=1)                                 # [B, H, W]
+    windows = local_window_gather(y_val, r).flatten(2, 3)    # [B, C, k*k, H, W]
+    idx = idx[:, None, None].expand(-1, windows.shape[1], 1, -1, -1)
+    return torch.gather(windows, 2, idx)[:, :, 0]
+
+
+def _launch(fn, entry: str, x, y_dist, y_val, r: int, *extra):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no {fn.__name__} for device {x.device}")
+    b, cd, h, w = x.shape
+    cv = y_val.shape[1]
+    if (y_dist.shape != x.shape or y_val.dim() != 4
+            or y_val.shape[0] != b or y_val.shape[2:] != (h, w)):
+        raise ValueError(f"{fn.__name__} takes x and y_dist [B, Cd, H, W] "
+                         "and y_val [B, Cv, H, W]")
+    if not 0 <= r <= MAX_RADIUS or not 1 <= cd <= MAX_DIST_CHANNELS:
+        raise ValueError(f"{fn.__name__}: the kernel takes 0 <= r <= "
+                         f"{MAX_RADIUS} and 1 <= Cd <= {MAX_DIST_CHANNELS}")
+    kernels.check_inputs(fn.__name__, (x, y_dist, y_val))
+    out = torch.empty(b, cv, h, w, device=x.device)
+    lib = kernels.load("local_agg")
+    kernels.check(getattr(lib, entry)(
+        x.data_ptr(), y_dist.data_ptr(), y_val.data_ptr(), out.data_ptr(),
+        b, cd, cv, h, w, r, *extra,
+        torch.cuda.current_stream(x.device).cuda_stream), entry)
+    fn.launches += 1
+    return out
+
+
+def local_sigmoid_aggregate(x, y_dist, y_val, r: int):
+    """Sigmoid-weighted window mean (the default mode of our_warp)."""
+    if x.device.type == "cpu":
+        return local_sigmoid_aggregate_plain(x, y_dist, y_val, r)
+    return _launch(local_sigmoid_aggregate, "local_sigmoid_agg_f32", x,
+                   y_dist, y_val, r)
+
+
+def local_softmax_aggregate(x, y_dist, y_val, r: int, temp: float = 3.0):
+    """Inverse-distance softmax window aggregation (``--distsoftmax``)."""
+    if x.device.type == "cpu":
+        return local_softmax_aggregate_plain(x, y_dist, y_val, r, temp)
+    return _launch(local_softmax_aggregate, "local_softmax_agg_f32", x,
+                   y_dist, y_val, r, float(temp))
+
+
+def local_nearest_aggregate(x, y_dist, y_val, r: int):
+    """y_val at the window's argmax distance (``--distnearest``)."""
+    if x.device.type == "cpu":
+        return local_nearest_aggregate_plain(x, y_dist, y_val, r)
+    return _launch(local_nearest_aggregate, "local_nearest_agg_f32", x,
+                   y_dist, y_val, r)
+
+
+for _fn in (local_sigmoid_aggregate, local_softmax_aggregate,
+            local_nearest_aggregate):
+    _fn.launches = 0

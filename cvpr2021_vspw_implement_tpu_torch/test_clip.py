@@ -1,16 +1,19 @@
-"""Temporal evaluation driver, TCB-PSP streaming (JAX counterpart:
-test_clip.py, ``--method clip_psp``; reference test_clip2.py).
+"""Temporal evaluation CLI (JAX counterpart: test_clip.py; reference
+test_clip2.py).
 
-Per video: every frame is encoded once and each window fused as its
-context arrives (serving.py); global and per-video mIoU, VC, and optional
-palette PNG dumps (``--is_save``).  Exact shapes only.  Flags keep the JAX
-driver's names.  ``--load`` takes a port checkpoint (``torch.save`` of the
-model's ``state_dict``, or the trainer's ``model_epoch_N.pth``); without it
-the weights are a seeded random init.
+``--method clip_psp`` streams (serving.py: every frame is encoded once and
+each window fused as its context arrives).  ``--method our_warp`` and
+``--method ETC`` take the window path: per eval frame, its centred
+``clip_num`` neighbourhood (``TestClipDataset``) and the frame itself,
+target last, go through the model at once.  Global and per-video mIoU, VC,
+and optional palette PNG dumps (``--is_save``).  Exact shapes only.  Flags
+keep the JAX CLI's names.  ``--load`` takes a port checkpoint
+(``torch.save`` of the model's ``state_dict``, or the trainer's
+``model_epoch_N.pth``); without it the weights are a seeded random init.
 
     python -m cvpr2021_vspw_implement_tpu_torch.test_clip \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup_clip.yaml \\
-        --dataroot DATA --num_class 124 --device cpu
+        --dataroot DATA --num_class 124 --method our_warp --device cpu
 """
 
 from __future__ import annotations
@@ -18,18 +21,24 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
 from PIL import Image
 
 from .config import cfg as default_cfg
-from .data import TestFrameDataset, list_videos
-from .models.clip_psp import build_clip_psp
+from .config.args import postprocess_args
+from .data import TestClipDataset, TestFrameDataset, list_videos
+from .methods import build_method
 from .models.layers import init_weights
+from .models.segmentation import inference_pred
 from .serving import ClipPSPStreamer
 from .utils import (Evaluator, get_common, resolve_device, setup_logger,
                     vspw_palette)
+
+#: methods whose eval is ported: clip_psp streams, the others take windows
+EVAL_METHODS = ("clip_psp", "our_warp", "ETC")
 
 
 def _bool(s: str) -> bool:
@@ -38,13 +47,13 @@ def _bool(s: str) -> bool:
 
 def build_eval_clip_parser():
     p = argparse.ArgumentParser(description="Video segmentation eval "
-                                "(PyTorch port, TCB-PSP streaming)")
+                                "(PyTorch port)")
     p.add_argument("--cfg", type=str, required=True)
     p.add_argument("--dataroot", type=str, default="")
     p.add_argument("--split", type=str, default="val")
     p.add_argument("--num_class", type=int, default=124)
     p.add_argument("--method", type=str, default="clip_psp",
-                   choices=("clip_psp",))
+                   choices=EVAL_METHODS)
     p.add_argument("--load", type=str, default="",
                    help="port checkpoint: torch.save of the state_dict, or "
                         "a checkpoint of train_clip")
@@ -54,9 +63,15 @@ def build_eval_clip_parser():
     p.add_argument("--is_save", action="store_true")
     p.add_argument("--lesslabel", action="store_true")
     p.add_argument("--clip_num", type=int, default=4)
+    p.add_argument("--dilation_num", type=int, default=0)
     p.add_argument("--dilation2", type=str, default="3,6,9")
     p.add_argument("--vc_clip_num", type=int, default=8)
     p.add_argument("--psp_weight", type=_bool, default=False)
+    p.add_argument("--linear_combine", type=_bool, default=False)
+    p.add_argument("--distsoftmax", type=_bool, default=False)
+    p.add_argument("--distnearest", type=_bool, default=False)
+    p.add_argument("--temp", type=float, default=3)
+    p.add_argument("--max_distances", type=str, default="10")
     p.add_argument("--max_videos", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
@@ -64,8 +79,7 @@ def build_eval_clip_parser():
 
 
 def build_model(cfg, args, device) -> torch.nn.Module:
-    model = build_clip_psp(cfg, args.num_class,
-                           psp_weight=args.psp_weight)
+    model, _ = build_method(getattr(args, "method", "clip_psp"), cfg, args)
     if args.load:
         state = torch.load(args.load, map_location="cpu")
         model.load_state_dict(state.get("model", state))
@@ -74,18 +88,44 @@ def build_model(cfg, args, device) -> torch.nn.Module:
     return model.to(device).eval()
 
 
+def _stream_clip_psp(model, ds, dilation2, device):
+    """(index, prediction, label, PNG name) of every frame of ``ds``,
+    streaming."""
+    items = [ds[i] for i in range(len(ds))]
+    streamer = ClipPSPStreamer(model, dilation2, len(ds),
+                               items[0][0].shape[:2], device=device)
+    for i, pred in streamer.run(it[0] for it in items):
+        yield i, pred, items[i][1], items[i][2]
+
+
+@torch.inference_mode()
+def _windows(model, ds, device):
+    """(index, prediction, label, PNG name) of every frame of ``ds``: its
+    context window and itself, target last, through the model at once (JAX
+    test_clip.py:566-602)."""
+    for i in range(len(ds)):
+        img, gt, clips, _, name = ds[i]
+        imgs = np.stack(clips + [img])[:, None]           # [T, 1, H, W, 3]
+        imgs = torch.from_numpy(np.ascontiguousarray(
+            imgs.transpose(0, 1, 4, 2, 3))).to(device)   # [T, 1, 3, H, W]
+        pred = inference_pred(model(imgs), imgs.shape[-2:])
+        yield i, pred[0].cpu().numpy(), gt, name
+
+
 def evaluate_clip(cfg, args, model=None, logger=None):
-    """Streaming eval over the first ``args.max_videos`` videos (0 = all);
-    returns (metrics, per-video mIoU)."""
+    """Eval over the first ``args.max_videos`` videos (0 = all); returns
+    (metrics, per-video mIoU)."""
     logger = logger or setup_logger()
     device = resolve_device(args.device)
     if model is None:
         model = build_model(cfg, args, device)
-    dil = args.dilation2
-    dilation2 = [int(d) for d in dil.split(",")] if isinstance(dil, str) \
-        else list(dil)
-    if len(dilation2) + 1 != args.clip_num:
-        raise ValueError("--dilation2 must hold clip_num - 1 offsets")
+    streaming = args.method == "clip_psp"
+    if streaming:
+        dil = args.dilation2
+        dilation2 = [int(d) for d in dil.split(",")] if isinstance(dil, str) \
+            else list(dil)
+        if len(dilation2) + 1 != args.clip_num:
+            raise ValueError("--dilation2 must hold clip_num - 1 offsets")
 
     evaluator = Evaluator(args.num_class)
     vmiou, vc_accs = {}, []
@@ -93,29 +133,34 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     videos = list_videos(args.dataroot, args.split)
     if args.max_videos:
         videos = videos[:args.max_videos]
+    frame_s = []      # wall time of each prediction: decode, forward, argmax
     for video in videos:
-        ds = TestFrameDataset(args.dataroot, video, args)
+        if streaming:
+            ds = TestFrameDataset(args.dataroot, video, args)
+            preds = _stream_clip_psp(model, ds, dilation2, device)
+        else:
+            ds = TestClipDataset(args.dataroot, video, args)
+            preds = _windows(model, ds, device)
         eval_video = Evaluator(args.num_class)
-        items = [ds[i] for i in range(len(ds))]
-        h0, w0 = items[0][0].shape[:2]
-        streamer = ClipPSPStreamer(model, dilation2, len(ds), (h0, w0),
-                                   device=device)
-        gt_list = [it[1] for it in items]
-        pred_list = [None] * len(ds)
-        for i, pred in streamer.run(it[0] for it in items):
-            pred_list[i] = pred
-            evaluator.add_batch(gt_list[i][None], pred[None])
-            eval_video.add_batch(gt_list[i][None], pred[None])
+        gt_list, pred_list = [None] * len(ds), [None] * len(ds)
+        t = time.perf_counter()
+        for i, pred, gt, name in preds:
+            frame_s.append(time.perf_counter() - t)
+            gt_list[i], pred_list[i] = gt, pred
+            evaluator.add_batch(gt[None], pred[None])
+            eval_video.add_batch(gt[None], pred[None])
             if args.is_save and args.saveroot:
                 odir = os.path.join(args.saveroot, video)
                 os.makedirs(odir, exist_ok=True)
                 out = Image.fromarray(pred.astype(np.uint8), mode="P")
                 out.putpalette(palette)
-                out.save(os.path.join(odir, items[i][2]))
+                out.save(os.path.join(odir, name))
+            t = time.perf_counter()
         h, w = gt_list[0].shape
         vc_accs.extend(get_common(gt_list, pred_list, args.vc_clip_num, h, w))
         vmiou[video] = eval_video.Mean_Intersection_over_Union()
-        logger.info(f"video {video}: mIoU {vmiou[video]:.4f} (streaming)")
+        logger.info(f"video {video}: mIoU {vmiou[video]:.4f}"
+                    + (" (streaming)" if streaming else ""))
 
     metrics = {
         "Acc": evaluator.Pixel_Accuracy(),
@@ -124,11 +169,17 @@ def evaluate_clip(cfg, args, model=None, logger=None):
         "fwIoU": evaluator.Frequency_Weighted_Intersection_over_Union(),
         "video_mIoU": float(np.nanmean(list(vmiou.values()))),
         "VC": float(np.nanmean(vc_accs)) if vc_accs else float("nan"),
+        # the first frame carries the warm-up (cuDNN's choice of algorithms);
+        # when streaming, it also waits for the context frames after it
+        "first_frame_ms": 1e3 * frame_s[0] if frame_s else float("nan"),
+        "frame_ms": (1e3 * float(np.mean(frame_s[1:])) if len(frame_s) > 1
+                     else float("nan")),
     }
     logger.info(
         "Acc:{Acc:.4f}, Acc_class:{Acc_class:.4f}, mIoU:{mIoU:.4f}, "
         "fwIoU:{fwIoU:.4f}, video mIoU:{video_mIoU:.4f}, "
-        "VC{vc}:{VC:.4f}".format(vc=args.vc_clip_num, **metrics))
+        "VC{vc}:{VC:.4f}; {first_frame_ms:.1f} ms for the first frame, then "
+        "{frame_ms:.1f} ms/frame".format(vc=args.vc_clip_num, **metrics))
     if args.saveroot:
         os.makedirs(args.saveroot, exist_ok=True)
         with open(os.path.join(args.saveroot, "vmiou.pkl"), "wb") as f:
@@ -138,6 +189,7 @@ def evaluate_clip(cfg, args, model=None, logger=None):
 
 def main(argv=None):
     args = build_eval_clip_parser().parse_args(argv)
+    postprocess_args(args)
     cfg = default_cfg.clone()
     cfg.merge_from_file(args.cfg)
     if args.opts:

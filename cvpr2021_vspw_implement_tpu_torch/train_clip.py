@@ -2,8 +2,8 @@
 reference train_clip2.py).
 
 ``--method`` dispatches over the registry in methods.py (``clip_psp`` and
-``ETC`` so far); the collate functions put the target frame last in the
-stacked [T, B, ...] clip; a step is forward, loss, backward and the
+``ETC`` so far; ``our_warp`` is eval-only and refused here); the collate
+functions put the target frame last in the stacked [T, B, ...] clip; a step is forward, loss, backward and the
 clip-recipe SGD with 0.1x encoder LR (parallel/).  Weights are a seeded
 random init (``--pre_enc/--pre_dec`` are not ported); checkpoints are
 ``torch.save`` files, every 20 epochs and at the end, and ``--resume_epoch N``
@@ -27,6 +27,7 @@ from .config.args import build_train_clip_parser, postprocess_args
 from .data import ClipDataset, ClipLoader, LongClipDataset
 from .methods import LONGCLIP_METHODS, build_method, get_collate
 from .models.layers import init_weights, set_dropout_generator
+from .models.warp_our import TRAINING_NOT_PORTED
 from .parallel import create_clip_optimizer, to_device, train_step
 from .utils import AverageMeter, resolve_device, setup_logger
 from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -35,6 +36,8 @@ from .utils.checkpoint import load_checkpoint, save_checkpoint
 def train_clip(cfg, args, logger=None, max_steps: int | None = None):
     """Train ``args.method``; stops after ``max_steps`` steps when given.
     Returns the model (on ``args.device``, in training mode)."""
+    if args.method == "our_warp":
+        raise NotImplementedError(TRAINING_NOT_PORTED)
     logger = logger or setup_logger()
     device = resolve_device(getattr(args, "device", "cuda"))
     seed = getattr(args, "seed", None)
@@ -103,11 +106,7 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
 
 def validate(cfg, args, model, logger):
     """In-training validation at each 20-epoch checkpoint (reference
-    train_clip2.py:383-386)."""
-    if args.method != "clip_psp":
-        logger.info(f"validation skipped: the eval path of {args.method} "
-                    "is not ported yet")
-        return
+    train_clip2.py:383-386): streaming for clip_psp, windows for ETC."""
     from .test_clip import evaluate_clip
     # eval-only args the train parser doesn't define
     for k, v in (("split", "val"), ("vc_clip_num", 8), ("is_save", False),

@@ -7,7 +7,15 @@ Needs an NVIDIA GPU and imports no JAX, so it runs on the card's machine:
 Without a card every test skips.  Tolerances: the corr lookup is the same
 f32 arithmetic (atol 1e-5); the GRU pass, the motion encoder and the GRU +
 flow head sum products of up to 2304 terms in another order than cuDNN, the
-last two through chains of five and six convolutions (atol 1e-4).
+last two through chains of five and six convolutions (atol 1e-4).  The
+local aggregations (B5) sum 128-term distances and up to 441 weighted
+values in another order than the plain version (sigmoid and softmax: atol
+1e-5 and rtol 1e-4 per element, and at most 1e-4 of the largest output
+overall, on the near-match inputs of ``local_agg_inputs``, whose window
+weights are far from uniform and whose softmax scores stay far from the
+pole of 1 / (dist * temp + 1e-5)); nearest must pick the same value except
+where the two largest in-image window distances lie within 1e-4
+relative.
 """
 
 import os
@@ -19,13 +27,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_port_util import (gru_flowhead_inputs, gru_inputs,  # noqa: E402
-                             motion_inputs, port_gru_args,
+                             local_agg_inputs, motion_inputs, port_gru_args,
                              port_gru_flowhead_weights, port_motion_weights,
                              pyramid, query_coords, to_nchw, weights_to)
 from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (  # noqa: E402
     lookup_corr_pyramid, lookup_corr_pyramid_plain)
+from cvpr2021_vspw_implement_tpu_torch.ops import local_agg  # noqa: E402
 from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import (  # noqa: E402
     gru_flowhead, gru_flowhead_plain)
+from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import (  # noqa: E402
+    local_pairwise_dist)
 from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import (  # noqa: E402
     motion_encoder, motion_encoder_plain)
 from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (  # noqa: E402
@@ -100,3 +111,27 @@ def test_gru_flowhead_kernel_matches_plain(cuda_device, b, h, w):
     want_net, want_delta = gru_flowhead_plain(net, x, weights)
     torch.testing.assert_close(got_net, want_net, rtol=0, atol=1e-4)
     torch.testing.assert_close(got_delta, want_delta, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,r", [(1, 37, 53, 2), (2, 37, 53, 10),
+                                     (1, 60, 107, 10), (2, 60, 107, 2)])
+@pytest.mark.parametrize("mode", ["sigmoid", "softmax", "nearest"])
+def test_local_agg_kernel_matches_plain(cuda_device, mode, b, h, w, r):
+    x, yd, yv = (to_nchw(a).to(cuda_device) for a in local_agg_inputs(
+        np.random.default_rng(7 + r), b, h, w, 128, 256))
+    fn = getattr(local_agg, f"local_{mode}_aggregate")
+    before = fn.launches
+    got = fn(x, yd, yv, r)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = getattr(local_agg, f"local_{mode}_aggregate_plain")(x, yd, yv, r)
+    if mode != "nearest":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        return
+    top = torch.topk(local_pairwise_dist(x, yd, r).flatten(1, 2), 2,
+                     dim=1).values
+    tie = (top[:, 0] < 1e19) & (top[:, 0] - top[:, 1] <= 1e-4 * top[:, 0].abs())
+    keep = ~tie[:, None].expand_as(got)
+    torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=0)

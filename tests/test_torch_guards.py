@@ -70,7 +70,8 @@ def test_port_imports_no_jax():
             "models/decoders.py", "parallel/optim.py",
             "parallel/train_state.py", "data/loader.py", "config/args.py",
             "utils/checkpoint.py", "ops/motion_encoder.py",
-            "ops/gru_flowhead.py", "../chip_smoke.py",
+            "ops/gru_flowhead.py", "ops/local_pairwise.py",
+            "ops/local_agg.py", "models/warp_our.py", "../chip_smoke.py",
             "../tools/torch_step_profile.py"} <= set(seen)
 
 

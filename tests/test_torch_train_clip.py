@@ -275,10 +275,17 @@ def test_unported_methods_and_validation_hook(vspw_root, tmp_path, caplog):
     logger = setup_logger()
     logger.addHandler(caplog.handler)
     try:
-        # ETC: its eval path is not ported; the hook says so and goes on
-        eargs = argparse.Namespace(method="ETC")
-        train_clip.validate(cfg, eargs, None, logger)
-        assert "not ported yet" in caplog.text
+        # ETC: the port's window eval on the val split
+        etc = ETC(build_encoder("resnet18dilated"), K, fc_dim=512,
+                  raft_iters=1)
+        layers.init_weights(etc, torch.Generator().manual_seed(0))
+        eargs = argparse.Namespace(
+            method="ETC", device="cpu", dataroot=vspw_root, num_class=K,
+            clip_num=2, dilation_num=0, lesslabel=False, saveroot="",
+            max_videos=1)
+        train_clip.validate(cfg, eargs, etc.train(), logger)
+        assert etc.training and "mIoU" in caplog.text
+        caplog.clear()
         # clip_psp: the port's streaming eval on the val split
         model = ClipPSP(build_encoder("resnet18dilated"), K, fc_dim=512)
         layers.init_weights(model, torch.Generator().manual_seed(0))

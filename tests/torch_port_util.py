@@ -168,3 +168,18 @@ def port_gru_flowhead_weights(p):
 
 def weights_to(weights, device):
     return {k: (w.to(device), b.to(device)) for k, (w, b) in weights.items()}
+
+
+def local_agg_inputs(rng, b, h, w, cd, cv, scale=0.05, shift=(1, -1)):
+    """NHWC (x, y_dist, y_val) for the local aggregations, with window
+    weights far from uniform: y_dist is x shifted by ``shift`` pixels
+    (wrapping) plus noise whose squared norm at each pixel lies in
+    [0.01, 0.1].  So each window that holds the match has one distance there
+    (a softmax score of 3.3 to 33 at temp 3, a sigmoid weight near 1), well
+    away from the score's pole, against about 2 cd scale^2 elsewhere."""
+    x = scale * rng.standard_normal((b, h, w, cd))
+    sq = 10.0 ** (rng.random((b, h, w, 1)) - 2.0)
+    yd = np.roll(x, shift, (1, 2)) + np.sqrt(sq / cd) * rng.standard_normal(
+        (b, h, w, cd))
+    yv = rng.standard_normal((b, h, w, cv))
+    return tuple(a.astype(np.float32) for a in (x, yd, yv))
