@@ -8,16 +8,23 @@
    shapes (corr lookup and GRU pass: TC at VSPW-480p, 60x107 RAFT features;
    corr lookup, motion encoder and GRU + flow head: the 479 training crop,
    batch 2, 60x60; the three local aggregations of our_warp: 1x60x107,
-   128-d distances, 256-d values, r = 10)
+   128-d distances, 256-d values, r = 10; the band re-zero: R101 features
+   and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
+   and a no-band case, bitwise)
    with TF32 off, and times kernel, plain version, bound and the PyTorch
    yardstick;
 4. drives the main paths through the user entry points, the kernel launch
    counts zeroed just before each path and read just after:
-   a. TCB-PSP streaming eval (``test_clip``, seeded random ResNet-101-dilated
-      ClipPSP, fc_dim 2048, 124 classes) over a synthetic 10-frame 480x853
-      video with PNG dumps;
-   b. the TC metric (``tc_cal``, seeded random RAFT, 20 refinements) over
+   a. TCB-PSP streaming eval (``test_clip --eval_policy exact --width_bucket
+      0``, seeded random ResNet-101-dilated ClipPSP, fc_dim 2048, 124
+      classes) over a synthetic 10-frame 480x853 video with PNG dumps;
+   b. the TC metric (``tc_cal --width_bucket 0``, seeded random RAFT with
+      the flow head scaled to a trained-like step, 20 refinements) over
       those PNGs;
+   a'. the same eval at the CLI's default, width-bucketed (480x853 padded to
+      the 480x896 bucket, the band re-zeroed by its kernel at a count derived
+      from the model), against a's PNGs and, in a separate pass, a's logits;
+   b'. the TC metric at its default, bucketed, over a''s PNGs;
    c. the clip trainer (``train_clip``) on synthetic 480x853 videos, the same
       R101 preset, crop 479, batch 2: ``--method clip_psp`` (4 frames,
       offsets 3,6,9), then ``--method ETC`` (2 frames, RAFT at 20
@@ -27,6 +34,7 @@
       over the 10-frame video, ``--distsoftmax`` and ``--distnearest`` over
       a 5-frame one, each launching its kernel exactly 3 times a frame;
    e. ETC window eval (``test_clip --method ETC``) over the 5-frame video;
+   (the window paths run exact shapes: ``--width_bucket 0``)
 5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC and
    losses, moving head and encoder parameters, a frozen RAFT) and that the
    card and the CPU agree on small inputs, a train step and ClipWarpNet in
@@ -222,7 +230,8 @@ def check_kernels(torch):
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
-    rows = [k1, k2, *check_update_kernels(torch, g), *check_local_agg(torch)]
+    rows = [k1, k2, *check_update_kernels(torch, g), *check_local_agg(torch),
+            check_band_zero(torch)]
     for k in [*rows, {"name": "corr_lookup", **at_train},
               {"name": "corr_lookup", **one_level}]:
         print(f"{k['name']} at {k['shape']}: kernel {k['ms']:.4f} ms, plain "
@@ -458,6 +467,159 @@ def check_local_agg(torch):
     return rows
 
 
+def check_band_zero(torch):
+    """The band re-zero kernel vs plain, bitwise, at the shapes bucketed eval
+    gives it (R101 at 480x853 in the 480x896 bucket: a 256-channel feature
+    and C5 at 60x112, valid 60x107; a correlation-pyramid level of the TC
+    pair, [6720, 1, 30, 56], valid 30x53), a rows-only case and a no-band
+    case (no launch).  Each is timed beside the plain version, the two-slice
+    ``zero_()`` and the JAX formulation ``torch.where`` over the whole
+    tensor; the bound is the bytes written over the memory rate.  Returns
+    the kernel's JSON row (at C5, the others under ``also_at``)."""
+    from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import (
+        band_zero, band_zero_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for label, shape, hv, wv in (
+            ("C5", (1, 2048, 60, 112), 60, 107),
+            ("feature", (1, 256, 60, 112), 60, 107),
+            ("pyramid level", (6720, 1, 30, 56), 30, 53),
+            ("rows only", (1, 256, 64, 112), 57, 112),
+            ("no band", (1, 256, 60, 112), 60, 112)):
+        x = torch.randn(*shape, device="cuda", generator=g)
+        h, w = shape[-2:]
+        want = band_zero_plain(x.clone(), hv, wv)
+        before = band_zero.launches
+        got = band_zero(x, hv, wv)
+        torch.cuda.synchronize()
+        launched = band_zero.launches - before
+        equal = torch.equal(got, want)
+        print(f"band_zero at {label} {list(shape)}, valid {hv}x{wv}: "
+              f"{'bitwise equal' if equal else 'DIFFERS'} to plain, "
+              f"{launched} launch")
+        if not equal or launched != (0 if (hv, wv) == (h, w) else 1):
+            raise SystemExit(f"band_zero kernel disagrees with its plain "
+                             f"version at {label}")
+        mask = torch.zeros(h, w, dtype=torch.bool, device="cuda")
+        mask[:hv, :wv] = True
+        band = x.numel() // (h * w) * (h * w - hv * wv)
+
+        def two_slices():
+            x[..., hv:, :].zero_()
+            x[..., :hv, wv:].zero_()
+
+        row = {"shape": f"{label} {'x'.join(map(str, shape))}, valid "
+                        f"{hv}x{wv}",
+               "max_abs_err": 0.0,
+               "ms": cuda_ms(lambda: band_zero(x, hv, wv)),
+               "plain_ms": cuda_ms(lambda: band_zero_plain(x, hv, wv)),
+               "two_slice_zero_ms": cuda_ms(two_slices),
+               "library_ms": cuda_ms(lambda: torch.where(mask, x, 0.0)),
+               "bytes_written": 4 * band,
+               "bound_ms": 1e3 * 4 * band / HBM_BYTES_PER_S,
+               "bound_by": "bytes"}
+        print(f"band_zero at {label}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, two-slice zero_ "
+              f"{row['two_slice_zero_ms']:.4f} ms, torch.where over the "
+              f"tensor {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bytes_written']} bytes "
+              "written)")
+        rows.append(row)
+    return {"name": "band_zero", "route": "cuda",
+            "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
+                      "band_zero.cu",
+            "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/band_zero.py:63",
+            **rows[0], "also_at": rows[1:]}
+
+
+def bucketed_vs_exact(torch, model, frames, exact_pngs, bucket_pngs):
+    """The eval phases' R101 ClipPSP (rebuilt from the same seed) streamed
+    over the video once at exact shapes and once in the 480x896 bucket, the
+    upsampled logits captured where each engine argmaxes them.  Holds the
+    bucketed logits on the valid region within 1e-3 of the largest exact
+    logit (cuDNN picks its algorithms per width, so the sums differ in
+    order), and allows the CLI phases' bucketed PNGs to differ from the
+    exact ones only at pixels whose exact top-2 margin is below that
+    tolerance.  Then times ``encode_frame`` on one frame (CUDA events): as
+    the exact engine gives it (a permuted HWC view, so cuDNN runs
+    channels-last), as contiguous NCHW, and bucketed (contiguous NCHW,
+    padded, masked).  Returns the numbers it printed."""
+    from cvpr2021_vspw_implement_tpu_torch import serving
+    from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
+        resize_bilinear
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import (
+        bucket_hw, pad_to, resize_bilinear_rt)
+
+    h, w = frames[0].shape[:2]
+    captured = []
+
+    def exact_up(logits, size):
+        return resize_bilinear(logits.float(), size)[0]
+
+    def bucket_up(logits, pad, fv, hw):
+        return resize_bilinear_rt(logits.float(), pad, fv, hw)[0, :, :h, :w]
+
+    def capture(fn, up):
+        def wrapped(logits, *args):
+            captured.append(up(logits, *args))
+            return fn(logits, *args)
+        return wrapped
+
+    saved = serving.inference_pred, serving.inference_pred_rt
+    serving.inference_pred = capture(saved[0], exact_up)
+    serving.inference_pred_rt = capture(saved[1], bucket_up)
+    try:
+        for engine in (serving.ExactShapeEngine(model),
+                       serving.ClipPSPBucketEngine(model, bucket=64)):
+            list(serving.ClipPSPStreamer(model, [3, 6, 9], len(frames),
+                                         (h, w), engine=engine)
+                 .run(iter(frames)))
+    finally:
+        serving.inference_pred, serving.inference_pred_rt = saved
+    n = len(frames)
+    if len(captured) != 2 * n:
+        raise SystemExit(f"captured {len(captured)} logit maps, expected "
+                         f"{2 * n}")
+    exact, bucketed = captured[:n], captured[n:]
+    err = max((b - e).abs().max().item() for e, b in zip(exact, bucketed))
+    tol = 1e-3 * max(e.abs().max().item() for e in exact)
+    diff = excused = flips = 0
+    for i, (e, b) in enumerate(zip(exact, bucketed)):
+        top = e.topk(2, dim=0).values
+        near = (top[0] - top[1] < tol).cpu().numpy()
+        differ = exact_pngs[i] != bucket_pngs[i]
+        diff += int(differ.sum())
+        excused += int((differ & near).sum())
+        flips += int((e.argmax(0) != b.argmax(0)).sum().item())
+    print(f"bucketed vs exact ClipPSP eval: logits on the valid region max "
+          f"|diff| {err:.3e} (limit {tol:.3e}, 1e-3 of the largest exact "
+          f"logit); CLI PNGs differ at {diff} of {n * h * w} pixels, "
+          f"{excused} of them with an exact top-2 margin below the limit; "
+          f"argmax flips in this pass {flips}")
+    if not (err <= tol and diff == excused):
+        raise SystemExit("bucketed eval disagrees with exact eval")
+
+    img = torch.from_numpy(frames[0]).cuda().permute(2, 0, 1)[None]
+    pad = bucket_hw(h, w)
+    with torch.inference_mode():
+        layouts = {
+            "exact_permuted_ms": cuda_ms(lambda: model.encode_frame(img),
+                                         n=5, warm=2),
+            "exact_nchw_ms": cuda_ms(
+                lambda: model.encode_frame(img.contiguous()), n=5, warm=2),
+            "bucketed_ms": cuda_ms(lambda: model.encode_frame(
+                pad_to(img, pad), valid_hw=(h, w)), n=5, warm=2),
+        }
+    print("encode_frame on one frame (R101, CUDA events): exact as the "
+          "engine gives it (permuted HWC view) "
+          f"{layouts['exact_permuted_ms']:.2f} ms, exact contiguous NCHW "
+          f"{layouts['exact_nchw_ms']:.2f} ms, bucketed {pad[0]}x{pad[1]} "
+          f"{layouts['bucketed_ms']:.2f} ms")
+    return {"logit_err": err, "logit_tol": tol, "pixels_differ": diff,
+            "pixels_excused": excused, **layouts}
+
+
 def small_input_agreement(torch):
     """The card (kernels) and the CPU (plain versions) on one small input:
     RAFT flow (one refinement, atol 1e-3 px) and ClipPSP logits (relative
@@ -676,6 +838,7 @@ def main() -> int:
         motion_encoder
     from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import \
         sep_conv_gru_pass
+    from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import band_zero
 
     wrappers = {"corr_lookup": lookup_corr_pyramid,
                 "sep_gru": sep_conv_gru_pass,
@@ -683,7 +846,8 @@ def main() -> int:
                 "gru_flowhead": gru_flowhead,
                 **{f"local_{m}_aggregate":
                    getattr(local_agg, f"local_{m}_aggregate")
-                   for m in ("sigmoid", "softmax", "nearest")}}
+                   for m in ("sigmoid", "softmax", "nearest")},
+                "band_zero": band_zero}
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -728,29 +892,142 @@ def main() -> int:
     t0 = time.perf_counter()
     metrics, _ = test_clip.main([
         "--cfg", preset, "--dataroot", root, "--num_class", str(k),
-        "--method", "clip_psp", "--is_save", "--saveroot", preds, "--seed",
-        "0"])
+        "--method", "clip_psp", "--eval_policy", "exact", "--width_bucket",
+        "0", "--is_save", "--saveroot", preds, "--seed", "0"])
     eval_s = time.perf_counter() - t0
     eval_counts = counts()
-    print(f"TCB-PSP streaming eval (R101, 480x853, {n_frames} frames): "
-          f"{1e3 * eval_s / n_frames:.1f} ms/frame including the first "
-          f"frame; mIoU {metrics['mIoU']:.6f} VC {metrics['VC']:.6f}; "
+    print(f"TCB-PSP streaming eval, exact shapes (R101, 480x853, {n_frames} "
+          f"frames): {1e3 * eval_s / n_frames:.1f} ms/frame including the "
+          f"first frame; mIoU {metrics['mIoU']:.6f} VC {metrics['VC']:.6f}; "
           f"kernel launches {eval_counts}")
+    if any(eval_counts.values()):
+        raise SystemExit("the exact eval path launched a kernel")
 
+    # RAFT of both TC phases: the seeded init with the flow head scaled by
+    # 0.1, a trained-like step (the random init moves the flow ~20 px a
+    # refinement, and each refinement then amplifies f32 rounding ~8x)
+    iters, pairs = 20, n_frames - 1
+    raft = tc_cal.build_raft(tc_cal.build_parser().parse_args(
+        ["--dataroot", root, "--predroot", preds, "--allow_random_raft",
+         "--raft_iters", str(iters), "--seed", "0"]), "cpu")
+    with torch.no_grad():
+        raft.update_block.flow_head.conv2.weight.mul_(0.1)
+        raft.update_block.flow_head.conv2.bias.mul_(0.1)
+    raft_ckpt = os.path.join(work, "raft.pth")
+    os.makedirs(work, exist_ok=True)
+    torch.save(raft.state_dict(), raft_ckpt)
+
+    def run_tc(pred_dir, bucket):
+        reset()
+        t0 = time.perf_counter()
+        tc = tc_cal.main([
+            "--dataroot", root, "--predroot", pred_dir, "--num_class", str(k),
+            "--raft_ckpt", raft_ckpt, "--raft_iters", str(iters),
+            "--width_bucket", str(bucket)])
+        return tc, time.perf_counter() - t0, counts()
+
+    tc, tc_s, tc_counts = run_tc(preds, 0)
+    print(f"TC, exact shapes (RAFT {iters} iters, {pairs} pairs): "
+          f"{1e3 * tc_s / pairs:.1f} ms/pair; TC {tc:.6f}; kernel launches "
+          f"{tc_counts}")
+    for name, per_pair in (("corr_lookup", 20), ("sep_gru", 40)):
+        if tc_counts[name] != per_pair * pairs:
+            raise SystemExit(f"{name}: {tc_counts[name]} launches in the TC "
+                             f"phase, expected {per_pair * pairs}")
+
+    # the same eval and TC at the CLIs' defaults: width-bucketed.  The band
+    # re-zero's launches, derived from the code: in the R101 trunk the input
+    # of every spatial conv (ops/masked.py::masked_trunk), the stem max pool,
+    # C5 in encode_frame and in fuse_target; in RAFT the input of every
+    # spatial conv of both encoders, the 4 pyramid levels, a refinement's
+    # spatial convs of the motion encoder and flow head with the GRU's 4
+    # (x once, h before each pass and at the end), the mask head's spatial
+    # conv, the low-resolution flow, and the full-resolution flow in tc_cal.
+    # At 480x853 in the 480x896 bucket every one of them has a band.
+    def spatial_convs(module):
+        return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+                   for m in module.modules())
+
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+    per_frame = spatial_convs(build_encoder("resnet101dilated")) + 3
+    ub = raft.update_block
+    per_pair = (spatial_convs(raft.fnet) + spatial_convs(raft.cnet)
+                + raft.corr_levels
+                + iters * (spatial_convs(ub.encoder)
+                           + spatial_convs(ub.flow_head) + 4)
+                + spatial_convs(ub.mask) + 2)
+    preds_b = os.path.join(work, "preds_bucketed")
     reset()
     t0 = time.perf_counter()
-    tc = tc_cal.main([
-        "--dataroot", root, "--predroot", preds, "--num_class", str(k),
-        "--allow_random_raft", "--raft_iters", "20", "--seed", "0"])
-    tc_s = time.perf_counter() - t0
-    tc_counts = counts()
-    print(f"TC (RAFT 20 iters, {n_frames - 1} pairs): "
-          f"{1e3 * tc_s / (n_frames - 1):.1f} ms/pair; TC {tc:.6f}; "
-          f"kernel launches {tc_counts}")
-    for name, per_pair in (("corr_lookup", 20), ("sep_gru", 40)):
-        if tc_counts[name] != per_pair * (n_frames - 1):
-            raise SystemExit(f"{name}: {tc_counts[name]} launches in the TC "
-                             f"phase, expected {per_pair * (n_frames - 1)}")
+    metrics_b, _ = test_clip.main([
+        "--cfg", preset, "--dataroot", root, "--num_class", str(k),
+        "--method", "clip_psp", "--is_save", "--saveroot", preds_b,
+        "--seed", "0"])
+    eval_b_s = time.perf_counter() - t0
+    eval_b_counts = counts()
+    print(f"TCB-PSP streaming eval, bucketed (the default; buckets "
+          f"{metrics_b['buckets']}): {1e3 * eval_b_s / n_frames:.1f} ms/frame "
+          f"including the first frame (exact: "
+          f"{1e3 * eval_s / n_frames:.1f}); mIoU {metrics_b['mIoU']:.6f} VC "
+          f"{metrics_b['VC']:.6f}; band_zero {eval_b_counts['band_zero']} "
+          f"launches, {eval_b_counts['band_zero'] / n_frames:g} a frame "
+          f"(derived {per_frame}); kernel launches {eval_b_counts}")
+    if metrics_b["buckets"] != [(480, 896)]:
+        raise SystemExit(f"bucketed eval touched {metrics_b['buckets']}, "
+                         "expected the one bucket 480x896")
+    for name, n in eval_b_counts.items():
+        want = per_frame * n_frames if name == "band_zero" else 0
+        if n != want:
+            raise SystemExit(f"{name}: {n} launches in the bucketed eval, "
+                             f"expected {want}")
+
+    tc_b, tc_b_s, tc_b_counts = run_tc(preds_b, 64)
+    print(f"TC, bucketed (the default): {1e3 * tc_b_s / pairs:.1f} ms/pair "
+          f"(exact: {1e3 * tc_s / pairs:.1f}); TC {tc_b:.6f} (exact "
+          f"{tc:.6f}, |diff| {abs(tc_b - tc):.3e}, limit 1e-3); band_zero "
+          f"{tc_b_counts['band_zero'] / pairs:g} launches a pair (derived "
+          f"{per_pair}); kernel launches {tc_b_counts}")
+    for name, n in tc_b_counts.items():
+        want = {"corr_lookup": 20, "sep_gru": 40,
+                "band_zero": per_pair}.get(name, 0) * pairs
+        if n != want:
+            raise SystemExit(f"{name}: {n} launches in the bucketed TC, "
+                             f"expected {want}")
+    if not abs(tc_b - tc) <= 1e-3:
+        raise SystemExit("bucketed TC disagrees with exact TC")
+
+    # the bucket tax, host clock: the first run of a path also pays the
+    # first use of its shapes, so both are run again in the other order
+    # (exact, bucketed, bucketed, exact), without PNG dumps; "without set-up"
+    # drops the model build (evaluate_clip's frame times: the first prediction
+    # waits for the 10 encodes, the rest are fuses)
+    def frames_ms(m):
+        return (m["first_frame_ms"] + (n_frames - 1) * m["frame_ms"]) / n_frames
+
+    runs = {"exact": [(eval_s, metrics)], "bucketed": [(eval_b_s, metrics_b)]}
+    for policy in ("bucketed", "exact"):
+        t0 = time.perf_counter()
+        m, _ = test_clip.main([
+            "--cfg", preset, "--dataroot", root, "--num_class", str(k),
+            "--method", "clip_psp", "--eval_policy", policy, "--seed", "0"])
+        runs[policy].append((time.perf_counter() - t0, m))
+    tc_runs = {"exact": [tc_s], "bucketed": [tc_b_s]}
+    for bucket, pred_dir in ((64, preds_b), (0, preds)):
+        tc_runs["bucketed" if bucket else "exact"].append(
+            run_tc(pred_dir, bucket)[1])
+    tax = {}
+    for policy in ("exact", "bucketed"):
+        with_setup = [1e3 * t / n_frames for t, _ in runs[policy]]
+        without = [frames_ms(m) for _, m in runs[policy]]
+        pair_ms = [1e3 * t / pairs for t in tc_runs[policy]]
+        tax[policy] = {"eval_ms_per_frame": with_setup,
+                       "eval_ms_per_frame_without_setup": without,
+                       "tc_ms_per_pair": pair_ms}
+        print(f"{policy}, runs 1 and 2 (order exact, bucketed, bucketed, "
+              f"exact): eval {with_setup[0]:.1f}, {with_setup[1]:.1f} "
+              f"ms/frame with model set-up, {without[0]:.1f}, "
+              f"{without[1]:.1f} without; TC {pair_ms[0]:.1f}, "
+              f"{pair_ms[1]:.1f} ms/pair")
 
     def check_pngs(pred_dir, n):
         names = sorted(os.listdir(pred_dir))
@@ -764,8 +1041,27 @@ def main() -> int:
                                  f"max {pred.max()}")
 
     check_pngs(os.path.join(preds, "video_000"), n_frames)
-    if not all(np.isfinite(v) for v in (metrics["mIoU"], metrics["VC"], tc)):
+    check_pngs(os.path.join(preds_b, "video_000"), n_frames)
+    if not all(np.isfinite(v) for v in (metrics["mIoU"], metrics["VC"], tc,
+                                        metrics_b["mIoU"], metrics_b["VC"],
+                                        tc_b)):
         raise SystemExit("non-finite metric")
+
+    def pngs(pred_dir):
+        d = os.path.join(pred_dir, "video_000")
+        return [np.asarray(Image.open(os.path.join(d, n)))
+                for n in sorted(os.listdir(d))]
+
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.data import TestFrameDataset
+    eval_args = test_clip.build_eval_clip_parser().parse_args(
+        ["--cfg", preset, "--num_class", str(k), "--seed", "0"])
+    eval_cfg = default_cfg.clone()
+    eval_cfg.merge_from_file(preset)
+    ds = TestFrameDataset(root, "video_000", eval_args)
+    bucket_check = bucketed_vs_exact(
+        torch, test_clip.build_model(eval_cfg, eval_args, "cuda"),
+        [ds[i][0] for i in range(len(ds))], pngs(preds), pngs(preds_b))
 
     # the trainer: 4 videos of 12 frames (the 3,6,9 offsets need an anchor
     # with 9 frames after it), batch 2: two steps an epoch
@@ -819,7 +1115,8 @@ def main() -> int:
         m, _ = test_clip.main([
             "--cfg", preset, "--dataroot", root_v, "--num_class", str(k),
             "--method", method, *flags, "--vc_clip_num", "4",
-            "--is_save", "--saveroot", out_dir, "--seed", "0"])
+            "--width_bucket", "0", "--is_save", "--saveroot", out_dir,
+            "--seed", "0"])
         secs = time.perf_counter() - t0
         window_counts[path] = c = counts()
         print(f"{path} window eval (R101, 480x853, {n_v} frames): "
@@ -839,8 +1136,9 @@ def main() -> int:
         if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
             raise SystemExit(f"{path}: non-finite metric")
 
-    by_path = {"eval": eval_counts, "tc": tc_counts, "clip_psp": psp_counts,
-               "etc": etc_counts, **window_counts}
+    by_path = {"eval": eval_counts, "tc": tc_counts,
+               "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
+               "clip_psp": psp_counts, "etc": etc_counts, **window_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -857,7 +1155,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "also_at", "rel_err",
-            "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches")
+            "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches",
+            "two_slice_zero_ms", "bytes_written")
+    print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check}))
     print(json.dumps({"kernels": [{key: r[key] for key in keys if key in r}
                                   for r in rows]}))
     print(smi)

@@ -45,6 +45,9 @@ SIGNATURES = {
     "gru_flowhead": {
         "gru_flowhead_f32": [_P] * 17 + [_I] * 6 + [_P],
     },
+    "band_zero": {
+        "band_zero_f32": [_P] + [_I] * 5 + [_P],
+    },
     "local_agg": {
         "local_sigmoid_agg_f32": [_P] * 4 + [_I] * 6 + [_P],
         "local_softmax_agg_f32": [_P] * 4 + [_I] * 6 + [_F, _P],

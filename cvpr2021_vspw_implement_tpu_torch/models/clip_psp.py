@@ -21,6 +21,9 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_bilinear
+from ..ops.masked import (adaptive_avg_pool2d_rt, feature_valid,
+                          global_avg_pool_rt, mask_valid, masked_trunk,
+                          resize_bilinear_rt)
 from ..ops.pooling import adaptive_avg_pool2d, global_avg_pool
 from ..utils.metrics import pixel_acc
 from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
@@ -42,10 +45,17 @@ class PPMConv(nn.Module):
             BatchNorm2d(512), nn.ReLU(inplace=True), Dropout2d(0.1),
             Conv(512, num_class, 1))
 
-    def forward(self, target_c5, blended):
+    def forward(self, target_c5, blended, feat_valid=None):
         size = target_c5.shape[-2:]
-        out = [target_c5] + [resize_bilinear(m(f), size)
-                             for m, f in zip(self.ppm, blended)]
+        if feat_valid is None:
+            out = [target_c5] + [resize_bilinear(m(f), size)
+                                 for m, f in zip(self.ppm, blended)]
+        else:
+            # width-bucketed: the pyramid is resized onto the valid region
+            # and the concat is zero on the band, so the fuse conv is exact
+            out = [mask_valid(target_c5, feat_valid)] + [
+                resize_bilinear_rt(m(f), size, f.shape[-2:], feat_valid)
+                for m, f in zip(self.ppm, blended)]
         return self.conv_last_(torch.cat(out, 1))
 
 
@@ -66,18 +76,36 @@ class ClipPSP(nn.Module):
             self.pspweight_conv = nn.Sequential(Conv(fc_dim, 1, 1,
                                                      bias=False))
 
-    def fuse_target(self, target_c5, blended):
+    def fuse_target(self, target_c5, blended, feat_valid=None):
         """target_c5 [B, C, h, w]; blended: per-scale [B, C, s, s] → logits
-        [B, K, h, w]."""
-        return self.ppm_conv(target_c5, blended)
+        [B, K, h, w].  ``feat_valid``: the valid (rows, cols) of target_c5
+        in width-bucketed eval; its band is re-zeroed in place."""
+        return self.ppm_conv(target_c5, blended, feat_valid)
 
-    def encode_frame(self, img):
+    def encode_frame(self, img, valid_hw=None):
         """[B, 3, H, W] → (C5, per-scale pooled stats), plus the
-        ``psp_weight`` logit [B] when enabled: ``(c5, (pooled, wp))``."""
-        c5 = self.encoder(img)[-1]
-        pooled = [adaptive_avg_pool2d(c5, s) for s in self.pool_scales]
+        ``psp_weight`` logit [B] when enabled: ``(c5, (pooled, wp))``.
+
+        ``valid_hw``: the true (rows, cols) of the frame inside the
+        zero-padded bucket ``img`` (eval only, under inference mode).  The
+        trunk runs under the spatial-conv-input mask (ops/masked.py), C5 is
+        returned with a zero band, and the stats pool the valid region only:
+        they equal the unpadded run's."""
+        if valid_hw is None:
+            c5 = self.encoder(img)[-1]
+            pooled = [adaptive_avg_pool2d(c5, s) for s in self.pool_scales]
+            if self.psp_weight:
+                wp = global_avg_pool(self.pspweight_conv(c5)).reshape(-1)
+                return c5, (pooled, wp)
+            return c5, pooled
+        pad_hw = img.shape[-2:]
+        with masked_trunk(self.encoder, valid_hw, pad_hw):
+            c5 = self.encoder(img)[-1]
+        fv = feature_valid(c5.shape[2], c5.shape[3], valid_hw, pad_hw)
+        c5 = mask_valid(c5, fv)
+        pooled = [adaptive_avg_pool2d_rt(c5, s, fv) for s in self.pool_scales]
         if self.psp_weight:
-            wp = global_avg_pool(self.pspweight_conv(c5)).reshape(-1)
+            wp = global_avg_pool_rt(self.pspweight_conv(c5), fv).reshape(-1)
             return c5, (pooled, wp)
         return c5, pooled
 

@@ -10,12 +10,32 @@ on running statistics, since the flow subsystem is frozen.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from ...ops.masked import current_mask, feature_valid
+
+
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d(affine=False)``; under a width-bucket mask
+    context (ops/masked.py) the statistics cover the valid region only, the
+    one global reduction of the flow encoders that no conv-input mask
+    fixes."""
+
+    def forward(self, x):
+        ctx = current_mask()
+        if ctx is None:
+            return super().forward(x)
+        hv, wv = feature_valid(x.shape[-2], x.shape[-1], *ctx)
+        v = x[..., :hv, :wv].float()
+        mean = v.mean(dim=(-2, -1), keepdim=True)
+        var = (v - mean).square().mean(dim=(-2, -1), keepdim=True)
+        return ((x.float() - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
 def _norm(norm_fn: str, planes: int) -> nn.Module:
     if norm_fn == "instance":
-        return nn.InstanceNorm2d(planes)
+        return InstanceNorm2d(planes)
     if norm_fn == "batch":
         return nn.BatchNorm2d(planes)
     raise ValueError(f"norm_fn {norm_fn!r} is not ported")

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.masked import (feature_valid, mask_valid, mask_valid_hw2,
+                           masked_trunk)
 from .corr import build_corr_pyramid, lookup_corr_pyramid
 from .extractor import BasicEncoder
 from .update import BasicUpdateBlock
@@ -54,11 +56,33 @@ class RAFT(nn.Module):
         self.update_block = BasicUpdateBlock(hidden_dim, corr_levels,
                                              corr_radius)
 
-    def forward(self, image1, image2):
+    def forward(self, image1, image2, valid_hw=None):
+        """``valid_hw``: the true (rows, cols), a multiple of 8, of the
+        images inside a width-bucketed zero-padded grid (eval only, under
+        inference mode).  Both encoders and the update block then run under
+        the spatial-conv-input mask with masked InstanceNorm statistics and
+        GRU carries, every pyramid level is masked to its valid extent, and
+        so is the flow before the convex upsample (ops/masked.py): the
+        flow's valid region equals the unpadded run's."""
+        if valid_hw is None:
+            return self._forward(image1, image2, None)
+        pad_hw = image1.shape[-2:]
+        with masked_trunk(self, valid_hw, pad_hw):
+            return self._forward(image1, image2, (valid_hw, pad_hw))
+
+    def _forward(self, image1, image2, mask):
         image1 = 2 * (image1 / 255.0) - 1.0
         image2 = 2 * (image2 / 255.0) - 1.0
         fmap1, fmap2 = self.fnet(torch.cat([image1, image2], 0)).chunk(2, 0)
         pyramid = build_corr_pyramid(fmap1, fmap2, self.corr_levels)
+        if mask is not None:
+            # each level's valid extent is floor(prev / 2), as the unpadded
+            # pooling drops the odd tail; windows straddling the boundary
+            # must read zeros, as the unpadded run's out-of-range taps do
+            lv = feature_valid(*fmap1.shape[-2:], *mask)
+            for lev in pyramid:
+                mask_valid_hw2(lev, lv)
+                lv = (lv[0] // 2, lv[1] // 2)
 
         cnet = self.cnet(image1)
         net = torch.tanh(cnet[:, :self.hidden_dim])
@@ -75,6 +99,9 @@ class RAFT(nn.Module):
                                            taps)
             coords1 = coords1 + delta
         flow_low = coords1 - coords0
+        if mask is not None:
+            # the convex upsample's 3x3 taps at the boundary must read zeros
+            mask_valid(flow_low, feature_valid(*flow_low.shape[-2:], *mask))
         flow_up = upsample_flow_convex(flow_low,
                                        self.update_block.upsample_mask(net))
         return flow_low, flow_up

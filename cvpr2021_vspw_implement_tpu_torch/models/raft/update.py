@@ -4,9 +4,11 @@ RAFT_core/update.py).
 
 Up to ``FUSED_MAX_POSITIONS`` feature positions an iteration is two
 hand-written kernels: ``ops/motion_encoder.py`` and ``ops/gru_flowhead.py``.
-Above it the GRU's two passes go through the kernel of ``ops/sep_gru.py``
-and the motion encoder and the flow head stay ``F.conv2d``.  The mask head
-is a separate method so RAFT computes it once after the loop.
+Above it, and always under a width-bucket mask (ops/masked.py), the GRU's
+two passes go through the kernel of ``ops/sep_gru.py`` and the motion
+encoder and the flow head stay ``F.conv2d``: the fused chains do not
+re-mask between their convs.  The mask head is a separate method so RAFT
+computes it once after the loop.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from ...ops.gru_flowhead import gru_flowhead
+from ...ops.masked import current_mask, mask_current
 from ...ops.motion_encoder import conv_taps, motion_encoder
 from ...ops.sep_gru import sep_conv_gru_pass
 
@@ -59,9 +62,15 @@ class SepConvGRU(nn.Module):
         return out
 
     def forward(self, h, x, taps):
+        """Both passes.  Under a width-bucket mask the 5-tap gates would
+        carry band values into the valid region: x is re-zeroed once, h
+        before each pass and at the end (in place, the JAX masked
+        function)."""
+        x = mask_current(x)
         for axis, i in ((0, 1), (1, 2)):
-            h = sep_conv_gru_pass(h, x, *taps[f"zr{i}"], *taps[f"q{i}"], axis)
-        return h
+            h = sep_conv_gru_pass(mask_current(h), x, *taps[f"zr{i}"],
+                                  *taps[f"q{i}"], axis)
+        return mask_current(h)
 
 
 class BasicMotionEncoder(nn.Module):
@@ -113,7 +122,8 @@ class BasicUpdateBlock(nn.Module):
     def forward(self, net, inp, corr, flow, taps):
         """One refinement → (net', delta_flow); ``taps`` from
         :meth:`taps`."""
-        if net.shape[2] * net.shape[3] <= FUSED_MAX_POSITIONS:
+        if (current_mask() is None
+                and net.shape[2] * net.shape[3] <= FUSED_MAX_POSITIONS):
             motion = motion_encoder(corr, flow.contiguous(), taps["encoder"])
             return gru_flowhead(net, torch.cat([inp, motion], 1), taps["gru"])
         motion = self.encoder(flow, corr)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.interpolate import linear_weights, resize_bilinear
+from ..ops.masked import resize_bilinear_rt
 from .layers import log_softmax
 
 
@@ -62,4 +63,16 @@ def inference_pred(outputs, seg_size, align_corners: bool = False):
     the upsampled softmax (softmax is monotone; reference test.py:66-70)."""
     logits = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
     x = resize_bilinear(logits.float(), seg_size, align_corners=align_corners)
+    return torch.argmax(x, dim=1).to(torch.uint8)
+
+
+def inference_pred_rt(outputs, seg_pad, feat_valid, seg_valid,
+                      align_corners: bool = False):
+    """``inference_pred`` for width-bucketed eval: the logits' valid region
+    ``feat_valid`` resized to the true output size ``seg_valid`` on the
+    padded grid ``seg_pad`` (ops/masked.py), then the argmax.  Rows and
+    columns beyond ``seg_valid`` are garbage: the caller crops."""
+    logits = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+    x = resize_bilinear_rt(logits.float(), seg_pad, feat_valid, seg_valid,
+                           align_corners=align_corners)
     return torch.argmax(x, dim=1).to(torch.uint8)

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .masked import mask_current
+
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
     return F.adaptive_avg_pool2d(x, output_size)
@@ -17,5 +19,10 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool2d(3, stride 2, padding 1): the ResNet stem pool."""
-    return F.max_pool2d(x, 3, stride=2, padding=1)
+    """MaxPool2d(3, stride 2, padding 1): the ResNet stem pool.
+
+    Under a width-bucket mask context (ops/masked.py) the input's pad band
+    is re-zeroed first, in place: the pool is spatial and no conv hook
+    covers it.  Its input is post-ReLU (non-negative), so zeros in the band
+    give the unpadded run's -inf edge padding exactly."""
+    return F.max_pool2d(mask_current(x), 3, stride=2, padding=1)

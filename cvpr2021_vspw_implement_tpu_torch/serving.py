@@ -1,19 +1,111 @@
 """Streaming TCB-PSP inference: encode each frame once, reuse its pooled
-stats (JAX counterpart: serving.py ``_WindowStreamer``, ``ClipPSPStreamer``;
-exact shapes only).
+stats (JAX counterpart: serving.py ``_WindowStreamer``, ``ClipPSPStreamer``,
+``ClipPSPBucketEngine``, ``ExactShapeEngine``, ``video_shape_census``).
 
 The blend only consumes each frame's pooled PPM statistics (at most 6x6xC)
 and the target's C5 map, so each video frame is encoded exactly once, its
 stats cached, and windows fused as their future context arrives.
 Predictions equal the window forward (``ClipPSP.forward``).
+
+An engine decides the shapes a frame runs at: ``ClipPSPBucketEngine`` pads
+it to its width bucket and runs the masked model (ops/masked.py);
+``ExactShapeEngine`` and no engine run it at its own shape.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+from PIL import Image
 
-from .models.segmentation import inference_pred
+from .models.segmentation import inference_pred, inference_pred_rt
+from .ops.masked import bucket_hw, feature_valid, pad_to
+
+
+class ExactShapeEngine:
+    """Frames at their own shape (the ``exact`` leg of ``--eval_policy``).
+    The JAX package caches one compiled kernel per shape here; eager
+    PyTorch has nothing to compile, so the engine only records the shapes
+    it ran (``encode_shapes``).  The frame goes to the model as a permuted
+    HWC view, as the streamer without an engine gives it."""
+
+    def __init__(self, model, device=None):
+        self.model = model
+        self.device = torch.device(device) if device is not None \
+            else next(model.parameters()).device
+        self._shapes: set[tuple[int, int]] = set()
+
+    @property
+    def encode_shapes(self):
+        return sorted(self._shapes)
+
+    def encode(self, frame: np.ndarray):
+        """frame [H, W, 3] normalized → the model's per-frame cache."""
+        self._shapes.add(tuple(frame.shape[:2]))
+        img = torch.from_numpy(np.ascontiguousarray(frame)).to(
+            self.device).permute(2, 0, 1)[None]
+        return self.model.encode_frame(img)
+
+    def fuse(self, c5, blended, true_hw) -> np.ndarray:
+        """Fuse and argmax at the frame's size → [H, W] uint8."""
+        logits = self.model.fuse_target(c5, blended)
+        return inference_pred(logits, true_hw)[0].cpu().numpy()
+
+
+class ClipPSPBucketEngine(ExactShapeEngine):
+    """Width-bucketed ClipPSP eval, shared by all videos of a run: each
+    frame is zero-padded to ``bucket_hw`` (width to a multiple of
+    ``bucket``, height to the stride 32) as contiguous NCHW, and the masked
+    ``encode_frame`` / ``fuse_target`` take its true size.  Predictions on
+    the valid region equal the exact run's up to the order of f32 sums.
+    ``encode_shapes`` holds one entry per bucket touched."""
+
+    def __init__(self, model, bucket: int = 64):
+        if bucket % 32:
+            raise ValueError("bucket must cover the encoder stride (32)")
+        super().__init__(model)
+        self.bucket = bucket
+
+    def pad_hw(self, h: int, w: int) -> tuple[int, int]:
+        return bucket_hw(h, w, self.bucket)
+
+    def encode(self, frame: np.ndarray):
+        """frame [H, W, 3] normalized → (C5 on the bucket grid with a zero
+        band, the stats of the true frame)."""
+        h, w = frame.shape[:2]
+        key = self.pad_hw(h, w)
+        self._shapes.add(key)
+        img = pad_to(torch.from_numpy(np.ascontiguousarray(frame)).to(
+            self.device).permute(2, 0, 1)[None], key)
+        return self.model.encode_frame(img, valid_hw=(h, w))
+
+    def fuse(self, c5, blended, true_hw) -> np.ndarray:
+        """Fuse and argmax at the true size ``true_hw`` → [H, W] uint8."""
+        h, w = true_hw
+        key = self.pad_hw(h, w)
+        fv = feature_valid(c5.shape[2], c5.shape[3], (h, w), key)
+        logits = self.model.fuse_target(c5, blended, feat_valid=fv)
+        pred = inference_pred_rt(logits, key, fv, (h, w))
+        return pred[0, :h, :w].cpu().numpy()
+
+
+def video_shape_census(dataroot, videos):
+    """({(h, w): total frames}, {video: (h, w)}) from the first frame's
+    header of each video (PIL reads the size without decoding): what
+    ``--eval_policy auto`` decides by."""
+    census, shapes = {}, {}
+    for v in videos:
+        d = os.path.join(dataroot, "data", v, "origin")
+        frames = os.listdir(d)
+        if not frames:
+            continue
+        with Image.open(os.path.join(d, sorted(frames)[0])) as im:
+            w, h = im.size
+        shapes[v] = (h, w)
+        census[(h, w)] = census.get((h, w), 0) + len(frames)
+    return census, shapes
 
 
 class _WindowStreamer:
@@ -21,12 +113,12 @@ class _WindowStreamer:
     member's cached stats are available."""
 
     def __init__(self, model, dilation2, num_frames: int, seg_size,
-                 device="cuda"):
+                 device="cuda", engine=None):
         self.model = model
         self.dilation2 = list(dilation2)
         self.n = num_frames
         self.seg_size = tuple(seg_size)
-        self.device = torch.device(device)
+        self.engine = engine or ExactShapeEngine(model, device)
 
     def context_indices(self, i: int) -> list[int]:
         """Window offsets with the reference's end-of-video flip
@@ -46,17 +138,16 @@ class _WindowStreamer:
         feat_buffer: dict[int, torch.Tensor] = {}
         next_to_fuse = 0
         for j, frame in enumerate(frames_iter):
-            img = torch.from_numpy(np.ascontiguousarray(frame)).to(
-                self.device).permute(2, 0, 1)[None]
-            feat_buffer[j], stats_cache[j] = self._encode(img)
+            feat_buffer[j], stats_cache[j] = self.engine.encode(frame)
             while next_to_fuse < self.n:
                 i = next_to_fuse
                 ctx = self.context_indices(i)
                 if any(k > j for k in [i] + ctx):
                     break
-                pred = self._fuse(feat_buffer.pop(i),
-                                  self._blend(stats_cache, [i] + ctx))
-                yield i, pred[0].cpu().numpy()
+                yield i, self.engine.fuse(feat_buffer.pop(i),
+                                          self._blend(stats_cache,
+                                                      [i] + ctx),
+                                          self.seg_size)
                 next_to_fuse += 1
 
 
@@ -65,13 +156,6 @@ class ClipPSPStreamer(_WindowStreamer):
     with ``psp_weight``, its weight logit; the blend keeps the reference's
     off-by-one pairing (features [target, ctx...], softmax weights in input
     order [ctx..., target], clip_psp.py:147-187), then takes the mean."""
-
-    def _encode(self, img):
-        return self.model.encode_frame(img)
-
-    def _fuse(self, c5, blended):
-        logits = self.model.fuse_target(c5, blended)
-        return inference_pred(logits, self.seg_size)
 
     def _blend(self, cache, idxs):
         if not self.model.psp_weight:

@@ -1,12 +1,15 @@
-"""TC (temporal consistency) metric driver (JAX counterpart: tc_cal.py,
-exact-shape path; reference TC_cal.py:41-125).
+"""TC (temporal consistency) metric CLI (JAX counterpart: tc_cal.py;
+reference TC_cal.py:41-125).
 
 For each adjacent frame pair of each video: RAFT flow from frame t to t+1
 on the /8-padded pair, nearest warp of the t+1 prediction back onto t, and
 mIoU between the t prediction and the warped one, accumulated over all pairs
-of the first ``--max_videos`` videos.  ``--raft_ckpt`` takes a port
-checkpoint (``torch.save`` of the RAFT ``state_dict``); random weights,
-which make the score meaningless, need ``--allow_random_raft``.
+of the first ``--max_videos`` videos.  By default (``--width_bucket 64``, as
+the JAX CLI) each pair is padded to its width bucket and RAFT runs masked at
+the reference's /8 geometry inside it; ``--width_bucket 0`` runs exact
+shapes.  ``--raft_ckpt`` takes a port checkpoint (``torch.save`` of the RAFT
+``state_dict``); random weights, which make the score meaningless, need
+``--allow_random_raft``.
 
     python -m cvpr2021_vspw_implement_tpu_torch.tc_cal --dataroot DATA \\
         --predroot PREDS --allow_random_raft --device cpu
@@ -23,6 +26,7 @@ from PIL import Image
 
 from .models.layers import init_weights
 from .models.raft import RAFT, pad_to_multiple_of_8, unpad
+from .ops.masked import bucket_hw, mask_valid, pad_to
 from .ops.warp import flowwarp
 from .utils import Evaluator, resolve_device, setup_logger
 
@@ -41,6 +45,10 @@ def build_parser():
     p.add_argument("--allow_random_raft", action="store_true")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random RAFT init")
+    p.add_argument("--width_bucket", type=int, default=64,
+                   help="pad each frame pair to this width multiple (heights "
+                        "to 32) and run the masked RAFT at the reference /8 "
+                        "geometry inside the bucket; 0 = exact shapes")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -67,6 +75,42 @@ def warp_next_pred(model, img1, img2, next_pred):
     flow = unpad(flow, pads)
     warped = flowwarp(next_pred[:, None].float(), flow, mode="nearest")
     return warped[:, 0].to(torch.int32)
+
+
+@torch.inference_mode()
+def warp_next_pred_bucketed(model, img1p, img2p, next_predp, hv: int,
+                            wv: int):
+    """``warp_next_pred`` on a pair zero-padded to its bucket (contiguous
+    [1, 3, Hp, Wp] and [1, Hp, Wp]) whose true size is (hv, wv); the
+    result's valid region is the exact run's, the rest garbage (JAX
+    ``step_bucketed``).  The reference's symmetric /8 InputPadder is
+    emulated inside the bucket: the images roll to the (top, left) pad
+    offset, the masked RAFT runs to the /8-aligned extent, and the flow
+    rolls back."""
+    pad_h = (((hv // 8) + 1) * 8 - hv) % 8
+    pad_w = (((wv // 8) + 1) * 8 - wv) % 8
+    top, left = pad_h // 2, pad_w // 2
+    r1 = torch.roll(img1p, (top, left), (2, 3))
+    r2 = torch.roll(img2p, (top, left), (2, 3))
+    _, flow = model(r1, r2, valid_hw=(hv + pad_h, wv + pad_w))
+    flow = mask_valid(torch.roll(flow, (-top, -left), (2, 3)), (hv, wv))
+    warped = flowwarp(next_predp[:, None].float(), flow, mode="nearest",
+                      valid_hw=(hv, wv))
+    return warped[:, 0].to(torch.int32)
+
+
+def run_pair(model, img1, img2, next_pred, width_bucket: int):
+    """img1/img2 [1, 3, H, W], next_pred [1, H, W] on the device → the next
+    prediction warped onto frame t at [1, H, W]: exact shapes when
+    ``width_bucket`` is 0, else padded to the bucket and cropped back."""
+    if not width_bucket:
+        return warp_next_pred(model, img1, img2, next_pred)
+    h, w = img1.shape[-2:]
+    key = bucket_hw(h, w, width_bucket)
+    out = warp_next_pred_bucketed(model, pad_to(img1, key),
+                                  pad_to(img2, key), pad_to(next_pred, key),
+                                  h, w)
+    return out[:, :h, :w]
 
 
 def compute_tc(args, model=None, logger=None) -> float:
@@ -96,10 +140,10 @@ def compute_tc(args, model=None, logger=None) -> float:
                 os.path.join(args.predroot, video, stem(name))))[None]
             next_pred = load(os.path.join(args.predroot, video, stem(nxt)),
                              np.int32)
-            warped = warp_next_pred(
+            warped = run_pair(
                 model, img1.permute(2, 0, 1)[None].to(device),
                 img2.permute(2, 0, 1)[None].to(device),
-                next_pred[None].to(device))
+                next_pred[None].to(device), args.width_bucket)
             evaluator.add_batch(pred, warped.cpu().numpy())
         logger.info(f"TC: processed {video}")
     tc = evaluator.Mean_Intersection_over_Union()

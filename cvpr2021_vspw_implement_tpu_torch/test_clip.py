@@ -2,18 +2,25 @@
 test_clip2.py).
 
 ``--method clip_psp`` streams (serving.py: every frame is encoded once and
-each window fused as its context arrives).  ``--method our_warp`` and
-``--method ETC`` take the window path: per eval frame, its centred
-``clip_num`` neighbourhood (``TestClipDataset``) and the frame itself,
-target last, go through the model at once.  Global and per-video mIoU, VC,
-and optional palette PNG dumps (``--is_save``).  Exact shapes only.  Flags
-keep the JAX CLI's names.  ``--load`` takes a port checkpoint
-(``torch.save`` of the model's ``state_dict``, or the trainer's
-``model_epoch_N.pth``); without it the weights are a seeded random init.
+each window fused as its context arrives), by default width-bucketed: each
+frame is padded to its bucket (``--width_bucket 64``; heights to the stride
+32) and the masked model takes its true size (ops/masked.py).
+``--eval_policy exact`` runs every frame at its own shape, and ``auto`` runs
+a shape exactly where the val list holds at least ``--exact_min_frames`` of
+its frames (the JAX CLI's policy and defaults).  ``--method our_warp`` and
+``--method ETC`` take the window path at exact shapes only, and need
+``--width_bucket 0``: per eval frame, its centred ``clip_num``
+neighbourhood (``TestClipDataset``) and the frame itself, target last, go
+through the model at once.  Global and per-video mIoU, VC, and optional
+palette PNG dumps (``--is_save``).  Flags keep the JAX CLI's names.
+``--load`` takes a port checkpoint (``torch.save`` of the model's
+``state_dict``, or the trainer's ``model_epoch_N.pth``); without it the
+weights are a seeded random init.
 
     python -m cvpr2021_vspw_implement_tpu_torch.test_clip \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup_clip.yaml \\
-        --dataroot DATA --num_class 124 --method our_warp --device cpu
+        --dataroot DATA --num_class 124 --method our_warp --width_bucket 0 \
+        --device cpu
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from .data import TestClipDataset, TestFrameDataset, list_videos
 from .methods import build_method
 from .models.layers import init_weights
 from .models.segmentation import inference_pred
-from .serving import ClipPSPStreamer
+from .serving import (ClipPSPBucketEngine, ClipPSPStreamer,
+                      ExactShapeEngine, video_shape_census)
 from .utils import (Evaluator, get_common, resolve_device, setup_logger,
                     vspw_palette)
 
@@ -73,6 +81,21 @@ def build_eval_clip_parser():
     p.add_argument("--temp", type=float, default=3)
     p.add_argument("--max_distances", type=str, default="10")
     p.add_argument("--max_videos", type=int, default=0)
+    p.add_argument("--width_bucket", type=int, default=64,
+                   help="pad eval frame widths to multiples of this "
+                        "(heights to the stride, 32) and run the masked "
+                        "model at the true size (ops/masked.py); 0 = exact "
+                        "shapes.  clip_psp only: the window methods need 0")
+    p.add_argument("--eval_policy", choices=("bucketed", "exact", "auto"),
+                   default="bucketed",
+                   help="clip_psp streaming: 'bucketed' pads to the width "
+                        "bucket, 'exact' runs each frame at its shape, "
+                        "'auto' runs a shape exactly where the val list "
+                        "holds at least --exact_min_frames of its frames")
+    p.add_argument("--exact_min_frames", type=int, default=15000,
+                   help="auto policy: frames a shape needs across the val "
+                        "list to run exactly (the JAX CLI's default, set "
+                        "for its compile cost on a TPU)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p
@@ -88,12 +111,13 @@ def build_model(cfg, args, device) -> torch.nn.Module:
     return model.to(device).eval()
 
 
-def _stream_clip_psp(model, ds, dilation2, device):
+def _stream_clip_psp(model, ds, dilation2, device, engine=None):
     """(index, prediction, label, PNG name) of every frame of ``ds``,
-    streaming."""
+    streaming through ``engine`` (exact shapes when None)."""
     items = [ds[i] for i in range(len(ds))]
     streamer = ClipPSPStreamer(model, dilation2, len(ds),
-                               items[0][0].shape[:2], device=device)
+                               items[0][0].shape[:2], device=device,
+                               engine=engine)
     for i, pred in streamer.run(it[0] for it in items):
         yield i, pred, items[i][1], items[i][2]
 
@@ -117,9 +141,17 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     (metrics, per-video mIoU)."""
     logger = logger or setup_logger()
     device = resolve_device(args.device)
+    streaming = args.method == "clip_psp"
+    # the trainer's validation passes its own args: exact shapes there
+    bucket = getattr(args, "width_bucket", 0)
+    policy = getattr(args, "eval_policy", "bucketed")
+    if bucket and not streaming:
+        raise ValueError(
+            f"--method {args.method} runs exact shapes only: pass "
+            "--width_bucket 0 (bucketing of the window path, with a runtime "
+            "valid size in the B5 kernel, is ROADMAP Queue A item 1)")
     if model is None:
         model = build_model(cfg, args, device)
-    streaming = args.method == "clip_psp"
     if streaming:
         dil = args.dilation2
         dilation2 = [int(d) for d in dil.split(",")] if isinstance(dil, str) \
@@ -133,11 +165,28 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     videos = list_videos(args.dataroot, args.split)
     if args.max_videos:
         videos = videos[:args.max_videos]
+    # the eval-shape policy (JAX test_clip.py:416-467): one bucketed engine
+    # shared by all videos; 'exact' and 'auto' run shapes exactly, 'auto'
+    # where the val list holds enough frames of the shape
+    engine = exact_engine = census = None
+    if streaming:
+        if policy != "exact" and bucket:
+            engine = ClipPSPBucketEngine(model, bucket=bucket)
+        if policy in ("exact", "auto"):
+            exact_engine = ExactShapeEngine(model, device)
+            if policy == "auto":
+                census, vshapes = video_shape_census(args.dataroot, videos)
     frame_s = []      # wall time of each prediction: decode, forward, argmax
     for video in videos:
         if streaming:
             ds = TestFrameDataset(args.dataroot, video, args)
-            preds = _stream_clip_psp(model, ds, dilation2, device)
+            eng = engine
+            if policy == "exact" or (
+                    policy == "auto"
+                    and census.get(vshapes.get(video), 0)
+                    >= getattr(args, "exact_min_frames", 15000)):
+                eng = exact_engine
+            preds = _stream_clip_psp(model, ds, dilation2, device, eng)
         else:
             ds = TestClipDataset(args.dataroot, video, args)
             preds = _windows(model, ds, device)
@@ -163,6 +212,8 @@ def evaluate_clip(cfg, args, model=None, logger=None):
                     + (" (streaming)" if streaming else ""))
 
     metrics = {
+        # the bucketed engine's (h, w) buckets touched, else []
+        "buckets": engine.encode_shapes if engine is not None else [],
         "Acc": evaluator.Pixel_Accuracy(),
         "Acc_class": evaluator.Pixel_Accuracy_Class(),
         "mIoU": evaluator.Mean_Intersection_over_Union(),

@@ -76,7 +76,8 @@ def runs(tmp_path_factory):
     pmetrics, _ = test_clip.main([
         "--cfg", PRESET, "--dataroot", root, "--num_class", str(K),
         "--method", "clip_psp", "--load", ckpt, "--is_save",
-        "--saveroot", str(tmp / "port_preds"), "--device", "cpu"])
+        "--saveroot", str(tmp / "port_preds"), "--width_bucket", "0",
+        "--device", "cpu"])
     return (root, (jmetrics, str(tmp / "jax_preds")),
             (pmetrics, str(tmp / "port_preds")), tmp)
 
@@ -120,6 +121,7 @@ def test_tc_cal_cli_matches_jax(runs):
                ckpt)
     tc_port = tc_cal.main([
         "--dataroot", root, "--predroot", pdir, "--num_class", str(K),
-        "--raft_ckpt", ckpt, "--raft_iters", "3", "--device", "cpu"])
+        "--raft_ckpt", ckpt, "--raft_iters", "3", "--width_bucket", "0",
+        "--device", "cpu"])
     assert np.isfinite(tc_port)
     assert abs(tc_port - tc_jax) <= 1e-3

@@ -15,7 +15,7 @@ overall, on the near-match inputs of ``local_agg_inputs``, whose window
 weights are far from uniform and whose softmax scores stay far from the
 pole of 1 / (dist * temp + 1e-5)); nearest must pick the same value except
 where the two largest in-image window distances lie within 1e-4
-relative.
+relative.  The band re-zero (B6) only stores zeros: bitwise equal.
 """
 
 import os
@@ -33,6 +33,8 @@ from torch_port_util import (gru_flowhead_inputs, gru_inputs,  # noqa: E402
 from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (  # noqa: E402
     lookup_corr_pyramid, lookup_corr_pyramid_plain)
 from cvpr2021_vspw_implement_tpu_torch.ops import local_agg  # noqa: E402
+from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import (  # noqa: E402
+    band_zero, band_zero_plain)
 from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import (  # noqa: E402
     gru_flowhead, gru_flowhead_plain)
 from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import (  # noqa: E402
@@ -135,3 +137,42 @@ def test_local_agg_kernel_matches_plain(cuda_device, mode, b, h, w, r):
     tie = (top[:, 0] < 1e19) & (top[:, 0] - top[:, 1] <= 1e-4 * top[:, 0].abs())
     keep = ~tie[:, None].expand_as(got)
     torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,hv,wv", [
+    ((1, 256, 60, 112), 60, 107),      # R101 bucket feature: columns only
+    ((2, 64, 64, 112), 60, 107),       # batch 2, both bands
+    ((2, 32, 64, 112), 57, 112),       # rows only
+    ((1, 16, 31, 57), 29, 53),         # odd W: no 16-byte stores
+    ((1200, 1, 30, 56), 30, 53),       # a correlation-pyramid level
+    ((3, 5, 7), 0, 4),                 # every row is band
+])
+def test_band_zero_kernel_matches_plain(cuda_device, shape, hv, wv):
+    x = torch.randn(*shape, device=cuda_device)
+    want = band_zero_plain(x.clone(), hv, wv)
+    before = band_zero.launches
+    got = band_zero(x, hv, wv)
+    torch.cuda.synchronize()
+    assert got is x and band_zero.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_band_zero_kernel_no_band_no_launch(cuda_device):
+    x = torch.randn(2, 8, 60, 112, device=cuda_device)
+    want = x.clone()
+    before = band_zero.launches
+    assert band_zero(x, 60, 112) is x
+    assert band_zero.launches == before and torch.equal(x, want)
+
+
+@pytest.mark.cuda
+def test_band_zero_kernel_refuses_strided_and_grad(cuda_device):
+    x = torch.randn(1, 4, 60, 112, device=cuda_device)
+    before = band_zero.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        band_zero(x.permute(0, 2, 3, 1), 50, 3)
+    with pytest.raises(ValueError, match="requires grad"):
+        band_zero(x.requires_grad_(), 50, 100)
+    assert band_zero.launches == before

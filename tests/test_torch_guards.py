@@ -44,6 +44,7 @@ FORBIDDEN = ("jax", "flax", "cvpr2021_vspw_implement_tpu")
 def _port_sources():
     yield os.path.join(PORT, os.pardir, "chip_smoke.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_step_profile.py")
+    yield os.path.join(PORT, os.pardir, "tools", "torch_bucket_profile.py")
     for d, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
@@ -71,8 +72,10 @@ def test_port_imports_no_jax():
             "parallel/train_state.py", "data/loader.py", "config/args.py",
             "utils/checkpoint.py", "ops/motion_encoder.py",
             "ops/gru_flowhead.py", "ops/local_pairwise.py",
-            "ops/local_agg.py", "models/warp_our.py", "../chip_smoke.py",
-            "../tools/torch_step_profile.py"} <= set(seen)
+            "ops/local_agg.py", "models/warp_our.py", "ops/masked.py",
+            "ops/band_zero.py", "serving.py", "../chip_smoke.py",
+            "../tools/torch_step_profile.py",
+            "../tools/torch_bucket_profile.py"} <= set(seen)
 
 
 def test_entry_points_default_to_cuda(tmp_path):

@@ -95,7 +95,8 @@ def test_window_eval_cli_matches_jax(root, tmp_path, run):
     pm, _ = test_clip.main([
         "--cfg", PRESET, "--dataroot", root, "--num_class", str(K),
         "--method", method, "--max_distances", "2", *flags, "--load", ckpt,
-        "--is_save", "--saveroot", str(tmp_path / "port"), "--device", "cpu"])
+        "--is_save", "--saveroot", str(tmp_path / "port"), "--width_bucket", "0",
+        "--device", "cpu"])
 
     jdir, pdir = tmp_path / "jax" / "video_000", tmp_path / "port" / "video_000"
     names = sorted(os.listdir(jdir))
