@@ -3,16 +3,21 @@
     python3 chip_smoke.py
 
 1. prints the card (name, and name and power limit from nvidia-smi);
-2. builds the CUDA kernels from ``kernels/csrc`` with nvcc (in parallel);
+2. builds the CUDA kernels from ``kernels/csrc`` with nvcc (in parallel)
+   and prints ptxas's registers, spills and shared memory of the
+   tensor-core kernels;
 3. holds each kernel against its plain PyTorch version at the main paths'
-   shapes (corr lookup and GRU pass: TC at VSPW-480p, 60x107 RAFT features;
+   shapes (corr lookup: TC at VSPW-480p, 60x107 RAFT features; GRU pass:
+   60x107 and the 60x112 bucket;
    corr lookup, motion encoder and GRU + flow head: the 479 training crop,
    batch 2, 60x60; the three local aggregations of our_warp: 1x60x107,
    128-d distances, 256-d values, r = 10; the band re-zero: R101 features
    and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
    and a no-band case, bitwise)
    with TF32 off, and times kernel, plain version, bound and the PyTorch
-   yardstick;
+   yardstick; then times one refinement of RAFT's update block by its fused
+   route (B2 + B3) and its unfused one (cuDNN + B4 + cuDNN) at 2x60x60 and
+   1x60x107;
 4. drives the main paths through the user entry points, the kernel launch
    counts zeroed just before each path and read just after:
    a. TCB-PSP streaming eval (``test_clip --eval_policy exact --width_bucket
@@ -57,6 +62,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# f32-accurate products on the tensor cores: 3xTF32 (three TF32 products for
+# each f32 one) at a third of the dense TF32 rate, 495 TFLOP/s
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 
 def cuda_ms(fn, n=20, warm=3):
@@ -167,9 +175,6 @@ def check_corr_lookup(torch, g, b, h, w, levels=4):
 def check_kernels(torch):
     """Each kernel vs plain at the shapes the paths give it; returns the
     kernels' JSON rows (launches filled in later)."""
-    from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (
-        sep_conv_gru_pass, sep_conv_gru_pass_plain)
-
     g = torch.Generator(device="cuda").manual_seed(0)
     # both shapes the paths give the lookup: TC at 480x853 (one pair) and
     # the ETC train step (the 479 crop padded to 480, batch 2)
@@ -187,7 +192,46 @@ def check_kernels(torch):
         **at_tc, "also_at": [at_train, one_level],
     }
 
-    h, w = 60, 107
+    # both shapes TC gives the GRU pass: 60x107 exact, 60x112 bucketed
+    k2 = {
+        "name": "sep_gru", "route": "cuda",
+        "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/sep_gru.cu",
+        "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/gru.py:178",
+        **check_sep_gru(torch, g, 60, 107),
+        "also_at": [check_sep_gru(torch, g, 60, 112)],
+    }
+    rows = [k1, k2, *check_update_kernels(torch, g), *check_local_agg(torch),
+            check_band_zero(torch)]
+    for k in [*rows, {"name": "corr_lookup", **at_train},
+              {"name": "corr_lookup", **one_level},
+              {"name": "sep_gru", **k2["also_at"][0]}]:
+        simt = (f", f32 CUDA-core bound {k['bound_f32_simt_ms']:.4f} ms"
+                if "bound_f32_simt_ms" in k else "")
+        print(f"{k['name']} at {k['shape']}: kernel {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}){simt}")
+    return rows
+
+
+def tensor_core_bound(row, flops, nbytes):
+    """The bounds of a kernel of f32 convolutions (B2-B4): ``bound_ms`` at
+    the f32-accurate tensor-core rate (3xTF32, 165 TFLOP/s), and
+    ``bound_f32_simt_ms`` at the CUDA cores' f32 rate, either against the
+    bytes.  The second is printed and goes to the extra JSON line, not to
+    the kernels line."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / TF32X3_FLOP_PER_S
+    row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+    row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    row["bound_f32_simt_ms"] = 1e3 * max(flops / F32_FLOP_PER_S, t_bytes)
+
+
+def check_sep_gru(torch, g, h, w):
+    """The GRU-pass kernel vs plain at 1 x h x w (hd 128, cx 256), both
+    axes (limit 1e-4); returns its numbers per pass, the mean of the axes."""
+    from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (
+        sep_conv_gru_pass, sep_conv_gru_pass_plain)
+
     p = h * w
     hd, cx = 128, 256
     hh = torch.tanh(torch.randn(1, hd, h, w, device="cuda", generator=g))
@@ -211,33 +255,33 @@ def check_kernels(torch):
         times["library_ms"] += cuda_ms(
             lambda: sep_conv_gru_pass_plain(*args))
         torch.backends.cudnn.allow_tf32 = False
-    err2 = max(errs)
-    print(f"sep_gru: max |kernel - plain| = {err2:.3e} over both axes "
-          "(limit 1e-4)")
-    if not err2 <= 1e-4:
-        raise SystemExit("sep_gru kernel disagrees with its plain version")
-    flops = 2 * p * 5 * (hd + cx) * 3 * hd
-    nbytes = 4 * (p * (hd + cx + hd) + 5 * (hd + cx) * 3 * hd + 3 * hd)
-    t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    k2 = {
-        "name": "sep_gru", "route": "cuda",
-        "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/sep_gru.cu",
-        "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/gru.py:178",
-        "shape": f"1x{h}x{w}", "max_abs_err": err2,
-        # per pass, the mean of the two axes
-        "ms": times["ms"] / 2, "plain_ms": times["plain_ms"] / 2,
-        "library_ms": times["library_ms"] / 2,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
-    rows = [k1, k2, *check_update_kernels(torch, g), *check_local_agg(torch),
-            check_band_zero(torch)]
-    for k in [*rows, {"name": "corr_lookup", **at_train},
-              {"name": "corr_lookup", **one_level}]:
-        print(f"{k['name']} at {k['shape']}: kernel {k['ms']:.4f} ms, plain "
-              f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
-    return rows
+    err = max(errs)
+    print(f"sep_gru at 1x{h}x{w}: max |kernel - plain| = {err:.3e} over both "
+          "axes (limit 1e-4)")
+    if not err <= 1e-4:
+        raise SystemExit(f"sep_gru kernel disagrees with its plain version "
+                         f"at 1x{h}x{w}")
+    row = {"shape": f"1x{h}x{w}", "max_abs_err": err,
+           # per pass, the mean of the two axes
+           **{k: t / 2 for k, t in times.items()}}
+    tensor_core_bound(
+        row, 2 * p * 5 * (hd + cx) * 3 * hd,
+        4 * (p * (hd + cx + hd) + 5 * (hd + cx) * 3 * hd + 3 * hd))
+    return row
+
+
+def ptxas_lines(log):
+    """``ptxas -v`` lines of the tensor-core kernels in an nvcc log: each
+    kernel's mangled name (which carries its tap shape and epilogue),
+    registers, spills and static shared memory."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and "tap_mma_kernel" in name and (
+                "registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
 
 
 def check_update_kernels(torch, g):
@@ -265,11 +309,6 @@ def check_update_kernels(torch, g):
         row["library_ms"] = cuda_ms(lambda: plain(*args))
         torch.backends.cudnn.allow_tf32 = False
 
-    def bound(row, flops, nbytes):
-        t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
-        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-
     def n_weights(ws):
         return sum(wt.numel() + bias.numel() for wt, bias in ws.values())
 
@@ -293,7 +332,7 @@ def check_update_kernels(torch, g):
           "source": csrc + "motion_encoder.cu", "replaces": pallas + ":375",
           "shape": f"{b}x{h}x{w}", "max_abs_err": err}
     timed(k3, motion_encoder, motion_encoder_plain, (corr, flow, mw))
-    bound(k3, 2 * b * p * (ck * 256 + 9 * 256 * 192 + 98 * 128 + 9 * 128 * 64
+    tensor_core_bound(k3, 2 * b * p * (ck * 256 + 9 * 256 * 192 + 98 * 128 + 9 * 128 * 64
                            + 9 * 256 * 126),
           4 * (b * p * (ck + 2 + 128) + n_weights(mw)))
 
@@ -317,9 +356,67 @@ def check_update_kernels(torch, g):
           "source": csrc + "gru_flowhead.cu", "replaces": pallas + ":396",
           "shape": f"{b}x{h}x{w}", "max_abs_err": err}
     timed(k4, gru_flowhead, gru_flowhead_plain, (net, x, gw))
-    bound(k4, 2 * b * p * (2 * 5 * cin * 3 * hd + 9 * hd * cf + 9 * cf * 2),
+    tensor_core_bound(k4, 2 * b * p * (2 * 5 * cin * 3 * hd + 9 * hd * cf + 9 * cf * 2),
           4 * (b * p * (hd + cx + hd + 2) + n_weights(gw)))
     return [k3, k4]
+
+
+def update_block_routes(torch):
+    """One refinement of RAFT's update block by each of its two routes, on
+    CUDA events with TF32 off (as the CLIs run): fused, the motion encoder
+    (B2) then the GRU + flow head (B3); unfused, cuDNN's encoder, the two
+    GRU passes (B4) and cuDNN's flow head.  At the ETC train shape (2x60x60,
+    under the model's 4096-position gate: fused) and the TC shape (1x60x107,
+    above it: unfused).  The routes compute one function: their outputs
+    agree within 1e-4 of the largest.  Returns {shape: {route: ms}}."""
+    from cvpr2021_vspw_implement_tpu_torch.models.raft.update import \
+        BasicUpdateBlock
+    from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import \
+        gru_flowhead
+    from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import \
+        motion_encoder
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(9)
+        ub = BasicUpdateBlock(128).cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    with torch.inference_mode():
+        taps = ub.taps()
+        for b, h, w in ((2, 60, 60), (1, 60, 107)):
+            def rand(c):
+                return torch.randn(b, c, h, w, device="cuda", generator=g)
+
+            corr, flow = rand(324), 2 * rand(2)
+            net, inp = torch.tanh(rand(128)), torch.relu(rand(128))
+
+            def fused():
+                motion = motion_encoder(corr, flow, taps["encoder"])
+                return gru_flowhead(net, torch.cat([inp, motion], 1),
+                                    taps["gru"])
+
+            def unfused():
+                motion = ub.encoder(flow, corr)
+                h2 = ub.gru(net, torch.cat([inp, motion], 1), taps["gru"])
+                return h2, ub.flow_head(h2)
+
+            (n1, d1), (n2, d2) = fused(), unfused()
+            err = max((n1 - n2).abs().max().item(),
+                      (d1 - d2).abs().max().item())
+            scale = max(n2.abs().max().item(), d2.abs().max().item())
+            shape = f"{b}x{h}x{w}"
+            out[shape] = {"fused_b2_b3_ms": cuda_ms(fused),
+                          "cudnn_b4_cudnn_ms": cuda_ms(unfused),
+                          "max_abs_diff": err}
+            print(f"update block at {shape}, one refinement: fused B2 + B3 "
+                  f"{out[shape]['fused_b2_b3_ms']:.4f} ms, cuDNN encoder + "
+                  f"B4 + cuDNN flow head "
+                  f"{out[shape]['cudnn_b4_cudnn_ms']:.4f} ms; outputs "
+                  f"differ by {err:.3e} (limit 1e-4 of {scale:.3e})")
+            if not err <= 1e-4 * scale:
+                raise SystemExit(f"the update-block routes disagree at "
+                                 f"{shape}")
+    return out
 
 
 def unfold_local_agg(x, yd, yv, r, mode, temp=3.0):
@@ -865,10 +962,15 @@ def main() -> int:
     with open(os.path.join(kernels.BUILD_DIR, "build.log"), "w") as f:
         f.write("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     print(f"kernels built in {seconds:.2f} s: {sorted(kernels.SIGNATURES)}")
+    ptxas = [line for name in ("sep_gru", "gru_flowhead")
+             for line in ptxas_lines(logs.get(name, ""))]
+    for line in ptxas:
+        print(f"ptxas: {line}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = check_kernels(torch)
+    routes = update_block_routes(torch)
     small_input_agreement(torch)
     clip_warp_agreement(torch)
     train_step_agreement(torch)
@@ -1157,9 +1259,23 @@ def main() -> int:
             "launches_by_path", "also_at", "rel_err",
             "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches",
             "two_slice_zero_ms", "bytes_written")
-    print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check}))
-    print(json.dumps({"kernels": [{key: r[key] for key in keys if key in r}
-                                  for r in rows]}))
+
+    def public(r):
+        out = {key: r[key] for key in keys if key in r}
+        if "also_at" in out:
+            out["also_at"] = [public(a) for a in out["also_at"]]
+        return out
+
+    # the CUDA-core f32 bound of B2-B4 (67 TFLOP/s), beside bound_ms (the
+    # 3xTF32 tensor-core one) of the kernels line
+    simt = [{"name": r["name"], "shape": a["shape"],
+             "bound_f32_simt_ms": a["bound_f32_simt_ms"]}
+            for r in rows for a in (r, *r.get("also_at", ()))
+            if "bound_f32_simt_ms" in a]
+    print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check,
+                      "update_block_routes": routes, "ptxas": ptxas,
+                      "f32_simt_bounds": simt}))
+    print(json.dumps({"kernels": [public(r) for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -133,6 +133,15 @@ def check_inputs(what: str, tensors) -> None:
                              f"{dev}")
 
 
+def check_aligned(what: str, tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the
+    tensor-core kernels copy weights 16 bytes at a time."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: weights must start on a 16-byte "
+                             "boundary")
+
+
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,5 +1,5 @@
-// RAFT's SepConvGRU (both passes) and FlowHead for Hopper (sm_90a), f32, one
-// C entry point.
+// RAFT's SepConvGRU (both passes) and FlowHead for Hopper (sm_90a),
+// f32-accurate on the tensor cores, one C entry point.
 //
 // Replaces the TPU kernel cvpr2021_vspw_implement_tpu/ops/pallas/
 // raft_update.py::gru_flowhead_fused (kernel _gru_flowhead_kernel).  NCHW,
@@ -13,25 +13,28 @@
 // Bound on this card: operations.  At the training shape (P = 60*60
 // positions, HD = 128, CX = 256, CF = 256) this is 2*P*(2*5*384*384 +
 // 9*128*256 + 9*256*2) = 12.77 GFLOP per image against about 12 MB of
-// traffic: 0.191 ms at the 67 TFLOP/s float32 rate of the CUDA cores.
+// traffic: 0.155 ms for both images at the 165 TFLOP/s of f32-accurate
+// products on the tensor cores (3xTF32: 495 / 3), 0.381 ms at the 67 TFLOP/s
+// of f32 FMA on the CUDA cores.
 //
 // Design.  As in motion_encoder.cu, no thread block can hold a stage of the
 // whole image, and q must read r*h only after all of it is written, so the
 // chain is six launches on the caller's stream with z, r*h, the hidden state
 // between the passes and the flow head's hidden layer in caller-allocated
 // scratch (L2-resident).  The GRU passes are the two launches of
-// tap_conv.cuh::gru_pass (the device code of sep_gru.cu), conv1 its relu
-// convolution.  conv2 has two output channels: a 64-wide channel tile would
-// waste 31/32 of its work, so it is a reduction kernel: 64 positions of a row
-// per block, the input channels split over 4 thread groups that are summed
-// through shared memory.
+// tap_mma.cuh::gru_pass (the device code of sep_gru.cu), conv1 its relu
+// convolution: all on the tensor cores, 3xTF32.  conv2 has two output
+// channels, 0.26% of the operations, and no tensor-core tile worth taking: it
+// is a reduction kernel on the CUDA cores, 64 positions of a row per block,
+// the input channels split over 4 thread groups that are summed through
+// shared memory.
 
-#include "tap_conv.cuh"
+#include "tap_mma.cuh"
 
 namespace {
 
-using tapconv::kThreads;
-using tapconv::kTM;
+constexpr int kThreads = 256;
+constexpr int kTM = 64;  // conv2: positions a block (along x)
 
 constexpr int kGroups = kThreads / kTM;
 constexpr int kMaxCF = 512;  // conv2's weights [9, CF, 2] in shared memory
@@ -97,7 +100,7 @@ extern "C" int gru_flowhead_f32(
   if (B <= 0 || H <= 0 || W <= 0 || HD <= 0 || CX < 0 || CF <= 0 ||
       CF > kMaxCF || CF % kGroups != 0)
     return (int)cudaErrorInvalidValue;
-  using namespace tapconv;
+  using namespace tapmma;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const int64_t n = (int64_t)B * HD * H * W;

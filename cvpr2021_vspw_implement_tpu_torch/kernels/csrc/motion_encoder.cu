@@ -18,7 +18,7 @@
 // block can own the chain.  The chain is five launches on the caller's
 // stream, one per convolution, with the intermediates in caller-allocated
 // scratch that stays in the 50 MB L2 (3.7 MB per 256-channel stage and
-// image).  Four stages are the tiled tap-convolution of tap_conv.cuh; its
+// image).  Four stages are the tiled f32 tap-convolution of tap_conv.cuh; its
 // channel-offset writes put cor and flo side by side, so neither concat is a
 // copy.  convf1 has K = 49 taps x 2 channels = 98: not a matrix-product
 // shape, so it is an outer-product accumulation from a 7-row patch of the
@@ -134,22 +134,18 @@ extern "C" int motion_encoder_f32(
   float* o = static_cast<float*>(out);
   cudaError_t rc;
 
-  Args c1{f(corr), CK, nullptr, 0, f(wc1), f(bc1), 256, cor1, 256, 0,
-          nullptr, nullptr, H, W};
-  if ((rc = launch<1, 1, kRelu>(c1, B, s)) != cudaSuccess) return (int)rc;
-  Args c2{cor1, 256, nullptr, 0, f(wc2), f(bc2), 192, cat, 256, 0,
-          nullptr, nullptr, H, W};
-  if ((rc = launch<3, 3, kRelu>(c2, B, s)) != cudaSuccess) return (int)rc;
+  Args c1{f(corr), CK, nullptr, 0, f(wc1), f(bc1), 256, cor1, 256, 0, H, W};
+  if ((rc = launch<1, 1>(c1, B, s)) != cudaSuccess) return (int)rc;
+  Args c2{cor1, 256, nullptr, 0, f(wc2), f(bc2), 192, cat, 256, 0, H, W};
+  if ((rc = launch<3, 3>(c2, B, s)) != cudaSuccess) return (int)rc;
 
   const dim3 grid((W + kTM - 1) / kTM, H, B * 2);
   flow_conv7_kernel<<<grid, kThreads, 0, s>>>(f(flow), f(wf1), f(bf1), flo1, o,
                                               128, H, W);
   if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
-  Args f2{flo1, 128, nullptr, 0, f(wf2), f(bf2), 64, cat, 256, 192,
-          nullptr, nullptr, H, W};
-  if ((rc = launch<3, 3, kRelu>(f2, B, s)) != cudaSuccess) return (int)rc;
+  Args f2{flo1, 128, nullptr, 0, f(wf2), f(bf2), 64, cat, 256, 192, H, W};
+  if ((rc = launch<3, 3>(f2, B, s)) != cudaSuccess) return (int)rc;
 
-  Args m{cat, 256, nullptr, 0, f(wm), f(bm), 126, o, 128, 0,
-         nullptr, nullptr, H, W};
-  return (int)launch<3, 3, kRelu>(m, B, s);
+  Args m{cat, 256, nullptr, 0, f(wm), f(bm), 126, o, 128, 0, H, W};
+  return (int)launch<3, 3>(m, B, s);
 }

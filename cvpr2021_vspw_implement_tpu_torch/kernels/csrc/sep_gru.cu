@@ -1,4 +1,5 @@
-// One separable ConvGRU pass of RAFT's update block for Hopper (sm_90a), f32.
+// One separable ConvGRU pass of RAFT's update block for Hopper (sm_90a),
+// f32-accurate on the tensor cores.
 //
 // Replaces the TPU kernel cvpr2021_vspw_implement_tpu/ops/pallas/gru.py::
 // sep_conv_gru_pass (kernel _gru_pass_kernel).  With [h | x] the channel
@@ -12,19 +13,24 @@
 // (tap, input channel, output channel), CIN = HD + CX.
 //
 // Bound on this card: operations.  At the TC shape (P = 60*107 = 6420
-// positions, HD = 128, CX = 256) a pass is 2*P*5*384*(256+128) = 9.5 GFLOP
-// against about 16 MB of traffic, so the floor is 0.14 ms at the 67 TFLOP/s
-// float32 rate of the CUDA cores (f32 FMA, the precision of the plain
-// version; tensor cores are for a later version).
+// positions, HD = 128, CX = 256) a pass is 2*P*5*384*(256+128) = 9.47 GFLOP
+// against about 16 MB of traffic.  f32-accurate on the tensor cores (3xTF32,
+// three TF32 products for each f32 one) the ceiling is 495 / 3 = 165 TFLOP/s:
+// 0.0574 ms; on the CUDA cores' 67 TFLOP/s f32 FMA it would be 0.141 ms.
 //
 // Design: q needs r*h at the 5 neighbours of each position, so the pass is
-// two launches of the tiled tap-convolution of tap_conv.cuh.  The gate launch
-// writes z and r*h to scratch that the caller allocates; the blend launch
-// reads r*h in place of h and fuses tanh and the blend into its epilogue.
-// Both axes read rows of x-consecutive positions (the 5x1 pass shifts the
-// row, the 1x5 pass the column), so neither pass needs a transpose.
+// two launches of the tensor-core implicit GEMM of tap_mma.cuh (M = positions,
+// N = output channels, K = 5 taps x 384 channels, 3xTF32).  The gate launch
+// (N = 256) writes z and r*h to scratch that the caller allocates; the blend
+// launch (N = 128) reads r*h in place of h and fuses tanh and the blend into
+// its epilogue.  Both axes read x-consecutive runs of positions (the 5x1 pass
+// shifts whole rows, in 16-byte copies where W % 4 == 0; the 1x5 pass shifts
+// columns, in 4-byte copies), so neither needs a transpose.  At the TC shape
+// the 64 x 128 tiles make 202 gate and 101 blend blocks for 132 SMs (two
+// blocks fit on one): the last partial wave leaves about a quarter of the
+// card idle, which a stream-K split of K would recover.
 
-#include "tap_conv.cuh"
+#include "tap_mma.cuh"
 
 // z, rh: scratch [B, HD, H, W]; out: the new hidden state.  Returns
 // cudaGetLastError() after the launches (0 on success).
@@ -35,7 +41,7 @@ extern "C" int sep_gru_pass_f32(const void* h, const void* x, const void* wzr,
                                 void* stream) {
   if (HD <= 0 || CX < 0 || (axis != 0 && axis != 1))
     return (int)cudaErrorInvalidValue;
-  const auto pass = axis == 0 ? tapconv::gru_pass<1, 5> : tapconv::gru_pass<5, 1>;
+  const auto pass = axis == 0 ? tapmma::gru_pass<1, 5> : tapmma::gru_pass<5, 1>;
   return (int)pass(static_cast<const float*>(h), static_cast<const float*>(x),
                    static_cast<const float*>(wzr),
                    static_cast<const float*>(bzr),

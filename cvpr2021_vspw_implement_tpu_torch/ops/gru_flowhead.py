@@ -36,7 +36,8 @@ def gru_flowhead_plain(net, x, weights):
 def gru_flowhead(net, x, weights):
     """The layout of :func:`gru_flowhead_plain`.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``kernels/csrc/gru_flowhead.cu``
-    (six launches behind one C entry point)."""
+    (six launches behind one C entry point; the GRU and the flow head's
+    first conv on the tensor cores at f32 accuracy: 3xTF32)."""
     if net.device.type == "cpu":
         return gru_flowhead_plain(net, x, weights)
     if net.device.type != "cuda":
@@ -48,10 +49,12 @@ def gru_flowhead(net, x, weights):
     shapes = {"zr1": (5, cin, 2 * hd), "q1": (5, cin, hd),
               "zr2": (5, cin, 2 * hd), "q2": (5, cin, hd),
               "fh_conv1": (9, hd, cf), "fh_conv2": (9, cf, 2)}
-    if x.shape != (b, cx, hh, ww) or cf % 4 or cf > 512:
+    if x.shape != (b, cx, hh, ww) or hd % 32 or cf % 4 or cf > 512:
+        # a 32-channel K step of the GRU convolutions reads one input: h or x
         raise ValueError("the GRU + flow-head kernel takes net [B, hd, H, W], "
-                         "x [B, cx, H, W] and a flow-head width that is a "
-                         "multiple of 4, at most 512")
+                         "x [B, cx, H, W], hd a multiple of 32 and a "
+                         "flow-head width that is a multiple of 4, at most "
+                         "512")
     flat = []
     for name in CONVS:
         w, bias = weights[name]
@@ -60,6 +63,7 @@ def gru_flowhead(net, x, weights):
                              f"with a [{shapes[name][2]}] bias")
         flat += [w, bias]
     kernels.check_inputs("gru_flowhead", (net, x, *flat))
+    kernels.check_aligned("gru_flowhead", flat[:10:2])
     scratch = torch.empty(b * (3 * hd + cf) * hh * ww, device=net.device)
     net_out = torch.empty_like(net)
     delta = torch.empty(b, 2, hh, ww, device=net.device)

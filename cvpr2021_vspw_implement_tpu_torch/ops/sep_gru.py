@@ -38,7 +38,8 @@ def sep_conv_gru_pass_plain(h, x, wzr, bzr, wq, bq, axis: int):
 def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
     """One pass, the layout of :func:`sep_conv_gru_pass_plain`.  A CPU
     tensor takes the plain version; a CUDA tensor launches
-    ``kernels/csrc/sep_gru.cu`` (gate, then q and blend)."""
+    ``kernels/csrc/sep_gru.cu`` (gate, then q and blend, on the tensor cores
+    at f32 accuracy: 3xTF32)."""
     if h.device.type == "cpu":
         return sep_conv_gru_pass_plain(h, x, wzr, bzr, wq, bq, axis)
     if h.device.type != "cuda":
@@ -53,7 +54,11 @@ def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
             or bzr.shape != (2 * hd,) or bq.shape != (hd,)):
         raise ValueError("the GRU kernel takes h [B, hd, H, W], x [B, cx, H, "
                          "W] and 5-tap weights [5, hd+cx, cout]")
+    if hd % 32:
+        # a 32-channel K step of the kernel reads one input: h or x
+        raise ValueError(f"the GRU kernel takes hd a multiple of 32, got {hd}")
     kernels.check_inputs("sep_conv_gru_pass", (h, x, wzr, bzr, wq, bq))
+    kernels.check_aligned("sep_conv_gru_pass", (wzr, wq))
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
     out = torch.empty_like(h)

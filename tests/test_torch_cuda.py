@@ -7,7 +7,9 @@ Needs an NVIDIA GPU and imports no JAX, so it runs on the card's machine:
 Without a card every test skips.  Tolerances: the corr lookup is the same
 f32 arithmetic (atol 1e-5); the GRU pass, the motion encoder and the GRU +
 flow head sum products of up to 2304 terms in another order than cuDNN, the
-last two through chains of five and six convolutions (atol 1e-4).  The
+last two through chains of five and six convolutions, the GRU convolutions
+on the tensor cores at f32 accuracy (3xTF32, about 2^-22 of each product)
+(atol 1e-4).  The
 local aggregations (B5) sum 128-term distances and up to 441 weighted
 values in another order than the plain version (sigmoid and softmax: atol
 1e-5 and rtol 1e-4 per element, and at most 1e-4 of the largest output
@@ -70,17 +72,74 @@ def test_corr_lookup_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 11, 70), (1, 60, 107), (1, 60, 112)])
 @pytest.mark.parametrize("axis", [0, 1])
-def test_sep_gru_kernel_matches_plain(cuda_device, axis):
+def test_sep_gru_kernel_matches_plain(cuda_device, axis, b, h, w):
+    """Also at both TC shapes: 60x107 (rows not 16-byte aligned: 4-byte
+    copies) and the 60x112 bucket (aligned rows: 16-byte copies for dx = 0
+    taps)."""
     rng = np.random.default_rng(3 + axis)
     args = [t.to(cuda_device)
-            for t in port_gru_args(*gru_inputs(rng, 2, 11, 70, 128, 256, axis))]
+            for t in port_gru_args(*gru_inputs(rng, b, h, w, 128, 256, axis))]
     before = sep_conv_gru_pass.launches
     got = sep_conv_gru_pass(*args, axis)
     torch.cuda.synchronize()
     assert sep_conv_gru_pass.launches == before + 1
     torch.testing.assert_close(got, sep_conv_gru_pass_plain(*args, axis),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_sep_gru_kernel_partial_channel_chunk(cuda_device, axis):
+    """cx = 100: hd + cx = 228 input channels end in a partial K step of the
+    tensor-core kernel, whose channels past 228 must be zero-filled."""
+    rng = np.random.default_rng(9 + axis)
+    args = [t.to(cuda_device)
+            for t in port_gru_args(*gru_inputs(rng, 1, 13, 37, 128, 100, axis))]
+    before = sep_conv_gru_pass.launches
+    got = sep_conv_gru_pass(*args, axis)
+    torch.cuda.synchronize()
+    assert sep_conv_gru_pass.launches == before + 1
+    torch.testing.assert_close(got, sep_conv_gru_pass_plain(*args, axis),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_sep_gru_kernel_matches_float64(cuda_device, axis):
+    """At the TC shape the 3xTF32 products hold the pass within 1e-5 of a
+    float64 reference; one TF32 product a term (no split) or tensor-core
+    sums chained over K would not (see tests/test_torch_tf32_split.py)."""
+    rng = np.random.default_rng(12 + axis)
+    args = [t.to(cuda_device) for t in
+            port_gru_args(*gru_inputs(rng, 1, 60, 107, 128, 256, axis))]
+    want = sep_conv_gru_pass_plain(*[t.double() for t in args], axis)
+    got = sep_conv_gru_pass(*args, axis)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [36, 100])
+def test_gru_kernels_refuse_hd_not_multiple_of_32(cuda_device, hd):
+    """A 32-channel K step of the tensor-core kernel reads h or x, never
+    both: both wrappers refuse such an hd before any launch."""
+    rng = np.random.default_rng(11)
+    args = [t.to(cuda_device)
+            for t in port_gru_args(*gru_inputs(rng, 1, 8, 12, hd, 64, 0))]
+    before = sep_conv_gru_pass.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sep_conv_gru_pass(*args, 0)
+    assert sep_conv_gru_pass.launches == before
+    net, x, p = gru_flowhead_inputs(rng, 1, 8, 12, hd=hd, cx=64)
+    net, x = to_nchw(net).to(cuda_device), to_nchw(x).to(cuda_device)
+    weights = weights_to(port_gru_flowhead_weights(p), cuda_device)
+    before = gru_flowhead.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gru_flowhead(net, x, weights)
+    assert gru_flowhead.launches == before
 
 
 SHAPES = [(1, 37, 53), (2, 37, 53), (1, 60, 60), (2, 60, 60)]
@@ -101,8 +160,10 @@ def test_motion_encoder_kernel_matches_plain(cuda_device, b, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", SHAPES)
+@pytest.mark.parametrize("b,h,w", SHAPES + [(1, 60, 107)])
 def test_gru_flowhead_kernel_matches_plain(cuda_device, b, h, w):
+    """Also at the TC shape 1x60x107, which the model gates off this kernel
+    (above 4096 positions) but the wrapper takes."""
     net, x, p = gru_flowhead_inputs(np.random.default_rng(6), b, h, w)
     net, x = to_nchw(net).to(cuda_device), to_nchw(x).to(cuda_device)
     weights = weights_to(port_gru_flowhead_weights(p), cuda_device)

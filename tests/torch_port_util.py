@@ -183,3 +183,23 @@ def local_agg_inputs(rng, b, h, w, cd, cv, scale=0.05, shift=(1, -1)):
         (b, h, w, cd))
     yv = rng.standard_normal((b, h, w, cv))
     return tuple(a.astype(np.float32) for a in (x, yd, yv))
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 → TF32 as ``cvt.rna.tf32.f32`` does it: round to nearest, ties
+    away from zero, keeping 10 explicit mantissa bits (finite inputs)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_products(conv, inp, w, passes: int):
+    """``conv(inp, w)`` with TF32 operands: one product hi*hi (``passes`` 1)
+    or the 3xTF32 sum lo*hi + hi*lo + hi*hi (``passes`` 3), with hi =
+    tf32(v) and lo = tf32(v - hi) as the tensor-core kernels split each
+    operand (kernels/csrc/tap_mma.cuh); each product is of TF32 values
+    (exact in f32), accumulated in f32 by ``conv``."""
+    ih, wh = tf32_round(inp), tf32_round(w)
+    if passes == 1:
+        return conv(ih, wh)
+    il, wl = tf32_round(inp - ih), tf32_round(w - wh)
+    return conv(il, wh) + conv(ih, wl) + conv(ih, wh)
