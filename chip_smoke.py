@@ -5,7 +5,7 @@
 1. prints the card (name, and name and power limit from nvidia-smi);
 2. builds the CUDA kernels from ``kernels/csrc`` with nvcc (in parallel)
    and prints ptxas's registers, spills and shared memory of the
-   tensor-core kernels;
+   tensor-core kernels (B2-B5);
 3. holds each kernel against its plain PyTorch version at the main paths'
    shapes (corr lookup: TC at VSPW-480p, 60x107 RAFT features; GRU pass:
    60x107 and the 60x112 bucket;
@@ -44,7 +44,9 @@
    losses, moving head and encoder parameters, a frozen RAFT) and that the
    card and the CPU agree on small inputs, a train step and ClipWarpNet in
    its three modes included;
-6. prints the kernels' JSON line and, last, the device JSON line.
+6. reads the corr lookup again at the TC shape, beside the card's clocks
+   before the checks and after the paths;
+7. prints the kernels' JSON line and, last, the device JSON line.
 
 It exits non-zero without CUDA, on any failed phase, or when run outside
 a checkout of the repository.
@@ -172,6 +174,15 @@ def check_corr_lookup(torch, g, b, h, w, levels=4):
     return row
 
 
+def smi_clocks():
+    """The card's SM clock, its maximum, power draw and temperature, as
+    nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def check_kernels(torch):
     """Each kernel vs plain at the shapes the paths give it; returns the
     kernels' JSON rows (launches filled in later)."""
@@ -214,11 +225,11 @@ def check_kernels(torch):
 
 
 def tensor_core_bound(row, flops, nbytes):
-    """The bounds of a kernel of f32 convolutions (B2-B4): ``bound_ms`` at
-    the f32-accurate tensor-core rate (3xTF32, 165 TFLOP/s), and
-    ``bound_f32_simt_ms`` at the CUDA cores' f32 rate, either against the
-    bytes.  The second is printed and goes to the extra JSON line, not to
-    the kernels line."""
+    """The bounds of a kernel of f32 products on the tensor cores (B2-B5):
+    ``bound_ms`` at the f32-accurate tensor-core rate (3xTF32, 165
+    TFLOP/s), and ``bound_f32_simt_ms`` at the CUDA cores' f32 rate, either
+    against the bytes.  The second is printed and goes to the extra JSON
+    line, not to the kernels line."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / TF32X3_FLOP_PER_S
     row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
@@ -272,13 +283,14 @@ def check_sep_gru(torch, g, h, w):
 
 def ptxas_lines(log):
     """``ptxas -v`` lines of the tensor-core kernels in an nvcc log: each
-    kernel's mangled name (which carries its tap shape and epilogue),
-    registers, spills and static shared memory."""
+    kernel's mangled name (which carries its tap shape and epilogue, or its
+    mode), registers, spills and static shared memory."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-        elif name and "tap_mma_kernel" in name and (
+        elif name and ("tap_mma_kernel" in name
+                       or "local_agg_kernel" in name) and (
                 "registers" in line or "spill" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -557,9 +569,7 @@ def check_local_agg(torch):
         row["ms"] = cuda_ms(lambda: fn(x, yd, yv, r, **kw))
         row["library_ms"] = cuda_ms(
             lambda: unfold_local_agg(x, yd, yv, r, mode, temp), n=5)
-        t_ops, t_bytes = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
-        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        tensor_core_bound(row, flops, nbytes)
         rows.append(row)
     return rows
 
@@ -962,13 +972,18 @@ def main() -> int:
     with open(os.path.join(kernels.BUILD_DIR, "build.log"), "w") as f:
         f.write("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     print(f"kernels built in {seconds:.2f} s: {sorted(kernels.SIGNATURES)}")
-    ptxas = [line for name in ("sep_gru", "gru_flowhead")
+    ptxas = [f"{name}: {line}"
+             for name in ("sep_gru", "gru_flowhead", "motion_encoder",
+                          "local_agg")
              for line in ptxas_lines(logs.get(name, ""))]
     for line in ptxas:
         print(f"ptxas: {line}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    clocks_first = smi_clocks()
+    print(f"card clocks before the kernel checks (SM, SM max, power, "
+          f"temperature): {clocks_first}")
     rows = check_kernels(torch)
     routes = update_block_routes(torch)
     small_input_agreement(torch)
@@ -1272,7 +1287,21 @@ def main() -> int:
              "bound_f32_simt_ms": a["bound_f32_simt_ms"]}
             for r in rows for a in (r, *r.get("also_at", ()))
             if "bound_f32_simt_ms" in a]
+    # B1 read again after every path, beside the card's clocks then: an
+    # unchanged kernel that reads slower with its plain version points at
+    # the card, not the kernel
+    clocks_last = smi_clocks()
+    b1_again = check_corr_lookup(
+        torch, torch.Generator(device="cuda").manual_seed(0), 1, 60, 107)
+    b1_reread = {"first": {k: rows[0][k] for k in ("ms", "plain_ms")},
+                 "again": {k: b1_again[k] for k in ("ms", "plain_ms")},
+                 "clocks_first": clocks_first, "clocks_again": clocks_last}
+    print(f"corr_lookup at 1x60x107 read again after the paths: kernel "
+          f"{b1_again['ms']:.4f} ms, plain {b1_again['plain_ms']:.4f} ms "
+          f"(first reading {rows[0]['ms']:.4f} and "
+          f"{rows[0]['plain_ms']:.4f}); clocks {clocks_last}")
     print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check,
+                      "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,
                       "f32_simt_bounds": simt}))
     print(json.dumps({"kernels": [public(r) for r in rows]}))

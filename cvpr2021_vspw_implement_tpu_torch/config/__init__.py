@@ -1,4 +1,4 @@
-from .defaults import cfg
+from .defaults import cfg, check_compute_dtype
 from .node import CfgNode
 
-__all__ = ["cfg", "CfgNode"]
+__all__ = ["cfg", "CfgNode", "check_compute_dtype"]

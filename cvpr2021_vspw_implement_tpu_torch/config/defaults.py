@@ -34,9 +34,23 @@ _C.TRAIN.disp_iter = 20
 _C.TRAIN.seed = 304
 
 # the section keeps the JAX package's name so that its KEY VALUE overrides
-# carry over; the port reads one key of it
+# carry over; the port reads two keys of it
 _C.TPU = CN()
 # RAFT refinements of the frozen-flow methods (the reference hard-codes 20)
 _C.TPU.raft_iters = 20
+# the JAX CLIs default to bfloat16; the port computes in float32 only, and
+# its CLIs refuse any other value (check_compute_dtype)
+_C.TPU.compute_dtype = "float32"
 
 cfg = _C
+
+
+def check_compute_dtype(cfg) -> None:
+    """Raise unless ``cfg.TPU.compute_dtype`` is float32, the only compute
+    type the port has: an override such as ``TPU.compute_dtype bfloat16``
+    must not run float32 without a word."""
+    dtype = cfg.TPU.compute_dtype
+    if dtype != "float32":
+        raise ValueError(f"TPU.compute_dtype {dtype!r} is not ported: the "
+                         "port computes in float32 only (pass "
+                         "TPU.compute_dtype float32)")

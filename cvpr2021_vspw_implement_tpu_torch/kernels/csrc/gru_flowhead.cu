@@ -118,7 +118,7 @@ extern "C" int gru_flowhead_f32(
                       B, H, W, HD, CX, s);
   if (rc != cudaSuccess) return (int)rc;
 
-  Args c1{h2, HD, nullptr, 0, f(wfh1), f(bfh1), CF, fh, CF, 0,
+  Args c1{h2, HD, nullptr, 0, f(wfh1), f(bfh1), CF, fh, CF, 0, CF,
           nullptr, nullptr, H, W};
   if ((rc = launch<3, 3, kRelu>(c1, B, s)) != cudaSuccess) return (int)rc;
   const dim3 grid((W + kTM - 1) / kTM, H, B);

@@ -1,4 +1,5 @@
-// RAFT's BasicMotionEncoder for Hopper (sm_90a), f32, one C entry point.
+// RAFT's BasicMotionEncoder for Hopper (sm_90a), f32-accurate, four of its
+// five convolutions on the tensor cores, one C entry point.
 //
 // Replaces the TPU kernel cvpr2021_vspw_implement_tpu/ops/pallas/
 // raft_update.py::motion_encoder_fused (kernel _motion_kernel).  NCHW:
@@ -10,7 +11,9 @@
 // Bound on this card: operations.  At the training shape (P = 60*60
 // positions, CK = 324) the chain is 2*P*(324*256 + 9*256*192 + 98*128 +
 // 9*128*64 + 9*256*126) = 6.49 GFLOP per image against about 12 MB of
-// traffic: 0.097 ms at the 67 TFLOP/s float32 rate of the CUDA cores.
+// traffic: 0.0787 ms for both images at the 165 TFLOP/s of f32-accurate
+// products on the tensor cores (3xTF32: 495 / 3), 0.194 ms at the 67
+// TFLOP/s of f32 FMA on the CUDA cores.
 //
 // Design.  The TPU kernel keeps the whole [H*W, C] tile of every stage in
 // on-chip memory; a thread block here has 227 KB of shared memory and each
@@ -18,21 +21,26 @@
 // block can own the chain.  The chain is five launches on the caller's
 // stream, one per convolution, with the intermediates in caller-allocated
 // scratch that stays in the 50 MB L2 (3.7 MB per 256-channel stage and
-// image).  Four stages are the tiled f32 tap-convolution of tap_conv.cuh; its
-// channel-offset writes put cor and flo side by side, so neither concat is a
-// copy.  convf1 has K = 49 taps x 2 channels = 98: not a matrix-product
-// shape, so it is an outer-product accumulation from a 7-row patch of the
-// flow staged once in shared memory.  The same kernel copies the flow into
+// image).  convc1, convc2, convf2 and conv are the tensor-core implicit GEMM
+// of tap_mma.cuh (3xTF32, relu epilogue); its channel-offset writes put cor
+// and flo side by side, so neither concat is a copy.  convc1's K = CK need
+// not be a multiple of the 32-channel K step (324 = 10 x 32 + 4): the last,
+// partial step is zero-filled.  conv has 126 output channels, which the
+// 16-byte weight copies cannot take (a 504-byte row): the caller pads its
+// weights to 128 with zero columns and a zero bias, and the launch stores
+// only the first 126, so the last two output channels keep the flow.  convf1
+// has K = 49 taps x 2 channels = 98: not a matrix-product shape, so it is an
+// outer-product accumulation on the CUDA cores from a 7-row patch of the
+// flow staged once in shared memory; the same kernel copies the flow into
 // the last two output channels.
 
-#include "tap_conv.cuh"
+#include "tap_mma.cuh"
 
 namespace {
 
-using tapconv::kThreads;
-using tapconv::kTM;
-using tapconv::kTN;
-
+constexpr int kThreads = 256;
+constexpr int kTM = 64;  // convf1: positions a block (along x)
+constexpr int kTN = 64;  // convf1: output channels a block
 constexpr int kF1Out = 128;      // convf1 output channels
 constexpr int kF1Taps = 7;
 constexpr int kPatchW = kTM + kF1Taps - 1;
@@ -115,16 +123,20 @@ flow_conv7_kernel(const float* __restrict__ flow, const float* __restrict__ wgt,
 
 }  // namespace
 
-// corr [B, CK, H, W], flow [B, 2, H, W] -> out [B, 128, H, W].  scratch holds
-// B*640*H*W floats (cor1 256, flo1 128, cat 256 channels).  Returns the first
-// non-zero cudaGetLastError() of the five launches (0 on success).
+// corr [B, CK, H, W], flow [B, 2, H, W] -> out [B, 128, H, W].  wm, bm are
+// conv's weights padded to 128 output channels ([9, 256, 128], zero columns
+// 126-127, and a zero bias there); the four tensor-core weights start on
+// 16-byte boundaries.  scratch holds B*640*H*W floats (cor1 256, flo1 128,
+// cat 256 channels).  Returns the first non-zero cudaGetLastError() of the
+// five launches, or cudaErrorInvalidValue for weights the tensor-core launch
+// refuses (0 on success).
 extern "C" int motion_encoder_f32(
     const void* corr, const void* flow, const void* wc1, const void* bc1,
     const void* wc2, const void* bc2, const void* wf1, const void* bf1,
     const void* wf2, const void* bf2, const void* wm, const void* bm,
     void* scratch, void* out, int B, int H, int W, int CK, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || CK <= 0) return (int)cudaErrorInvalidValue;
-  using namespace tapconv;
+  using namespace tapmma;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const int64_t plane = (int64_t)H * W;
@@ -134,18 +146,23 @@ extern "C" int motion_encoder_f32(
   float* o = static_cast<float*>(out);
   cudaError_t rc;
 
-  Args c1{f(corr), CK, nullptr, 0, f(wc1), f(bc1), 256, cor1, 256, 0, H, W};
-  if ((rc = launch<1, 1>(c1, B, s)) != cudaSuccess) return (int)rc;
-  Args c2{cor1, 256, nullptr, 0, f(wc2), f(bc2), 192, cat, 256, 0, H, W};
-  if ((rc = launch<3, 3>(c2, B, s)) != cudaSuccess) return (int)rc;
+  Args c1{f(corr), CK, nullptr, 0, f(wc1), f(bc1), 256, cor1, 256, 0, 256,
+          nullptr, nullptr, H, W};
+  if ((rc = launch<1, 1, kRelu>(c1, B, s)) != cudaSuccess) return (int)rc;
+  Args c2{cor1, 256, nullptr, 0, f(wc2), f(bc2), 192, cat, 256, 0, 192,
+          nullptr, nullptr, H, W};
+  if ((rc = launch<3, 3, kRelu>(c2, B, s)) != cudaSuccess) return (int)rc;
 
   const dim3 grid((W + kTM - 1) / kTM, H, B * 2);
   flow_conv7_kernel<<<grid, kThreads, 0, s>>>(f(flow), f(wf1), f(bf1), flo1, o,
                                               128, H, W);
   if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
-  Args f2{flo1, 128, nullptr, 0, f(wf2), f(bf2), 64, cat, 256, 192, H, W};
-  if ((rc = launch<3, 3>(f2, B, s)) != cudaSuccess) return (int)rc;
+  Args f2{flo1, 128, nullptr, 0, f(wf2), f(bf2), 64, cat, 256, 192, 64,
+          nullptr, nullptr, H, W};
+  if ((rc = launch<3, 3, kRelu>(f2, B, s)) != cudaSuccess) return (int)rc;
 
-  Args m{cat, 256, nullptr, 0, f(wm), f(bm), 126, o, 128, 0, H, W};
-  return (int)launch<3, 3>(m, B, s);
+  // 128 channels computed (126 and 127 from zero weights), 126 stored
+  Args m{cat, 256, nullptr, 0, f(wm), f(bm), 128, o, 128, 0, 126,
+         nullptr, nullptr, H, W};
+  return (int)launch<3, 3, kRelu>(m, B, s);
 }

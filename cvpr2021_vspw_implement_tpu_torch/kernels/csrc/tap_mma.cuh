@@ -1,6 +1,6 @@
 // Tensor-core f32-accurate tap-convolution for Hopper (sm_90a): the device
-// routine of the separable GRU (sep_gru.cu) and of the GRU + flow head
-// (gru_flowhead.cu).
+// routine of the separable GRU (sep_gru.cu), of the GRU + flow head
+// (gru_flowhead.cu) and of the motion encoder (motion_encoder.cu).
 //
 // A stride-1, zero-padded KH x KW convolution of an NCHW input is an
 // implicit matrix product: M = positions, N = output channels, K = taps x
@@ -8,7 +8,9 @@
 // ca, H, W] and b [B, cb, H, W] ([h | x] and [r*h | x] are never
 // materialised); weights are [KH*KW, ca + cb, cout] (tap row-major, input
 // channel, output channel).  The output goes to channels [out_coff, out_coff
-// + cout) of a [B, out_ctotal, H, W] tensor.
+// + n_store) of a [B, out_ctotal, H, W] tensor: a caller whose cout is not a
+// multiple of 4 pads its weights with zero columns to one that is and stores
+// only its own channels.
 //
 // Precision: 3xTF32.  Every operand is split in registers, after its
 // fragment is read from shared memory, into hi = tf32(v) and lo = tf32(v -
@@ -49,6 +51,8 @@
 
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 namespace tapmma {
 
 enum Epilogue { kRelu = 0, kGate = 1, kBlend = 2 };
@@ -64,6 +68,7 @@ struct Args {
   float* out;         // [B, out_ctotal, H, W]; kGate: r*h; kBlend: h'
   int out_ctotal;
   int out_coff;
+  int n_store;     // channels [0, n_store) of cout are stored (<= cout)
   const float* h;  // kGate, kBlend: the old hidden state [B, hd, H, W]
   float* z;        // kGate: written; kBlend: read          [B, hd, H, W]
   int H;
@@ -90,78 +95,15 @@ static_assert(WM % 32 == 0 && WN % 32 == 0 && BK % 8 == 0 && BK % kSK == 0 &&
               "tile layout");
 }  // namespace tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 4 or 16 bytes; src-size 0 writes zeros and reads nothing.
-// Activations go through L1 (.ca): the taps of one channel chunk are
-// consecutive K steps and read nearly the same lines.  Weights are read once
-// a block and bypass it (.cg).
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16_ca(uint32_t dst, const float* src,
-                                              bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = hi + lo + O(2^-22 |v|), both TF32, without cvt (which runs at the
-// conversion unit's lower rate).  hi rounds as cvt.rna.tf32.f32 does (to
-// nearest, ties away from zero): float bits are sign and magnitude, so
-// adding half the weight of the 13 dropped bits to the magnitude and
-// masking them rounds half away.  lo = v - hi is exact in f32 and skips the
-// mask: the tensor cores read only the top 19 bits of a TF32 operand.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
-}
-
-// d (+)= a * b on a 16x8x8 tile (row-major A, column-major B, f32
-// accumulate); mma_tf32 accumulates into d, mma_tf32_fresh starts from 0.
-// Not volatile: the compiler may interleave independent tiles' MMAs.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.0f));
-}
+using mmatf32::cp_async16;
+using mmatf32::cp_async16_ca;
+using mmatf32::cp_async4;
+using mmatf32::cp_async_commit;
+using mmatf32::cp_async_wait;
+using mmatf32::mma_tf32;
+using mmatf32::mma_tf32_fresh;
+using mmatf32::smem_addr;
+using mmatf32::split_tf32;
 
 template <int KH, int KW, int EPI>
 __global__ void __launch_bounds__(tile::kThreads)
@@ -360,7 +302,7 @@ __global__ void __launch_bounds__(tile::kThreads)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int n = n0 + wn0 + 32 * (j / 4) + 4 * (2 * tig + r % 2) + j % 4;
-      if (n >= p.cout) continue;
+      if (n >= p.n_store) continue;
       const float bn_ = p.bias[n];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -396,7 +338,7 @@ inline bool aligned16(const void* ptr) {
 // first input whose channels do not fill whole K steps.
 template <int KH, int KW, int EPI>
 inline cudaError_t launch(Args p, int B, cudaStream_t stream) {
-  if (p.cout % 4 != 0 || !aligned16(p.wgt) ||
+  if (p.cout % 4 != 0 || p.n_store > p.cout || !aligned16(p.wgt) ||
       (p.cb > 0 && p.ca % tile::BK != 0))
     return cudaErrorInvalidValue;
   p.vec = p.W % 4 == 0 && aligned16(p.a) && (p.cb == 0 || aligned16(p.b));
@@ -420,10 +362,10 @@ inline cudaError_t gru_pass(const float* h, const float* x, const float* wzr,
                             const float* bq, float* z, float* rh, float* out,
                             int B, int H, int W, int HD, int CX,
                             cudaStream_t stream) {
-  Args g{h, HD, x, CX, wzr, bzr, 2 * HD, rh, HD, 0, h, z, H, W, 0};
+  Args g{h, HD, x, CX, wzr, bzr, 2 * HD, rh, HD, 0, 2 * HD, h, z, H, W, 0};
   cudaError_t rc = launch<KH, KW, kGate>(g, B, stream);
   if (rc != cudaSuccess) return rc;
-  Args q{rh, HD, x, CX, wq, bq, HD, out, HD, 0, h, z, H, W, 0};
+  Args q{rh, HD, x, CX, wq, bq, HD, out, HD, 0, HD, h, z, H, W, 0};
   return launch<KH, KW, kBlend>(q, B, stream);
 }
 

@@ -17,7 +17,8 @@ ops/local_pairwise.py (|y|^2 = 1e20 and y = 0 outside the image):
   order.
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-``kernels/csrc/local_agg.cu``.
+``kernels/csrc/local_agg.cu`` (the distances' dot products and the weighted
+sum on the tensor cores at f32 accuracy: 3xTF32).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from .. import kernels
 from .local_pairwise import (local_pairwise_dist, local_weighted_aggregate,
                              local_window_gather)
 
-#: limits of the kernels' shared-memory staging (local_agg.cu)
+#: limits of the kernels' shared-memory staging and register tiles
+#: (local_agg.cu)
 MAX_RADIUS = 15
 MAX_DIST_CHANNELS = 256
 

@@ -14,6 +14,7 @@ Tensors are NCHW.  ``weights`` maps each conv's name (``convc1``, ``convc2``,
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -55,10 +56,38 @@ def motion_encoder_plain(corr, flow, weights):
     return torch.cat([c(torch.cat([cor, flo], 1), "conv"), flow], 1)
 
 
+def _version(t):
+    """In-place writes bump a tensor's version; an inference tensor has
+    none (None)."""
+    return None if t.is_inference() else t._version
+
+
+#: conv's weights padded to 128 output channels and the (w, bias) they came
+#: from: (weakrefs, versions, padded pair)
+_padded = None
+
+
+def _padded_conv(w, bias):
+    """conv's [9, 256, 126] weights and [126] bias with two zero output
+    channels appended, as the kernel takes them (16-byte weight rows).  Made
+    once and kept while the same (w, bias) live unmodified: RAFT packs its
+    weights once a forward (``BasicUpdateBlock.taps``) and calls the encoder
+    at every refinement."""
+    global _padded
+    versions = (_version(w), _version(bias))
+    if (_padded is None or _padded[0][0]() is not w
+            or _padded[0][1]() is not bias or _padded[1] != versions):
+        pair = (F.pad(w, (0, 2)).contiguous(),
+                F.pad(bias, (0, 2)).contiguous())
+        _padded = ((weakref.ref(w), weakref.ref(bias)), versions, pair)
+    return _padded[2]
+
+
 def motion_encoder(corr, flow, weights):
     """The layout of :func:`motion_encoder_plain`.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``kernels/csrc/motion_encoder.cu``
-    (five launches behind one C entry point)."""
+    (five launches behind one C entry point; convc1, convc2, convf2 and conv
+    on the tensor cores at f32 accuracy: 3xTF32)."""
     if corr.device.type == "cpu":
         return motion_encoder_plain(corr, flow, weights)
     if corr.device.type != "cuda":
@@ -76,6 +105,8 @@ def motion_encoder(corr, flow, weights):
                              f"{cout}] with a [{cout}] bias")
         flat += [w, bias]
     kernels.check_inputs("motion_encoder", (corr, flow, *flat))
+    flat[8:10] = _padded_conv(*flat[8:10])
+    kernels.check_aligned("motion_encoder", flat[0:4:2] + flat[6:10:2])
     scratch = torch.empty(b * 640 * hh * ww, device=corr.device)
     out = torch.empty(b, 128, hh, ww, device=corr.device)
     lib = kernels.load("motion_encoder")

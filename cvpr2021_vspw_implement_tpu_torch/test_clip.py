@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from .config import check_compute_dtype
 from .config import cfg as default_cfg
 from .config.args import postprocess_args
 from .data import TestClipDataset, TestFrameDataset, list_videos
@@ -139,6 +140,7 @@ def _windows(model, ds, device):
 def evaluate_clip(cfg, args, model=None, logger=None):
     """Eval over the first ``args.max_videos`` videos (0 = all); returns
     (metrics, per-video mIoU)."""
+    check_compute_dtype(cfg)
     logger = logger or setup_logger()
     device = resolve_device(args.device)
     streaming = args.method == "clip_psp"

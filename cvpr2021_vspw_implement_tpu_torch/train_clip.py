@@ -22,6 +22,7 @@ import time
 
 import torch
 
+from .config import check_compute_dtype
 from .config import cfg as default_cfg
 from .config.args import build_train_clip_parser, postprocess_args
 from .data import ClipDataset, ClipLoader, LongClipDataset
@@ -124,6 +125,7 @@ def main(argv=None):
     cfg.merge_from_file(args.cfg)
     if args.opts:
         cfg.merge_from_list(args.opts)
+    check_compute_dtype(cfg)   # before anything is written to cfg.DIR
     cfg.DATASET.num_class = args.num_class
     cfg.TRAIN.num_epoch = args.totalepoch
     cfg.TRAIN.weight_decay = args.weight_decay

@@ -25,7 +25,7 @@ from cvpr2021_vspw_implement_tpu.methods import build_method
 from cvpr2021_vspw_implement_tpu.models.raft import RAFT as JaxRAFT
 from cvpr2021_vspw_implement_tpu.tc_cal import compute_tc, load_raft_variables
 from cvpr2021_vspw_implement_tpu.test_clip import evaluate_clip
-from cvpr2021_vspw_implement_tpu_torch import tc_cal, test_clip
+from cvpr2021_vspw_implement_tpu_torch import tc_cal, test_clip, train_clip
 from cvpr2021_vspw_implement_tpu_torch.config import cfg as port_default_cfg
 from cvpr2021_vspw_implement_tpu_torch.convert import load_jax_variables
 from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
@@ -125,3 +125,17 @@ def test_tc_cal_cli_matches_jax(runs):
         "--device", "cpu"])
     assert np.isfinite(tc_port)
     assert abs(tc_port - tc_jax) <= 1e-3
+
+
+@pytest.mark.parametrize("cli", [test_clip, train_clip])
+def test_compute_dtype_other_than_float32_raises(cli, tmp_path, monkeypatch):
+    """The port computes in float32 only: ``TPU.compute_dtype`` exists with
+    that default, and both CLIs refuse any other value (the JAX CLIs'
+    default, bfloat16, included) before they build or write anything."""
+    assert port_default_cfg.TPU.compute_dtype == "float32"
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match="compute_dtype 'bfloat16' is not "
+                                         "ported"):
+        cli.main(["--cfg", PRESET, "--dataroot", str(tmp_path),
+                  "--device", "cpu", "TPU.compute_dtype", "bfloat16"])
+    assert os.listdir(tmp_path) == []

@@ -7,17 +7,18 @@ Needs an NVIDIA GPU and imports no JAX, so it runs on the card's machine:
 Without a card every test skips.  Tolerances: the corr lookup is the same
 f32 arithmetic (atol 1e-5); the GRU pass, the motion encoder and the GRU +
 flow head sum products of up to 2304 terms in another order than cuDNN, the
-last two through chains of five and six convolutions, the GRU convolutions
-on the tensor cores at f32 accuracy (3xTF32, about 2^-22 of each product)
-(atol 1e-4).  The
+last two through chains of five and six convolutions, their convolutions
+on the tensor cores at f32 accuracy (3xTF32, about 2^-22 of each product;
+the motion encoder's 7x7 on the flow on the CUDA cores) (atol 1e-4).  The
 local aggregations (B5) sum 128-term distances and up to 441 weighted
-values in another order than the plain version (sigmoid and softmax: atol
-1e-5 and rtol 1e-4 per element, and at most 1e-4 of the largest output
-overall, on the near-match inputs of ``local_agg_inputs``, whose window
-weights are far from uniform and whose softmax scores stay far from the
-pole of 1 / (dist * temp + 1e-5)); nearest must pick the same value except
-where the two largest in-image window distances lie within 1e-4
-relative.  The band re-zero (B6) only stores zeros: bitwise equal.
+values in another order than the plain version, both products on the
+tensor cores in 3xTF32 (sigmoid and softmax: atol 1e-5 and rtol 1e-4 per
+element, and at most 1e-4 of the largest output overall, on the near-match
+inputs of ``local_agg_inputs``, whose window weights are far from uniform
+and whose softmax scores stay far from the pole of 1 / (dist * temp +
+1e-5)); nearest must pick the same value except where the two largest
+in-image window distances lie within 1e-4 relative.  The band re-zero (B6)
+only stores zeros: bitwise equal.
 """
 
 import os
@@ -26,6 +27,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_port_util import (gru_flowhead_inputs, gru_inputs,  # noqa: E402
@@ -145,18 +147,54 @@ def test_gru_kernels_refuse_hd_not_multiple_of_32(cuda_device, hd):
 SHAPES = [(1, 37, 53), (2, 37, 53), (1, 60, 60), (2, 60, 60)]
 
 
+def _motion_case(device, seed, b, h, w, ck=324):
+    corr, flow, p = motion_inputs(np.random.default_rng(seed), b, h, w,
+                                  ck=ck)
+    return (to_nchw(corr).to(device), to_nchw(flow).to(device),
+            weights_to(port_motion_weights(p), device))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", SHAPES)
+@pytest.mark.parametrize("b,h,w", SHAPES + [(1, 60, 107)])
 def test_motion_encoder_kernel_matches_plain(cuda_device, b, h, w):
-    corr, flow, p = motion_inputs(np.random.default_rng(5), b, h, w)
-    corr, flow = to_nchw(corr).to(cuda_device), to_nchw(flow).to(cuda_device)
-    weights = weights_to(port_motion_weights(p), cuda_device)
+    """Also at the TC shape 1x60x107 (rows not 16-byte aligned: 4-byte
+    activation copies), which the model gates off this kernel (above 4096
+    positions) but the wrapper takes.  The last two output channels are the
+    input flow, bitwise: conv computes 128 channels from weights padded
+    with zeros and stores 126."""
+    corr, flow, weights = _motion_case(cuda_device, 5, b, h, w)
     before = motion_encoder.launches
     got = motion_encoder(corr, flow, weights)
     torch.cuda.synchronize()
     assert motion_encoder.launches == before + 1
     torch.testing.assert_close(got, motion_encoder_plain(corr, flow, weights),
                                rtol=0, atol=1e-4)
+    assert torch.equal(got[:, 126:], flow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ck", [100, 324])
+def test_motion_encoder_kernel_partial_channel_chunk(cuda_device, ck):
+    """convc1's K = ck: 100 and 324 (10 x 32 + 4) end in a partial
+    32-channel K step of the tensor-core kernel, zero-filled past ck."""
+    corr, flow, weights = _motion_case(cuda_device, 8, 2, 13, 37, ck)
+    got = motion_encoder(corr, flow, weights)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, motion_encoder_plain(corr, flow, weights),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_motion_encoder_kernel_matches_float64(cuda_device):
+    """At the ETC train shape the 3xTF32 products hold the encoder within
+    1e-5 of a float64 evaluation."""
+    corr, flow, weights = _motion_case(cuda_device, 13, 2, 60, 60)
+    want = motion_encoder_plain(corr.double(), flow.double(), {
+        k: (w.double(), b.double()) for k, (w, b) in weights.items()})
+    got = motion_encoder(corr, flow, weights)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5, err
 
 
 @pytest.mark.cuda
@@ -176,13 +214,23 @@ def test_gru_flowhead_kernel_matches_plain(cuda_device, b, h, w):
     torch.testing.assert_close(got_delta, want_delta, rtol=0, atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,r", [(1, 37, 53, 2), (2, 37, 53, 10),
-                                     (1, 60, 107, 10), (2, 60, 107, 2)])
-@pytest.mark.parametrize("mode", ["sigmoid", "softmax", "nearest"])
-def test_local_agg_kernel_matches_plain(cuda_device, mode, b, h, w, r):
-    x, yd, yv = (to_nchw(a).to(cuda_device) for a in local_agg_inputs(
-        np.random.default_rng(7 + r), b, h, w, 128, 256))
+def _local_agg_case(device, seed, b, h, w, cd=128, cv=256):
+    return tuple(to_nchw(a).to(device) for a in local_agg_inputs(
+        np.random.default_rng(seed), b, h, w, cd, cv))
+
+
+def _near_ties(x, yd, r):
+    """[B, H, W]: the two largest window distances are in the image and lie
+    within 1e-4 relative, where rounding may flip the argmax."""
+    dist = local_pairwise_dist(x, yd, r).flatten(1, 2)
+    if r == 0:                                   # a window of one position
+        return torch.zeros_like(dist[:, 0], dtype=torch.bool)
+    top = torch.topk(dist, 2, dim=1).values
+    return (top[:, 0] < 1e19) & (top[:, 0] - top[:, 1]
+                                 <= 1e-4 * top[:, 0].abs())
+
+
+def _check_local_agg(mode, x, yd, yv, r):
     fn = getattr(local_agg, f"local_{mode}_aggregate")
     before = fn.launches
     got = fn(x, yd, yv, r)
@@ -193,11 +241,89 @@ def test_local_agg_kernel_matches_plain(cuda_device, mode, b, h, w, r):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
         return
-    top = torch.topk(local_pairwise_dist(x, yd, r).flatten(1, 2), 2,
-                     dim=1).values
-    tie = (top[:, 0] < 1e19) & (top[:, 0] - top[:, 1] <= 1e-4 * top[:, 0].abs())
-    keep = ~tie[:, None].expand_as(got)
+    keep = ~_near_ties(x, yd, r)[:, None].expand_as(got)
     torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=0)
+
+
+MODES = ["sigmoid", "softmax", "nearest"]
+
+
+def _local_agg_float64(mode, x, yd, yv, r, temp=3.0):
+    """The plain versions' composition in float64 (they compute in float32
+    whatever their inputs): dist over the window with 1e20 outside the
+    image, then the mode's weights and the window sum, or the value at the
+    first argmax."""
+    x, yd, yv = x.double(), yd.double(), yv.double()
+    h, w = x.shape[-2:]
+    k = 2 * r + 1
+    y2 = F.pad(yd.square().sum(1), (r, r, r, r), value=1e20)
+    yp, vp = F.pad(yd, (r, r, r, r)), F.pad(yv, (r, r, r, r))
+    x2 = x.square().sum(1)
+    offsets = [(dy, dx) for dy in range(k) for dx in range(k)]
+    dist = torch.stack([
+        x2 + y2[:, dy:dy + h, dx:dx + w]
+        - 2.0 * (x * yp[:, :, dy:dy + h, dx:dx + w]).sum(1)
+        for dy, dx in offsets], 1)                       # [B, k*k, H, W]
+    if mode == "nearest":
+        pick = dist.argmax(1)
+        out = torch.zeros_like(yv)
+        for n, (dy, dx) in enumerate(offsets):
+            out += (pick == n)[:, None] * vp[:, :, dy:dy + h, dx:dx + w]
+        return out
+    if mode == "softmax":
+        wts = torch.softmax(1.0 / (dist * temp + 1e-5), 1)
+    else:
+        wts = 1.0 - (torch.sigmoid(dist) - 0.5) * 2.0
+    out = torch.zeros_like(yv)
+    for n, (dy, dx) in enumerate(offsets):
+        out += wts[:, n, None] * vp[:, :, dy:dy + h, dx:dx + w]
+    return out / (k * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,r", [(1, 37, 53, 2), (2, 37, 53, 10),
+                                     (1, 60, 107, 10), (2, 60, 107, 2),
+                                     (1, 37, 53, 0), (1, 37, 53, 15),
+                                     (1, 6, 41, 15)])
+@pytest.mark.parametrize("mode", MODES)
+def test_local_agg_kernel_matches_plain(cuda_device, mode, b, h, w, r):
+    """H = 37 and 6 are not multiples of a block's 4 query rows, W = 53, 41
+    and 107 end in a partial 32-column tile; r = 0 (one key) to 15 (the
+    largest window, three 16-key groups; at H = 6 every window reaches
+    rows outside the image above and below)."""
+    _check_local_agg(mode, *_local_agg_case(cuda_device, 7 + r, b, h, w), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd,cv", [(128, 320), (64, 256), (200, 256),
+                                   (256, 64)])
+@pytest.mark.parametrize("mode", MODES)
+def test_local_agg_kernel_channel_counts(cuda_device, mode, cd, cv):
+    """Cv = 320: three value chunks of 128, the last partial; Cd = 64; Cd =
+    200 and 256 (the wrapper's limit): two query rows a block and y_dist in
+    two stages a key row, the second partial for 200."""
+    _check_local_agg(mode, *_local_agg_case(cuda_device, 3, 1, 21, 45, cd,
+                                            cv), 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_local_agg_kernel_matches_float64(cuda_device, mode):
+    """At our_warp's eval shape (1x60x107, Cd 128, Cv 256, r 10) the 3xTF32
+    products hold sigmoid and softmax within 1e-5 of the largest output of
+    a float64 evaluation; nearest picks what float64 picks off near-ties."""
+    x, yd, yv = _local_agg_case(cuda_device, 17, 1, 60, 107)
+    r = 10
+    want = _local_agg_float64(mode, x, yd, yv, r)
+    got = getattr(local_agg, f"local_{mode}_aggregate")(x, yd, yv, r)
+    torch.cuda.synchronize()
+    if mode != "nearest":
+        err = (got.double() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+        return
+    keep = ~_near_ties(x, yd, r)[:, None].expand_as(got)
+    torch.testing.assert_close(got[keep].double(), want[keep], rtol=0,
+                               atol=0)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The port's boundaries and small pieces.
 
-* no module of the port, nor ``chip_smoke.py`` or the step profiler under
+* no module of the port, nor ``chip_smoke.py`` or the port's tools under
   ``tools/``, imports jax, flax or the JAX package;
 * entry points default to CUDA and raise without it;
 * resize, pooling and warping, metrics, data normalization and config
@@ -45,6 +45,7 @@ def _port_sources():
     yield os.path.join(PORT, os.pardir, "chip_smoke.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_step_profile.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_bucket_profile.py")
+    yield os.path.join(PORT, os.pardir, "tools", "torch_mma_split_bench.py")
     for d, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
@@ -75,7 +76,8 @@ def test_port_imports_no_jax():
             "ops/local_agg.py", "models/warp_our.py", "ops/masked.py",
             "ops/band_zero.py", "serving.py", "../chip_smoke.py",
             "../tools/torch_step_profile.py",
-            "../tools/torch_bucket_profile.py"} <= set(seen)
+            "../tools/torch_bucket_profile.py",
+            "../tools/torch_mma_split_bench.py"} <= set(seen)
 
 
 def test_entry_points_default_to_cuda(tmp_path):

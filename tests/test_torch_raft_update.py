@@ -75,14 +75,34 @@ def test_gru_flowhead_plain_matches_jax(hw, oracle):
         want = jax_ru.gru_flowhead_fused(jnp.asarray(net), jnp.asarray(x), p,
                                          interpret=True)
         tol = (8e-5, 8e-5)
-    np.testing.assert_allclose(to_nhwc(got_net), np.asarray(want[0]),
-                               atol=tol[0], rtol=tol[1])
-    np.testing.assert_allclose(to_nhwc(got_delta), np.asarray(want[1]),
-                               atol=tol[0], rtol=tol[1])
+    for i, (name, out) in enumerate((("net", got_net), ("delta", got_delta))):
+        _assert_close_naming_side(
+            to_nhwc(out), np.asarray(want[i]), tol, name,
+            lambda i=i: gru_flowhead_plain(
+                to_nchw(net).double(), to_nchw(x).double(),
+                {k: (w.double(), b.double())
+                 for k, (w, b) in weights.items()})[i])
     before = gru_flowhead.launches
     same = gru_flowhead(to_nchw(net), to_nchw(x), weights)
     torch.testing.assert_close(same[1], got_delta, rtol=0, atol=0)
     assert gru_flowhead.launches == before
+
+
+def _assert_close_naming_side(got, want, tol, name, float64):
+    """assert_allclose(got, want); when the bar is missed, the message also
+    gives each side's largest error against ``float64()`` (the same function
+    evaluated in float64 on the same inputs, NCHW), so that it says which
+    side moved."""
+    try:
+        np.testing.assert_allclose(got, want, atol=tol[0], rtol=tol[1])
+    except AssertionError as e:
+        ref = to_nhwc(float64())
+        port_err = np.abs(got - ref).max()
+        jax_err = np.abs(want - ref).max()
+        side = "the port" if port_err > jax_err else "JAX"
+        raise AssertionError(
+            f"{name}: port vs float64 {port_err:.3e}, JAX vs float64 "
+            f"{jax_err:.3e}; {side} moved\n{e}") from None
 
 
 @pytest.fixture(scope="module")
@@ -205,7 +225,7 @@ def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "CSRC", str(csrc))
     before = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
     assert before == {n: kernels.library_path(n) for n in kernels.SIGNATURES}
-    with open(csrc / "tap_conv.cuh", "a") as f:
+    with open(csrc / "tap_mma.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
     assert all(after[n] != before[n] for n in before)

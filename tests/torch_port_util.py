@@ -123,12 +123,14 @@ def _conv_params(rng, shapes, scale):
             for name, s in shapes.items()}
 
 
-def motion_inputs(rng, b, h, w, scale=0.05):
+def motion_inputs(rng, b, h, w, scale=0.05, ck=324):
     """NHWC corr and flow and the HWIO parameter dict of the JAX motion
-    encoder (``motion_encoder_xla`` / ``motion_encoder_fused``)."""
-    corr = rng.normal(size=(b, h, w, 324)).astype(np.float32)
+    encoder (``motion_encoder_xla`` / ``motion_encoder_fused``); ``ck``
+    correlation channels (RAFT's 4 levels of 9x9: 324)."""
+    corr = rng.normal(size=(b, h, w, ck)).astype(np.float32)
     flow = rng.normal(0, 2, size=(b, h, w, 2)).astype(np.float32)
-    return corr, flow, _conv_params(rng, _MOTION_KERNELS, scale)
+    shapes = {**_MOTION_KERNELS, "convc1": (1, 1, ck, 256)}
+    return corr, flow, _conv_params(rng, shapes, scale)
 
 
 def gru_flowhead_inputs(rng, b, h, w, hd=128, cx=256, scale=0.05):
@@ -196,7 +198,7 @@ def tf32_products(conv, inp, w, passes: int):
     """``conv(inp, w)`` with TF32 operands: one product hi*hi (``passes`` 1)
     or the 3xTF32 sum lo*hi + hi*lo + hi*hi (``passes`` 3), with hi =
     tf32(v) and lo = tf32(v - hi) as the tensor-core kernels split each
-    operand (kernels/csrc/tap_mma.cuh); each product is of TF32 values
+    operand (kernels/csrc/mma_tf32.cuh); each product is of TF32 values
     (exact in f32), accumulated in f32 by ``conv``."""
     ih, wh = tf32_round(inp), tf32_round(w)
     if passes == 1:
