@@ -15,9 +15,14 @@
    and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
    and a no-band case, bitwise)
    with TF32 off, and times kernel, plain version, bound and the PyTorch
-   yardstick; then times one refinement of RAFT's update block by its fused
-   route (B2 + B3) and its unfused one (cuDNN + B4 + cuDNN) at 2x60x60 and
-   1x60x107;
+   yardstick (CUDA events over back-to-back calls); the corr lookup (B1)
+   and the band re-zero (B6), whose launches are shorter than their host
+   enqueue, on three clocks instead (kernels/timing.py): device time a
+   launch from a replayed CUDA graph (their ``ms``), the profiler's device
+   time, and the host's enqueue a call, for the kernel and its yardsticks,
+   beside the bound and the 32-byte sectors the call must touch; then
+   times one refinement of RAFT's update block by its fused route (B2 + B3)
+   and its unfused one (cuDNN + B4 + cuDNN) at 2x60x60 and 1x60x107;
 4. drives the main paths through the user entry points, the kernel launch
    counts zeroed just before each path and read just after:
    a. TCB-PSP streaming eval (``test_clip --eval_policy exact --width_bucket
@@ -128,6 +133,37 @@ def lookup_bytes(pyramid, coords, r=4):
     return 4 * (n + c.numel() + out)
 
 
+def lookup_sectors(pyramid, coords, r=4):
+    """The 32-byte sectors of the pyramid that the lookup's patches touch at
+    these coords: each in-level row segment of each query's (2r+2)^2 patch
+    on each level, at the levels' own addresses."""
+    import torch
+    b, _, h1, w1 = coords.shape
+    p = h1 * w1
+    c = coords.reshape(b, 2, p)
+    dev = coords.device
+    plane0 = (torch.arange(b, device=dev)[:, None] * p
+              + torch.arange(p, device=dev)[None])           # [B, P]
+    n = 0
+    for i, corr in enumerate(pyramid):
+        hl, wl = corr.shape[2:]
+        if hl * wl == 0:
+            continue
+        x0, y0 = torch.floor(c[:, 0] / 2 ** i), torch.floor(c[:, 1] / 2 ** i)
+        inside = (x0 >= -5) & (x0 <= wl + 3) & (y0 >= -5) & (y0 <= hl + 3)
+        xlo = (x0 - r).clamp(0, wl - 1).long()
+        xhi = (x0 + r + 1).clamp(0, wl - 1).long()
+        rows = (y0 - r).clamp(-2 * r - 2, hl).long()[..., None] + torch.arange(
+            2 * r + 2, device=dev)                            # [B, P, 10]
+        live = inside[..., None] & (rows >= 0) & (rows < hl)
+        start = corr.data_ptr() % 32 + 4 * (
+            plane0[..., None] * (hl * wl) + rows.clamp(0, hl - 1) * wl
+            + xlo[..., None])
+        end = start + 4 * (xhi - xlo + 1)[..., None] - 1
+        n += int(((end // 32 - start // 32 + 1) * live).sum().item())
+    return n
+
+
 def check_corr_lookup(torch, g, b, h, w, levels=4):
     """The corr-lookup kernel vs plain on a [b, h, w] grid of queries with
     rows of far-out-of-range taps (limit 1e-5), over the first ``levels``
@@ -160,18 +196,69 @@ def check_corr_lookup(torch, g, b, h, w, levels=4):
     if not err <= 1e-5:
         raise SystemExit(f"corr_lookup kernel disagrees with its plain "
                          f"version at {shape}")
-    row = {
-        "shape": shape, "max_abs_err": err,
-        "plain_ms": cuda_ms(lambda: lookup_corr_pyramid_plain(pyr, coords)),
-        "ms": cuda_ms(lambda: lookup_corr_pyramid(pyr, coords)),
-        "library_ms": cuda_ms(lambda: grid_sample_lookup(pyr, coords)),
-    }
+    row = {"shape": shape, "max_abs_err": err,
+           **three_clocks(lambda: lookup_corr_pyramid(pyr, coords),
+                          lambda: lookup_corr_pyramid_plain(pyr, coords),
+                          {"library": lambda: grid_sample_lookup(pyr, coords)},
+                          lookup_corr_pyramid)}
     t_bytes = lookup_bytes(pyr, coords) / HBM_BYTES_PER_S
     # 4 taps a window position: weights and blend
     t_ops = 11 * 4 * 81 * levels * b * h * w / F32_FLOP_PER_S
     row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    # the same bytes with the pyramid read in whole 32-byte sectors
+    row["sectors"] = lookup_sectors(pyr, coords)
+    row["sector_floor_ms"] = 1e3 * (32 * row["sectors"] + 4 * (
+        coords.numel() + got.numel())) / HBM_BYTES_PER_S
+    print(f"corr_lookup at {shape}: {clocks_text(row)}; bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), sector floor "
+          f"{row['sector_floor_ms']:.5f} ms ({row['sectors']} 32-byte "
+          "sectors of the pyramid read, the coords and the output)")
     return row
+
+
+def three_clocks(kernel, plain, yardsticks, wrapper):
+    """The clocks of a kernel whose device time may be shorter than its
+    host enqueue (B1, B6): ``ms``, ``plain_ms`` and ``<name>_ms`` of each
+    yardstick (``library`` first) are device times a call, from a CUDA graph
+    of the calls replayed between events (kernels/timing.py::device_ms);
+    ``profiler_ms`` and ``<name>_profiler_ms`` the profiler's device time a
+    call; ``enqueue_ms`` and ``<name>_enqueue_ms`` the host's time a call;
+    ``events_ms`` CUDA events over back-to-back calls, the figure that
+    ``ms`` was before (``cuda_ms``).  The wrapper's launch counter is left
+    as it was."""
+    from cvpr2021_vspw_implement_tpu_torch.kernels import timing
+
+    out = {"ms": timing.device_ms(kernel, counted=(wrapper,)),
+           "plain_ms": timing.device_ms(plain, n=10),
+           "profiler_ms": timing.profiler_ms(kernel, counted=(wrapper,)),
+           "enqueue_ms": timing.enqueue_ms(kernel, counted=(wrapper,))}
+    before = wrapper.launches
+    out["events_ms"] = cuda_ms(kernel)
+    wrapper.launches = before
+    for name, fn in yardsticks.items():
+        out[f"{name}_ms"] = timing.device_ms(fn, n=20)
+        out[f"{name}_profiler_ms"] = timing.profiler_ms(fn)
+        out[f"{name}_enqueue_ms"] = timing.enqueue_ms(fn)
+    return out
+
+
+def clocks_text(row):
+    """The clocks of :func:`three_clocks` as one line of text."""
+    def ms(v):
+        return "not measured" if v is None else f"{v:.5f}"
+
+    parts = [f"device {ms(row['ms'])} ms a launch (graph replay), profiler "
+             f"{ms(row['profiler_ms'])}, host enqueue "
+             f"{ms(row['enqueue_ms'])}, back-to-back events "
+             f"{ms(row['events_ms'])}; plain {ms(row['plain_ms'])} (device)"]
+    for key in row:
+        if key.endswith("_enqueue_ms"):
+            name = key[:-len("_enqueue_ms")]
+            parts.append(f"{name} device {ms(row[name + '_ms'])}, profiler "
+                         f"{ms(row[name + '_profiler_ms'])}, enqueue "
+                         f"{ms(row[key])}")
+    return "; ".join(parts)
 
 
 def smi_clocks():
@@ -282,15 +369,16 @@ def check_sep_gru(torch, g, h, w):
 
 
 def ptxas_lines(log):
-    """``ptxas -v`` lines of the tensor-core kernels in an nvcc log: each
-    kernel's mangled name (which carries its tap shape and epilogue, or its
-    mode), registers, spills and static shared memory."""
+    """``ptxas -v`` lines of the kernels in an nvcc log: each kernel's
+    mangled name (which carries its tap shape and epilogue, or its mode),
+    registers, spills and static shared memory."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-        elif name and ("tap_mma_kernel" in name
-                       or "local_agg_kernel" in name) and (
+        elif name and any(k in name for k in (
+                "tap_mma_kernel", "local_agg_kernel", "corr_lookup_kernel",
+                "band_zero_kernel")) and (
                 "registers" in line or "spill" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -574,15 +662,42 @@ def check_local_agg(torch):
     return rows
 
 
+def band_sectors(x, hv, wv):
+    """The 32-byte sectors of device memory that the band of ``x`` beyond
+    (hv, wv) touches: each row's column run [wv, W) of rows [0, hv) and each
+    plane's row run [hv * W, H * W), at the tensor's own address."""
+    import torch
+    h, w = x.shape[-2:]
+    planes = x.numel() // (h * w)
+    base = x.data_ptr() % 32
+
+    def spans(start, length):
+        """Sectors of runs of ``length`` floats at byte offsets ``start``."""
+        first = (base + start) // 32
+        last = (base + start + 4 * length - 1) // 32
+        return int((last - first + 1).sum().item())
+
+    n = 0
+    if wv < w and hv > 0:
+        rows = torch.arange(planes * h, dtype=torch.int64).view(planes, h)
+        n += spans(4 * (rows[:, :hv].flatten() * w + wv), w - wv)
+    if hv < h:
+        plane0 = torch.arange(planes, dtype=torch.int64) * (h * w)
+        n += spans(4 * (plane0 + hv * w), (h - hv) * w)
+    return n
+
+
 def check_band_zero(torch):
     """The band re-zero kernel vs plain, bitwise, at the shapes bucketed eval
     gives it (R101 at 480x853 in the 480x896 bucket: a 256-channel feature
     and C5 at 60x112, valid 60x107; a correlation-pyramid level of the TC
     pair, [6720, 1, 30, 56], valid 30x53), a rows-only case and a no-band
-    case (no launch).  Each is timed beside the plain version, the two-slice
-    ``zero_()`` and the JAX formulation ``torch.where`` over the whole
-    tensor; the bound is the bytes written over the memory rate.  Returns
-    the kernel's JSON row (at C5, the others under ``also_at``)."""
+    case (no launch).  Each is timed on three clocks (:func:`three_clocks`)
+    beside the plain version, the two-slice ``zero_()`` and the JAX
+    formulation ``torch.where`` over the whole tensor; the bound is the
+    bytes written over the memory rate, printed beside the 32-byte sectors
+    the band touches.  Returns the kernel's JSON row (at C5, the others
+    under ``also_at``)."""
     from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import (
         band_zero, band_zero_plain)
 
@@ -619,19 +734,22 @@ def check_band_zero(torch):
         row = {"shape": f"{label} {'x'.join(map(str, shape))}, valid "
                         f"{hv}x{wv}",
                "max_abs_err": 0.0,
-               "ms": cuda_ms(lambda: band_zero(x, hv, wv)),
-               "plain_ms": cuda_ms(lambda: band_zero_plain(x, hv, wv)),
-               "two_slice_zero_ms": cuda_ms(two_slices),
-               "library_ms": cuda_ms(lambda: torch.where(mask, x, 0.0)),
+               **three_clocks(lambda: band_zero(x, hv, wv),
+                              lambda: band_zero_plain(x, hv, wv),
+                              {"library": lambda: torch.where(mask, x, 0.0),
+                               "two_slice_zero": two_slices}, band_zero),
                "bytes_written": 4 * band,
                "bound_ms": 1e3 * 4 * band / HBM_BYTES_PER_S,
                "bound_by": "bytes"}
-        print(f"band_zero at {label}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, two-slice zero_ "
-              f"{row['two_slice_zero_ms']:.4f} ms, torch.where over the "
-              f"tensor {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bytes_written']} bytes "
-              "written)")
+        row["sectors"] = band_sectors(x, hv, wv)
+        row["sector_floor_ms"] = 1e3 * 32 * row["sectors"] / HBM_BYTES_PER_S
+        above = (", above half the bound"
+                 if row["sector_floor_ms"] > row["bound_ms"] / 2 else "")
+        print(f"band_zero at {label}: {clocks_text(row)} (library: "
+              f"torch.where over the tensor); bound {row['bound_ms']:.5f} ms "
+              f"({row['bytes_written']} bytes written), sector floor "
+              f"{row['sector_floor_ms']:.5f} ms ({row['sectors']} 32-byte "
+              f"sectors touched{above})")
         rows.append(row)
     return {"name": "band_zero", "route": "cuda",
             "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
@@ -974,7 +1092,7 @@ def main() -> int:
     print(f"kernels built in {seconds:.2f} s: {sorted(kernels.SIGNATURES)}")
     ptxas = [f"{name}: {line}"
              for name in ("sep_gru", "gru_flowhead", "motion_encoder",
-                          "local_agg")
+                          "local_agg", "corr_lookup", "band_zero")
              for line in ptxas_lines(logs.get(name, ""))]
     for line in ptxas:
         print(f"ptxas: {line}")
@@ -1273,7 +1391,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "also_at", "rel_err",
             "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches",
-            "two_slice_zero_ms", "bytes_written")
+            "two_slice_zero_ms", "bytes_written", "profiler_ms", "enqueue_ms",
+            "events_ms", "library_profiler_ms", "library_enqueue_ms",
+            "two_slice_zero_profiler_ms", "two_slice_zero_enqueue_ms",
+            "sectors", "sector_floor_ms")
 
     def public(r):
         out = {key: r[key] for key in keys if key in r}

@@ -9,6 +9,12 @@ runs at import time: this module is imported on hosts without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
+
+The launch path is the host's cost of every kernel call, and for the small
+kernels (B1, B6) it is longer than the kernel: a wrapper takes its entry
+point from :func:`entry` (one dict lookup once resolved, no lock) and the
+raw handle of PyTorch's current stream from :func:`stream` (no
+``torch.cuda.Stream`` object a call).
 """
 
 from __future__ import annotations
@@ -57,6 +63,12 @@ SIGNATURES = {
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: C entry point name -> its source's name
+_SOURCE_OF = {fn: name for name, fns in SIGNATURES.items() for fn in fns}
+#: C entry point name -> the resolved ctypes function
+_entries: dict = {}
+#: PyTorch's raw current-stream getter, found at the first launch
+_raw_stream = None
 
 
 def _nvcc() -> str:
@@ -120,6 +132,27 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def entry(fn: str):
+    """The ctypes function of C entry point ``fn``, its library built and
+    loaded at the first call; later calls are one dict lookup."""
+    f = _entries.get(fn)
+    if f is None:
+        f = _entries[fn] = getattr(load(_SOURCE_OF[fn]), fn)
+    return f
+
+
+def stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current CUDA stream on device
+    ``device_index`` (the capturing stream under a CUDA graph capture),
+    without building a ``torch.cuda.Stream``."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(device_index)
 
 
 def check_inputs(what: str, tensors) -> None:

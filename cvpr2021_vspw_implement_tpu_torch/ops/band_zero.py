@@ -35,18 +35,21 @@ def band_zero(x: torch.Tensor, hv: int, wv: int) -> torch.Tensor:
     if x.requires_grad:
         raise ValueError("band_zero writes in place: it takes no tensor that "
                          "requires grad (run under torch.inference_mode())")
-    kernels.check_inputs("band_zero", (x,))
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("band_zero: the tensor must be contiguous float32")
     if (hv == h and wv == w) or x.numel() == 0:
         return x
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise RuntimeError(f"no band_zero for device {x.device}")
         return band_zero_plain(x, hv, wv)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no band_zero for device {x.device}")
     planes = x.numel() // (h * w)
-    lib = kernels.load("band_zero")
-    kernels.check(lib.band_zero_f32(
-        x.data_ptr(), planes, h, w, hv, wv,
-        torch.cuda.current_stream(x.device).cuda_stream), "band_zero_f32")
+    if planes * h >= 2 ** 31 or h * w >= 2 ** 31:
+        raise ValueError("band_zero: the kernel indexes rows and planes in "
+                         "32 bits: planes * H and H * W must stay below 2^31")
+    kernels.check(kernels.entry("band_zero_f32")(
+        x.data_ptr(), planes, h, w, hv, wv, kernels.stream(x.get_device())),
+        "band_zero_f32")
     band_zero.launches += 1
     return x
 

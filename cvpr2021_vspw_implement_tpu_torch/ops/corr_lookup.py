@@ -66,32 +66,44 @@ def lookup_corr_pyramid(pyramid, coords: torch.Tensor,
                         radius: int = 4) -> torch.Tensor:
     """Window lookup of every pyramid level; the layout of
     :func:`lookup_corr_pyramid_plain`.  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``kernels/csrc/corr_lookup.cu``."""
-    if coords.device.type == "cpu":
-        return lookup_corr_pyramid_plain(pyramid, coords, radius)
-    if coords.device.type != "cuda":
-        raise RuntimeError(f"no corr lookup for device {coords.device}")
+    version; a CUDA tensor launches ``kernels/csrc/corr_lookup.cu`` (no
+    backward: it refuses tensors that require grad).  On every device the
+    arguments must be what the kernel takes: coords contiguous float32
+    [B, 2, H, W], radius 4 and 1 to 4 contiguous float32 levels
+    [B, H*W, Hl, Wl] on the coords' device."""
     b, two, h1, w1 = coords.shape
     p = h1 * w1
-    if two != 2 or radius != 4 or not 1 <= len(pyramid) <= 4:
+    n = len(pyramid)
+    if two != 2 or radius != 4 or not 1 <= n <= 4:
         raise ValueError("the corr-lookup kernel takes coords [B, 2, H, W], "
                          "radius 4 and 1 to 4 levels")
-    for lev in pyramid:
-        if (lev.dtype != torch.float32 or not lev.is_contiguous()
-                or lev.device != coords.device or lev.shape[:2] != (b, p)):
-            raise ValueError("pyramid levels must be contiguous float32 "
-                             f"[{b}, {p}, Hl, Wl] on {coords.device}")
     if coords.dtype != torch.float32 or not coords.is_contiguous():
         raise ValueError("coords must be contiguous float32")
-    n = len(pyramid)
-    out = torch.empty(b, n * 81, h1, w1, device=coords.device)
-    levels = list(pyramid) + [pyramid[0]] * (4 - n)
-    hw = [d for lev in levels for d in (lev.shape[2], lev.shape[3])]
-    lib = kernels.load("corr_lookup")
-    rc = lib.corr_lookup_f32(*[lev.data_ptr() for lev in levels], *hw, n,
-                             coords.data_ptr(), out.data_ptr(), b, p,
-                             torch.cuda.current_stream(coords.device)
-                             .cuda_stream)
+    # one pass over the levels: checks, and the kernel's shape arguments
+    dev = coords.device
+    dims, grad = [], coords.requires_grad
+    for lev in pyramid:
+        lb, lp, lh, lw = lev.shape if lev.dim() == 4 else (0, 0, 0, 0)
+        if (lb != b or lp != p or lev.dtype != torch.float32
+                or not lev.is_contiguous() or lev.device != dev):
+            raise ValueError("pyramid levels must be contiguous float32 "
+                             f"[{b}, {p}, Hl, Wl] on {dev}")
+        dims += (lh, lw)
+        grad = grad or lev.requires_grad
+    if not coords.is_cuda:
+        if dev.type != "cpu":
+            raise RuntimeError(f"no corr lookup for device {dev}")
+        return lookup_corr_pyramid_plain(pyramid, coords, radius)
+    if grad:
+        raise ValueError("the corr-lookup kernel has no backward: it takes "
+                         "no tensor that requires grad")
+    out = torch.empty(b, n * 81, h1, w1, device=dev)
+    ptrs = [lev.data_ptr() for lev in pyramid]
+    # unused level slots repeat level 0
+    rc = kernels.entry("corr_lookup_f32")(
+        *ptrs, *[ptrs[0]] * (4 - n), *dims, *dims[:2] * (4 - n), n,
+        coords.data_ptr(), out.data_ptr(), b, p,
+        kernels.stream(coords.get_device()))
     kernels.check(rc, "corr_lookup_f32")
     lookup_corr_pyramid.launches += 1
     return out

@@ -67,11 +67,10 @@ def gru_flowhead(net, x, weights):
     scratch = torch.empty(b * (3 * hd + cf) * hh * ww, device=net.device)
     net_out = torch.empty_like(net)
     delta = torch.empty(b, 2, hh, ww, device=net.device)
-    lib = kernels.load("gru_flowhead")
-    kernels.check(lib.gru_flowhead_f32(
+    kernels.check(kernels.entry("gru_flowhead_f32")(
         net.data_ptr(), x.data_ptr(), *[t.data_ptr() for t in flat],
         scratch.data_ptr(), net_out.data_ptr(), delta.data_ptr(), b, hh, ww,
-        hd, cx, cf, torch.cuda.current_stream(net.device).cuda_stream),
+        hd, cx, cf, kernels.stream(net.get_device())),
         "gru_flowhead_f32")
     gru_flowhead.launches += 1
     return net_out, delta

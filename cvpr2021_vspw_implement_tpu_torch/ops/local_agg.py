@@ -73,11 +73,10 @@ def _launch(fn, entry: str, x, y_dist, y_val, r: int, *extra):
                          f"{MAX_RADIUS} and 1 <= Cd <= {MAX_DIST_CHANNELS}")
     kernels.check_inputs(fn.__name__, (x, y_dist, y_val))
     out = torch.empty(b, cv, h, w, device=x.device)
-    lib = kernels.load("local_agg")
-    kernels.check(getattr(lib, entry)(
+    kernels.check(kernels.entry(entry)(
         x.data_ptr(), y_dist.data_ptr(), y_val.data_ptr(), out.data_ptr(),
         b, cd, cv, h, w, r, *extra,
-        torch.cuda.current_stream(x.device).cuda_stream), entry)
+        kernels.stream(x.get_device())), entry)
     fn.launches += 1
     return out
 

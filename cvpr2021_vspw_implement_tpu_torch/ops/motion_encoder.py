@@ -109,11 +109,10 @@ def motion_encoder(corr, flow, weights):
     kernels.check_aligned("motion_encoder", flat[0:4:2] + flat[6:10:2])
     scratch = torch.empty(b * 640 * hh * ww, device=corr.device)
     out = torch.empty(b, 128, hh, ww, device=corr.device)
-    lib = kernels.load("motion_encoder")
-    kernels.check(lib.motion_encoder_f32(
+    kernels.check(kernels.entry("motion_encoder_f32")(
         corr.data_ptr(), flow.data_ptr(), *[t.data_ptr() for t in flat],
         scratch.data_ptr(), out.data_ptr(), b, hh, ww, ck,
-        torch.cuda.current_stream(corr.device).cuda_stream),
+        kernels.stream(corr.get_device())),
         "motion_encoder_f32")
     motion_encoder.launches += 1
     return out

@@ -62,12 +62,11 @@ def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
     out = torch.empty_like(h)
-    lib = kernels.load("sep_gru")
-    kernels.check(lib.sep_gru_pass_f32(
+    kernels.check(kernels.entry("sep_gru_pass_f32")(
         h.data_ptr(), x.data_ptr(), wzr.data_ptr(), bzr.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), z.data_ptr(), rh.data_ptr(),
         out.data_ptr(), b, hh, ww, hd, cx, axis,
-        torch.cuda.current_stream(h.device).cuda_stream), "sep_gru_pass_f32")
+        kernels.stream(h.get_device())), "sep_gru_pass_f32")
     sep_conv_gru_pass.launches += 1
     return out
 

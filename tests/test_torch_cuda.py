@@ -73,6 +73,84 @@ def test_corr_lookup_kernel_matches_plain(cuda_device):
                                rtol=0, atol=1e-5)
 
 
+def _lookup_case(device, seed, b, h, w, levels=4):
+    """A seeded pyramid and coords as RAFT builds them (f1 . f2 / sqrt(256),
+    2x2 average pooling), coords on the query grid plus N(0, 8^2) px."""
+    from cvpr2021_vspw_implement_tpu_torch.models.raft.corr import \
+        build_corr_pyramid
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1, f2 = (torch.randn(b, 256, h, w, device=device, generator=g)
+              for _ in range(2))
+    ys, xs = torch.meshgrid(torch.arange(h, device=device),
+                            torch.arange(w, device=device), indexing="ij")
+    coords = torch.stack([xs, ys]).float()[None] + 8 * torch.randn(
+        b, 2, h, w, device=device, generator=g)
+    return build_corr_pyramid(f1, f2)[:levels], coords.contiguous()
+
+
+def _check_lookup(levels, coords):
+    before = lookup_corr_pyramid.launches
+    got = lookup_corr_pyramid(levels, coords)
+    torch.cuda.synchronize()
+    assert lookup_corr_pyramid.launches == before + 1
+    want = lookup_corr_pyramid_plain(levels, coords)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(1, 60, 107), (2, 60, 60)])
+def test_corr_lookup_kernel_at_smoke_shapes(cuda_device, b, h, w):
+    """The TC shape and the ETC train shape; at 1x60x107 level 3 is 7x13
+    and at 60x60 7x7, both smaller than the 10x10 patch."""
+    _check_lookup(*_lookup_case(cuda_device, 1, b, h, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+def test_corr_lookup_kernel_batch2_levels(cuda_device, levels):
+    _check_lookup(*_lookup_case(cuda_device, 2, 2, 23, 41, levels))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(7, 7), (7, 13)])
+def test_corr_lookup_kernel_level_smaller_than_patch(cuda_device, h, w):
+    """Level 0 itself smaller than the patch (levels 1-3: 3x3 / 3x6, 1x1 /
+    1x3, 0x0 / 0x1: empty levels read zero)."""
+    rng = np.random.default_rng(h * w)
+    levels = [torch.from_numpy(l).to(cuda_device)
+              for l in pyramid(rng, 2, h, w)]
+    coords = torch.from_numpy(np.moveaxis(query_coords(rng, 2, h, w), -1, 1)
+                              .copy()).to(cuda_device)
+    _check_lookup(levels, coords)
+
+
+@pytest.mark.cuda
+def test_corr_lookup_kernel_far_coords(cuda_device):
+    """Coords of +-1e9 (x0 + 1 in int would overflow) and queries whose
+    whole window lies outside every level: zeros, as the plain version."""
+    levels, coords = _lookup_case(cuda_device, 3, 2, 20, 30)
+    coords[0, 0, ::3] = 1e9
+    coords[1, 1, 1::3] = -1e9
+    coords[:, 0, 2::3] = -50.0                 # x0 - 4 + 9 < 0 on every level
+    got = _check_lookup(levels, coords)
+    assert not got[:, :, 2::3].any()
+
+
+@pytest.mark.cuda
+def test_corr_lookup_kernel_refuses_grad(cuda_device):
+    """The kernel has no backward: the wrapper refuses, before any launch,
+    coords or a level that require grad."""
+    levels, coords = _lookup_case(cuda_device, 4, 1, 8, 12)
+    before = lookup_corr_pyramid.launches
+    with pytest.raises(ValueError, match="requires grad"):
+        lookup_corr_pyramid(levels, coords.requires_grad_())
+    with pytest.raises(ValueError, match="requires grad"):
+        lookup_corr_pyramid([levels[0].requires_grad_(), *levels[1:]],
+                            coords.detach())
+    assert lookup_corr_pyramid.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", [(2, 11, 70), (1, 60, 107), (1, 60, 112)])
 @pytest.mark.parametrize("axis", [0, 1])
@@ -332,8 +410,15 @@ def test_local_agg_kernel_matches_float64(cuda_device, mode):
     ((2, 64, 64, 112), 60, 107),       # batch 2, both bands
     ((2, 32, 64, 112), 57, 112),       # rows only
     ((1, 16, 31, 57), 29, 53),         # odd W: no 16-byte stores
+    ((3, 2, 17, 45), 11, 40),          # odd W, both bands
     ((1200, 1, 30, 56), 30, 53),       # a correlation-pyramid level
     ((3, 5, 7), 0, 4),                 # every row is band
+    ((2, 3, 20, 100), 20, 60),         # a column run of 40 floats
+    ((2, 3, 21, 100), 17, 60),         # 40 floats and a row band
+    ((70000, 1, 8, 16), 6, 13),        # more planes than gridDim.y allows
+    ((1, 2048, 60, 112), 60, 107),     # the smoke's shapes: C5,
+    ((6720, 1, 30, 56), 30, 53),       # the TC pair's pyramid level,
+    ((1, 256, 64, 112), 57, 112),      # rows only
 ])
 def test_band_zero_kernel_matches_plain(cuda_device, shape, hv, wv):
     x = torch.randn(*shape, device=cuda_device)
@@ -363,3 +448,52 @@ def test_band_zero_kernel_refuses_strided_and_grad(cuda_device):
     with pytest.raises(ValueError, match="requires grad"):
         band_zero(x.requires_grad_(), 50, 100)
     assert band_zero.launches == before
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_current_stream(cuda_device):
+    """The wrappers launch on PyTorch's current stream (a side stream here),
+    read without building a torch.cuda.Stream."""
+    levels, coords = _lookup_case(cuda_device, 5, 1, 16, 24)
+    x = torch.randn(2, 8, 30, 56, device=cuda_device)
+    want_x = band_zero_plain(x.clone(), 25, 50)
+    want = lookup_corr_pyramid_plain(levels, coords)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = lookup_corr_pyramid(levels, coords)
+        band_zero(x, 25, 50)
+    side.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(x, want_x)
+
+
+@pytest.mark.cuda
+def test_graph_capture_counts_and_timing_restores(cuda_device):
+    """Capturing a wrapper into a CUDA graph runs its Python once a call, so
+    its counter counts the captured launches; a replay runs no Python and
+    counts none, but does run the kernel.  kernels/timing.py puts the
+    counters of the wrappers it is given back as they were."""
+    from cvpr2021_vspw_implement_tpu_torch.kernels import timing
+    x = torch.randn(1, 16, 30, 56, device=cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    band_zero(x, 30, 50)                      # build and load outside
+    torch.cuda.synchronize()
+    before = band_zero.launches
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            band_zero(x, 30, 50)
+    assert band_zero.launches == before + 3
+    x.normal_()
+    want = band_zero_plain(x.clone(), 30, 50)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert band_zero.launches == before + 3 and torch.equal(x, want)
+
+    levels, coords = _lookup_case(cuda_device, 6, 1, 16, 24)
+    counts = band_zero.launches, lookup_corr_pyramid.launches
+    for clock in (timing.device_ms, timing.enqueue_ms, timing.profiler_ms):
+        clock(lambda: band_zero(x, 30, 50), counted=(band_zero,))
+        clock(lambda: lookup_corr_pyramid(levels, coords),
+              counted=(lookup_corr_pyramid,))
+    assert (band_zero.launches, lookup_corr_pyramid.launches) == counts
