@@ -164,27 +164,60 @@ def lookup_sectors(pyramid, coords, r=4):
     return n
 
 
-def check_corr_lookup(torch, g, b, h, w, levels=4):
-    """The corr-lookup kernel vs plain on a [b, h, w] grid of queries with
-    rows of far-out-of-range taps (limit 1e-5), over the first ``levels``
-    levels of the pyramid; returns the error, the times and the bound at
-    that shape."""
+# the shapes the paths give the corr lookup (B1), (b, h, w, levels): TC at
+# 480x853 (one pair), the ETC train step (the 479 crop padded to 480, batch
+# 2), and TC's with one level, the per-level variant of the TPU kernel
+# (_lookup_level_pallas, corr.py:186), which no path launches alone
+LOOKUP_SHAPES = ((1, 60, 107, 4), (2, 60, 60, 4), (1, 60, 107, 1))
+# the band re-zero's (B6), (label, shape, hv, wv): R101 at 480x853 in the
+# 480x896 bucket (C5 and a 256-channel feature at 60x112, valid 60x107), a
+# correlation-pyramid level of the TC pair, a rows-only and a no-band case
+BAND_SHAPES = (("C5", (1, 2048, 60, 112), 60, 107),
+               ("feature", (1, 256, 60, 112), 60, 107),
+               ("pyramid level", (6720, 1, 30, 56), 30, 53),
+               ("rows only", (1, 256, 64, 112), 57, 112),
+               ("no band", (1, 256, 60, 112), 60, 112))
+
+
+def lookup_cases(torch):
+    """(shape label, pyramid, coords) at each of LOOKUP_SHAPES, seeded: RAFT's
+    pyramid of random features, coords on the query grid plus N(0, 8^2) px
+    with rows of far-out-of-range taps.  tools/torch_launch_bench.py times
+    the same inputs."""
     from cvpr2021_vspw_implement_tpu_torch.models.raft.corr import \
         build_corr_pyramid
     from cvpr2021_vspw_implement_tpu_torch.models.raft.raft import \
         coords_grid
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, w, levels in LOOKUP_SHAPES:
+        f1 = torch.randn(b, 256, h, w, device="cuda", generator=g)
+        f2 = torch.randn(b, 256, h, w, device="cuda", generator=g)
+        coords = coords_grid(b, h, w, "cuda") + 8 * torch.randn(
+            b, 2, h, w, device="cuda", generator=g)
+        coords[:, 0, :3] = -20.0               # rows of far-out-of-range taps
+        coords[:, 1, -3:] = h + 15.5
+        yield (f"{b}x{h}x{w}" + ("" if levels == 4 else f", {levels} level"),
+               build_corr_pyramid(f1, f2)[:levels], coords.contiguous())
+
+
+def band_cases(torch):
+    """(label, tensor, hv, wv) at each of BAND_SHAPES, seeded; the tensor is
+    random, so the band is not zero before the call."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for label, shape, hv, wv in BAND_SHAPES:
+        yield label, torch.randn(*shape, device="cuda", generator=g), hv, wv
+
+
+def check_corr_lookup(torch, shape, pyr, coords):
+    """The corr-lookup kernel vs plain (limit 1e-5) on one of
+    :func:`lookup_cases`; returns the error, the times and the bound at
+    that shape, and the sectors it touches."""
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (
         lookup_corr_pyramid, lookup_corr_pyramid_plain)
 
-    shape = f"{b}x{h}x{w}" + ("" if levels == 4 else f", {levels} level")
-    f1 = torch.randn(b, 256, h, w, device="cuda", generator=g)
-    f2 = torch.randn(b, 256, h, w, device="cuda", generator=g)
-    pyr = build_corr_pyramid(f1, f2)[:levels]
-    coords = coords_grid(b, h, w, "cuda") + 8 * torch.randn(
-        b, 2, h, w, device="cuda", generator=g)
-    coords[:, 0, :3] = -20.0                   # rows of far-out-of-range taps
-    coords[:, 1, -3:] = h + 15.5
-    coords = coords.contiguous()
+    b, _, h, w = coords.shape
+    levels = len(pyr)
     got = lookup_corr_pyramid(pyr, coords)
     torch.cuda.synchronize()
     want = lookup_corr_pyramid_plain(pyr, coords)
@@ -206,13 +239,14 @@ def check_corr_lookup(torch, g, b, h, w, levels=4):
     t_ops = 11 * 4 * 81 * levels * b * h * w / F32_FLOP_PER_S
     row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    # the same bytes with the pyramid read in whole 32-byte sectors
-    row["sectors"] = lookup_sectors(pyr, coords)
-    row["sector_floor_ms"] = 1e3 * (32 * row["sectors"] + 4 * (
-        coords.numel() + got.numel())) / HBM_BYTES_PER_S
+    # the same bytes with the pyramid read in whole 32-byte sectors (on the
+    # extra JSON line: computed, not measured)
+    sectors = lookup_sectors(pyr, coords)
+    row["floor"] = {"sectors": sectors, "sector_floor_ms": 1e3 * (
+        32 * sectors + 4 * (coords.numel() + got.numel())) / HBM_BYTES_PER_S}
     print(f"corr_lookup at {shape}: {clocks_text(row)}; bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}), sector floor "
-          f"{row['sector_floor_ms']:.5f} ms ({row['sectors']} 32-byte "
+          f"{row['floor']['sector_floor_ms']:.5f} ms ({sectors} 32-byte "
           "sectors of the pyramid read, the coords and the output)")
     return row
 
@@ -223,19 +257,14 @@ def three_clocks(kernel, plain, yardsticks, wrapper):
     yardstick (``library`` first) are device times a call, from a CUDA graph
     of the calls replayed between events (kernels/timing.py::device_ms);
     ``profiler_ms`` and ``<name>_profiler_ms`` the profiler's device time a
-    call; ``enqueue_ms`` and ``<name>_enqueue_ms`` the host's time a call;
-    ``events_ms`` CUDA events over back-to-back calls, the figure that
-    ``ms`` was before (``cuda_ms``).  The wrapper's launch counter is left
-    as it was."""
+    call; ``enqueue_ms`` and ``<name>_enqueue_ms`` the host's time a call.
+    The wrapper's launch counter is left as it was."""
     from cvpr2021_vspw_implement_tpu_torch.kernels import timing
 
     out = {"ms": timing.device_ms(kernel, counted=(wrapper,)),
            "plain_ms": timing.device_ms(plain, n=10),
            "profiler_ms": timing.profiler_ms(kernel, counted=(wrapper,)),
            "enqueue_ms": timing.enqueue_ms(kernel, counted=(wrapper,))}
-    before = wrapper.launches
-    out["events_ms"] = cuda_ms(kernel)
-    wrapper.launches = before
     for name, fn in yardsticks.items():
         out[f"{name}_ms"] = timing.device_ms(fn, n=20)
         out[f"{name}_profiler_ms"] = timing.profiler_ms(fn)
@@ -250,8 +279,8 @@ def clocks_text(row):
 
     parts = [f"device {ms(row['ms'])} ms a launch (graph replay), profiler "
              f"{ms(row['profiler_ms'])}, host enqueue "
-             f"{ms(row['enqueue_ms'])}, back-to-back events "
-             f"{ms(row['events_ms'])}; plain {ms(row['plain_ms'])} (device)"]
+             f"{ms(row['enqueue_ms'])}; plain {ms(row['plain_ms'])} "
+             "(device)"]
     for key in row:
         if key.endswith("_enqueue_ms"):
             name = key[:-len("_enqueue_ms")]
@@ -273,15 +302,10 @@ def smi_clocks():
 def check_kernels(torch):
     """Each kernel vs plain at the shapes the paths give it; returns the
     kernels' JSON rows (launches filled in later)."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    # both shapes the paths give the lookup: TC at 480x853 (one pair) and
-    # the ETC train step (the 479 crop padded to 480, batch 2)
-    at_tc = check_corr_lookup(torch, g, 1, 60, 107)
-    at_train = check_corr_lookup(torch, g, 2, 60, 60)
-    # the per-level variant of the TPU kernel (_lookup_level_pallas, corr.py
-    # :186) is this kernel with one level; no path launches it alone
-    one_level = check_corr_lookup(torch, g, 1, 60, 107, levels=1)
+    at_tc, at_train, one_level = (check_corr_lookup(torch, *case)
+                                  for case in lookup_cases(torch))
     one_level["launches"] = 0
+    g = torch.Generator(device="cuda").manual_seed(0)
     k1 = {
         "name": "corr_lookup", "route": "cuda",
         "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
@@ -701,15 +725,9 @@ def check_band_zero(torch):
     from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import (
         band_zero, band_zero_plain)
 
-    g = torch.Generator(device="cuda").manual_seed(8)
     rows = []
-    for label, shape, hv, wv in (
-            ("C5", (1, 2048, 60, 112), 60, 107),
-            ("feature", (1, 256, 60, 112), 60, 107),
-            ("pyramid level", (6720, 1, 30, 56), 30, 53),
-            ("rows only", (1, 256, 64, 112), 57, 112),
-            ("no band", (1, 256, 60, 112), 60, 112)):
-        x = torch.randn(*shape, device="cuda", generator=g)
+    for label, x, hv, wv in band_cases(torch):
+        shape = tuple(x.shape)
         h, w = shape[-2:]
         want = band_zero_plain(x.clone(), hv, wv)
         before = band_zero.launches
@@ -738,17 +756,20 @@ def check_band_zero(torch):
                               lambda: band_zero_plain(x, hv, wv),
                               {"library": lambda: torch.where(mask, x, 0.0),
                                "two_slice_zero": two_slices}, band_zero),
-               "bytes_written": 4 * band,
                "bound_ms": 1e3 * 4 * band / HBM_BYTES_PER_S,
                "bound_by": "bytes"}
-        row["sectors"] = band_sectors(x, hv, wv)
-        row["sector_floor_ms"] = 1e3 * 32 * row["sectors"] / HBM_BYTES_PER_S
-        above = (", above half the bound"
-                 if row["sector_floor_ms"] > row["bound_ms"] / 2 else "")
+        # computed from the shape and address, not measured: on the extra
+        # JSON line
+        sectors = band_sectors(x, hv, wv)
+        row["floor"] = {"bytes_written": 4 * band, "sectors": sectors,
+                        "sector_floor_ms": 1e3 * 32 * sectors
+                        / HBM_BYTES_PER_S}
+        above = (", above half the bound" if row["floor"]["sector_floor_ms"]
+                 > row["bound_ms"] / 2 else "")
         print(f"band_zero at {label}: {clocks_text(row)} (library: "
               f"torch.where over the tensor); bound {row['bound_ms']:.5f} ms "
-              f"({row['bytes_written']} bytes written), sector floor "
-              f"{row['sector_floor_ms']:.5f} ms ({row['sectors']} 32-byte "
+              f"({4 * band} bytes written), sector floor "
+              f"{row['floor']['sector_floor_ms']:.5f} ms ({sectors} 32-byte "
               f"sectors touched{above})")
         rows.append(row)
     return {"name": "band_zero", "route": "cuda",
@@ -1391,10 +1412,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "also_at", "rel_err",
             "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches",
-            "two_slice_zero_ms", "bytes_written", "profiler_ms", "enqueue_ms",
-            "events_ms", "library_profiler_ms", "library_enqueue_ms",
-            "two_slice_zero_profiler_ms", "two_slice_zero_enqueue_ms",
-            "sectors", "sector_floor_ms")
+            "two_slice_zero_ms", "profiler_ms", "enqueue_ms",
+            "library_profiler_ms", "library_enqueue_ms",
+            "two_slice_zero_profiler_ms", "two_slice_zero_enqueue_ms")
 
     def public(r):
         out = {key: r[key] for key in keys if key in r}
@@ -1408,12 +1428,16 @@ def main() -> int:
              "bound_f32_simt_ms": a["bound_f32_simt_ms"]}
             for r in rows for a in (r, *r.get("also_at", ()))
             if "bound_f32_simt_ms" in a]
+    # the bytes B6 writes and the 32-byte sectors B1 and B6 touch, with the
+    # floor that whole sectors set, beside bound_ms of the kernels line
+    floors = [{"name": r["name"], "shape": a["shape"], **a["floor"]}
+              for r in rows for a in (r, *r.get("also_at", ()))
+              if "floor" in a]
     # B1 read again after every path, beside the card's clocks then: an
     # unchanged kernel that reads slower with its plain version points at
     # the card, not the kernel
     clocks_last = smi_clocks()
-    b1_again = check_corr_lookup(
-        torch, torch.Generator(device="cuda").manual_seed(0), 1, 60, 107)
+    b1_again = check_corr_lookup(torch, *next(lookup_cases(torch)))
     b1_reread = {"first": {k: rows[0][k] for k in ("ms", "plain_ms")},
                  "again": {k: b1_again[k] for k in ("ms", "plain_ms")},
                  "clocks_first": clocks_first, "clocks_again": clocks_last}
@@ -1424,7 +1448,7 @@ def main() -> int:
     print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,
-                      "f32_simt_bounds": simt}))
+                      "f32_simt_bounds": simt, "sector_floors": floors}))
     print(json.dumps({"kernels": [public(r) for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -67,8 +67,6 @@ _lock = threading.Lock()
 _SOURCE_OF = {fn: name for name, fns in SIGNATURES.items() for fn in fns}
 #: C entry point name -> the resolved ctypes function
 _entries: dict = {}
-#: PyTorch's raw current-stream getter, found at the first launch
-_raw_stream = None
 
 
 def _nvcc() -> str:
@@ -146,13 +144,10 @@ def entry(fn: str):
 def stream(device_index: int) -> int:
     """The raw handle of PyTorch's current CUDA stream on device
     ``device_index`` (the capturing stream under a CUDA graph capture),
-    without building a ``torch.cuda.Stream``."""
-    global _raw_stream
-    if _raw_stream is None:
-        _raw_stream = getattr(
-            torch._C, "_cuda_getCurrentRawStream",
-            lambda i: torch.cuda.current_stream(i).cuda_stream)
-    return _raw_stream(device_index)
+    without building a ``torch.cuda.Stream``, which costs several us a
+    call.  A PyTorch without the private getter raises here rather than
+    take the slow path."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check_inputs(what: str, tensors) -> None:

@@ -138,6 +138,18 @@ def test_corr_lookup_kernel_far_coords(cuda_device):
 
 
 @pytest.mark.cuda
+def test_corr_lookup_kernel_across_64px(cuda_device):
+    """x coords from 56 to 72 px: c + d crosses 64, where f32 rounds it; each
+    tap takes the fraction of its own c + d, as the plain version does (one
+    fraction shared by a query's 9 taps lands more than 1e-5 away)."""
+    levels, coords = _lookup_case(cuda_device, 5, 1, 16, 80)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    coords[:, 0] = 56.0 + 16.0 * torch.rand(1, 16, 80, device=cuda_device,
+                                            generator=g)
+    _check_lookup(levels, coords)
+
+
+@pytest.mark.cuda
 def test_corr_lookup_kernel_refuses_grad(cuda_device):
     """The kernel has no backward: the wrapper refuses, before any launch,
     coords or a level that require grad."""

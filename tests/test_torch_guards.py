@@ -47,7 +47,6 @@ def _port_sources():
     yield os.path.join(PORT, os.pardir, "tools", "torch_bucket_profile.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_mma_split_bench.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_launch_bench.py")
-    yield os.path.join(PORT, os.pardir, "tools", "torch_path_ab_check.py")
     for d, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):

@@ -45,6 +45,46 @@ def test_corr_lookup_plain_matches_jax(b, h, w):
     np.testing.assert_allclose(got, fused, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("case", ["huge", "window_outside", "across_64px",
+                                  "level_7x13"])
+def test_corr_lookup_far_coords_matches_jax(case):
+    """The lookup on CPU tensors against the JAX functions where the card
+    kernel takes care: coords of +-1e9 (an int cast of x0 + 1 would
+    overflow); queries whose whole window lies outside level 0; coords from
+    56 to 72 px, where c + d crosses 64 and rounds; a level 1 of 7x13 and a
+    level 3 of 1x3, as levels 3 of RAFT at 60x107 and beyond, smaller than
+    the 10x10 patch.  Across 64 px only against models/raft/corr.py: the
+    Pallas kernel takes one fraction for all 9 taps of a query, where c + d
+    rounds differently, and lands more than 1e-5 away there."""
+    rng = np.random.default_rng(5)
+    b, h, w = {"across_64px": (1, 16, 80), "level_7x13": (2, 14, 26)}.get(
+        case, (2, 8, 13))
+    levels = pyramid(rng, b, h, w)
+    coords = query_coords(rng, b, h, w)                  # [B, H, W, 2]
+    if case == "huge":
+        coords[0, ::2, :, 0] = 1e9
+        coords[1, 1::2, :, 1] = -1e9
+    elif case == "window_outside":
+        coords[:, :4, :, 0] = -5.5                # x0 = -6 on level 0
+        coords[:, 4:, :, 1] = h + 4.25            # y0 = h + 4 on level 0
+    elif case == "across_64px":
+        coords[..., 0] = rng.uniform(56.0, 72.0, size=(b, h, w))
+    got = lookup_corr_pyramid(
+        [torch.from_numpy(l) for l in levels],
+        torch.from_numpy(np.moveaxis(coords, -1, 1).copy()))
+    got = np.moveaxis(got.numpy(), 1, -1)                 # [B, H, W, 324]
+    if case == "window_outside":
+        assert not got[:, :, :, :81].any()
+    pyr = [jnp.asarray(l) for l in levels]
+    np.testing.assert_allclose(
+        got, np.asarray(jax_lookup(pyr, jnp.asarray(coords), 4)),
+        atol=1e-5, rtol=0)
+    if case != "across_64px":
+        np.testing.assert_allclose(
+            got, np.asarray(lookup_corr_pyramid_fused(
+                pyr, jnp.asarray(coords), 4, True)), atol=1e-5, rtol=0)
+
+
 def test_corr_lookup_cpu_tensor_takes_plain_version():
     rng = np.random.default_rng(0)
     levels = [torch.from_numpy(l) for l in pyramid(rng, 1, 6, 8)]

@@ -1,30 +1,33 @@
-"""What a launch of the corr lookup (B1) and the band re-zero (B6) costs on
-the card: the host's enqueue, split into its parts, and the device's time.
+"""What a launch of the corr lookup (B1) and the band re-zero (B6) costs the
+host, and the two kernels of two checkouts side by side on one card.
 
     python3 tools/torch_launch_bench.py [--root DIR] [--compare DIR]
 
 Without ``--compare``, for the port's package under ``--root`` (default:
 this checkout), prints one JSON line with
 
-* ``parts``: the host's time a call (host clock, the median of 5 runs of
-  400 calls, in us) of each step of the launch path: ``kernels.load`` (lock and dict lookup),
-  ``torch.cuda.current_stream(device).cuda_stream``, PyTorch's raw stream
-  getter, the ``ctypes`` call of each C entry point with arguments that make
-  it return before launching (its conversions and the call alone), the same
-  call that launches a small band (``cudaLaunchKernel`` and
-  ``cudaGetLastError`` added), and the whole wrapper at that small band;
-* ``shapes``: at the shapes ``chip_smoke.py`` checks (B1 at 1x60x107, 2x60x60
-  and 1x60x107 with one level; B6 at C5, a 256-channel feature, a pyramid
-  level, rows only, no band), the wrapper's host enqueue a call, its device
-  time a launch from a replayed CUDA graph and the profiler's device time a
-  launch (kernels/timing.py of this checkout), and a digest of its result
-  on seeded inputs.
+* ``parts_us``: the host's time a call (host clock, the median of 5 runs of
+  400 calls, in us) of each step of the launch path: ``kernels.load`` (lock
+  and dict lookup), ``kernels.entry`` (one dict lookup; where the checkout
+  has it), ``torch.cuda.current_stream(device).cuda_stream``,
+  PyTorch's raw stream getter, the ``ctypes`` call of each C entry point
+  with arguments that make it return before launching (its conversions and
+  the call alone), the same call that launches a small band
+  (``cudaLaunchKernel`` and ``cudaGetLastError`` added), and the whole
+  wrapper at that small band;
+* ``shapes``: on the inputs that ``chip_smoke.py`` checks B1 and B6 on
+  (its ``lookup_cases`` and ``band_cases``), the wrapper's host enqueue a
+  call and its device time a launch (``kernels/timing.py`` of this
+  checkout), and a digest of its result.  The smoke prints the same clocks
+  with the profiler's, the plain version's and the yardsticks'; this tool
+  only adds the side by side.
 
 With ``--compare PARENT`` (an unpacked checkout of another commit), runs the
 above in four processes, PARENT, this one, this one, PARENT, and prints the
 enqueue and device time at each shape side by side and whether the four
-results are bitwise equal, then the JSON of all four runs.  Each process builds its own kernels into its checkout's
-``build/kernels``.  Prints the card's name and power limit first.
+results are bitwise equal, then the JSON of all four runs.  Each process
+builds its own kernels into its checkout's ``build/kernels``.  Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -39,6 +42,16 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def from_this_checkout(name, *path):
+    """Module ``name`` loaded from this checkout's file, whichever package
+    ``sys.path`` resolves."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def host_us(fn, n=400, blocks=5):
@@ -58,21 +71,13 @@ def measure(root):
     sys.path.insert(0, root)
     import torch
     from cvpr2021_vspw_implement_tpu_torch import kernels
-    from cvpr2021_vspw_implement_tpu_torch.models.raft.corr import \
-        build_corr_pyramid
-    from cvpr2021_vspw_implement_tpu_torch.models.raft.raft import \
-        coords_grid
     from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import band_zero
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import \
         lookup_corr_pyramid
 
-    # the timing helpers of this checkout, whichever package is measured
-    spec = importlib.util.spec_from_file_location(
-        "timing", os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch",
-                               "kernels", "timing.py"))
-    timing = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(timing)
-
+    timing = from_this_checkout("timing", "cvpr2021_vspw_implement_tpu_torch",
+                                "kernels", "timing.py")
+    smoke = from_this_checkout("chip_smoke", "chip_smoke.py")
     dev = torch.device("cuda")
     idx = torch.cuda.current_device()
     kernels.build(("corr_lookup", "band_zero"))
@@ -81,12 +86,12 @@ def measure(root):
     small = torch.randn(1, 1, 8, 8, device=dev)
     ptr = small.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     parts = {
         "kernels.load": host_us(lambda: kernels.load("band_zero")),
         "current_stream().cuda_stream": host_us(
             lambda: torch.cuda.current_stream(dev).cuda_stream),
-        "raw stream getter": (host_us(lambda: raw(idx)) if raw else None),
+        "raw stream getter": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(idx)),
         "ctypes, band_zero_f32 without launch (7 args)": host_us(
             lambda: bz(ptr, 1, 8, 8, 8, 8, stream)),
         "ctypes, corr_lookup_f32 without launch (18 args)": host_us(
@@ -97,26 +102,17 @@ def measure(root):
         "band_zero wrapper with a launch": host_us(
             lambda: band_zero(small, 8, 7)),
     }
+    if hasattr(kernels, "entry"):       # the wrappers' lookup, where it exists
+        parts["kernels.entry"] = host_us(
+            lambda: kernels.entry("band_zero_f32"))
     torch.cuda.synchronize()
 
-    g = torch.Generator(device="cuda").manual_seed(0)
     calls = {}
-    for b, h, w, levels in ((1, 60, 107, 4), (2, 60, 60, 4), (1, 60, 107, 1)):
-        f1 = torch.randn(b, 256, h, w, device=dev, generator=g)
-        f2 = torch.randn(b, 256, h, w, device=dev, generator=g)
-        pyr = build_corr_pyramid(f1, f2)[:levels]
-        coords = (coords_grid(b, h, w, "cuda") + 8 * torch.randn(
-            b, 2, h, w, device=dev, generator=g)).contiguous()
-        calls[f"corr_lookup {b}x{h}x{w}, {levels} level"] = (
+    for shape, pyr, coords in smoke.lookup_cases(torch):
+        calls[f"corr_lookup {shape}"] = (
             lambda pyr=pyr, coords=coords: lookup_corr_pyramid(pyr, coords),
             lookup_corr_pyramid)
-    for label, shape, hv, wv in (
-            ("C5", (1, 2048, 60, 112), 60, 107),
-            ("feature", (1, 256, 60, 112), 60, 107),
-            ("pyramid level", (6720, 1, 30, 56), 30, 53),
-            ("rows only", (1, 256, 64, 112), 57, 112),
-            ("no band", (1, 256, 60, 112), 60, 112)):
-        x = torch.randn(*shape, device=dev, generator=g)
+    for label, x, hv, wv in smoke.band_cases(torch):
         calls[f"band_zero {label}"] = (
             lambda x=x, hv=hv, wv=wv: band_zero(x, hv, wv), band_zero)
     shapes = {}
@@ -127,7 +123,6 @@ def measure(root):
             "digest": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest(),
             "enqueue_ms": timing.enqueue_ms(fn, counted=(wrapper,)),
             "device_ms": timing.device_ms(fn, counted=(wrapper,)),
-            "profiler_ms": timing.profiler_ms(fn, counted=(wrapper,)),
         }
     return {"root": os.path.abspath(root), "parts_us": parts,
             "shapes": shapes}
@@ -157,21 +152,17 @@ def main(argv=None) -> int:
             return out.returncode
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     names = ("before 1", "after 1", "after 2", "before 2")
-    print("host enqueue / device (graph) / device (profiler), ms a call; "
-          "order: " + ", ".join(names))
+    print("host enqueue / device (graph replay), ms a call; order: "
+          + ", ".join(names))
     for shape in runs[0]["shapes"]:
-        cells = []
-        for run in runs:
-            r = run["shapes"][shape]
-            prof = ("n/a" if r["profiler_ms"] is None
-                    else f"{r['profiler_ms']:.5f}")
-            cells.append(f"{r['enqueue_ms']:.5f}/{r['device_ms']:.5f}/{prof}")
+        cells = [f"{r['enqueue_ms']:.5f}/{r['device_ms']:.5f}"
+                 for r in (run["shapes"][shape] for run in runs)]
         same = len({run["shapes"][shape]["digest"] for run in runs}) == 1
         print(f"{shape}: " + "  ".join(cells) + "; results "
               + ("bitwise equal in all four" if same else "DIFFER"))
-    print("launch-path parts, us a call: " + "; ".join(
-        f"{k} {v if v is None else round(v, 3)}"
-        for k, v in runs[1]["parts_us"].items()))
+    for name, run in zip(names, runs):
+        print(f"launch-path parts, {name}, us a call: " + "; ".join(
+            f"{k} {round(v, 3)}" for k, v in run["parts_us"].items()))
     print(json.dumps({"runs": dict(zip(names, runs))}))
     return 0
 
