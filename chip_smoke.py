@@ -34,7 +34,12 @@
    a'. the same eval at the CLI's default, width-bucketed (480x853 padded to
       the 480x896 bucket, the band re-zeroed by its kernel at a count derived
       from the model), against a's PNGs and, in a separate pass, a's logits;
-   b'. the TC metric at its default, bucketed, over a''s PNGs;
+   b'. the TC metric at its default, bucketed, over a''s PNGs; then the TC
+      check: each pair's RAFT flow bucketed against exact on the pair's
+      size after the first refinement (``tc_flow_check``), the code as
+      shipped (sound), exact against exact with the corr lookup's plain
+      version (control, a change of rounding order) and bucketed with the
+      flow's band left unzeroed (a planted fault, which must fail);
    c. the clip trainer (``train_clip``) on synthetic 480x853 videos, the same
       R101 preset, crop 479, batch 2: ``--method clip_psp`` (4 frames,
       offsets 3,6,9), then ``--method ETC`` (2 frames, RAFT at 20
@@ -45,6 +50,11 @@
       a 5-frame one, each launching its kernel exactly 3 times a frame;
    e. ETC window eval (``test_clip --method ETC``) over the 5-frame video;
    (the window paths run exact shapes: ``--width_bucket 0``)
+   f. the port's bench, ``bench.main(["--quick"])`` (every row at full
+      width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
+      prints its JSON line; every key present, times and rates finite and
+      positive, every mfu in (0, 1], each row's launches as its loop
+      implies;
 5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC and
    losses, moving head and encoder parameters, a frozen RAFT) and that the
    card and the CPU agree on small inputs, a train step and ClipWarpNet in
@@ -214,7 +224,8 @@ def check_corr_lookup(torch, shape, pyr, coords):
     :func:`lookup_cases`; returns the error, the times and the bound at
     that shape, and the sectors it touches."""
     from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import (
-        lookup_corr_pyramid, lookup_corr_pyramid_plain)
+        lookup_corr_pyramid, lookup_corr_pyramid_flops,
+        lookup_corr_pyramid_plain)
 
     b, _, h, w = coords.shape
     levels = len(pyr)
@@ -235,8 +246,7 @@ def check_corr_lookup(torch, shape, pyr, coords):
                           {"library": lambda: grid_sample_lookup(pyr, coords)},
                           lookup_corr_pyramid)}
     t_bytes = lookup_bytes(pyr, coords) / HBM_BYTES_PER_S
-    # 4 taps a window position: weights and blend
-    t_ops = 11 * 4 * 81 * levels * b * h * w / F32_FLOP_PER_S
+    t_ops = lookup_corr_pyramid_flops(b, h, w, levels) / F32_FLOP_PER_S
     row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     # the same bytes with the pyramid read in whole 32-byte sectors (on the
@@ -352,7 +362,7 @@ def check_sep_gru(torch, g, h, w):
     """The GRU-pass kernel vs plain at 1 x h x w (hd 128, cx 256), both
     axes (limit 1e-4); returns its numbers per pass, the mean of the axes."""
     from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import (
-        sep_conv_gru_pass, sep_conv_gru_pass_plain)
+        sep_conv_gru_pass, sep_conv_gru_pass_flops, sep_conv_gru_pass_plain)
 
     p = h * w
     hd, cx = 128, 256
@@ -387,7 +397,7 @@ def check_sep_gru(torch, g, h, w):
            # per pass, the mean of the two axes
            **{k: t / 2 for k, t in times.items()}}
     tensor_core_bound(
-        row, 2 * p * 5 * (hd + cx) * 3 * hd,
+        row, sep_conv_gru_pass_flops(1, h, w, hd, cx),
         4 * (p * (hd + cx + hd) + 5 * (hd + cx) * 3 * hd + 3 * hd))
     return row
 
@@ -412,9 +422,9 @@ def check_update_kernels(torch, g):
     """The fused update-block kernels vs plain at the training shape (crop
     479 pads to 480: 60x60 features, batch 2); returns their JSON rows."""
     from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import (
-        gru_flowhead, gru_flowhead_plain)
+        gru_flowhead, gru_flowhead_flops, gru_flowhead_plain)
     from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import (
-        motion_encoder, motion_encoder_plain)
+        motion_encoder, motion_encoder_flops, motion_encoder_plain)
 
     b, h, w, ck, hd, cx, cf = 2, 60, 60, 324, 128, 256, 256
     p = h * w
@@ -456,9 +466,8 @@ def check_update_kernels(torch, g):
           "source": csrc + "motion_encoder.cu", "replaces": pallas + ":375",
           "shape": f"{b}x{h}x{w}", "max_abs_err": err}
     timed(k3, motion_encoder, motion_encoder_plain, (corr, flow, mw))
-    tensor_core_bound(k3, 2 * b * p * (ck * 256 + 9 * 256 * 192 + 98 * 128 + 9 * 128 * 64
-                           + 9 * 256 * 126),
-          4 * (b * p * (ck + 2 + 128) + n_weights(mw)))
+    tensor_core_bound(k3, motion_encoder_flops(b, h, w, ck),
+                      4 * (b * p * (ck + 2 + 128) + n_weights(mw)))
 
     net = torch.tanh(torch.randn(b, hd, h, w, device="cuda", generator=g))
     x = torch.randn(b, cx, h, w, device="cuda", generator=g)
@@ -480,8 +489,8 @@ def check_update_kernels(torch, g):
           "source": csrc + "gru_flowhead.cu", "replaces": pallas + ":396",
           "shape": f"{b}x{h}x{w}", "max_abs_err": err}
     timed(k4, gru_flowhead, gru_flowhead_plain, (net, x, gw))
-    tensor_core_bound(k4, 2 * b * p * (2 * 5 * cin * 3 * hd + 9 * hd * cf + 9 * cf * 2),
-          4 * (b * p * (hd + cx + hd + 2) + n_weights(gw)))
+    tensor_core_bound(k4, gru_flowhead_flops(b, h, w, hd, cx, cf),
+                      4 * (b * p * (hd + cx + hd + 2) + n_weights(gw)))
     return [k3, k4]
 
 
@@ -657,7 +666,6 @@ def check_local_agg(torch):
                   f"(max abs error {err:.3e}, out-of-image picks "
                   f"{p - picks_in}); |unfold - plain| = {lib_err:.3e}")
             ok = bad == 0
-            flops = 2 * b * p * kk * cd
             nbytes = 4 * (b * p * (2 * cd + cv) + picks_in * cv)
         else:
             q = weight_spread(torch, dist, mode, temp)
@@ -672,7 +680,6 @@ def check_local_agg(torch):
                   f"uniform, {kk} at most); |unfold - plain| = "
                   f"{lib_err:.3e}")
             ok = err <= 1e-4 and err <= 1e-4 * scale
-            flops = 2 * b * p * kk * (cd + cv)
             nbytes = 4 * b * p * (2 * cd + 2 * cv)
         if not ok:
             raise SystemExit(f"local_{mode}_aggregate kernel disagrees with "
@@ -681,7 +688,8 @@ def check_local_agg(torch):
         row["ms"] = cuda_ms(lambda: fn(x, yd, yv, r, **kw))
         row["library_ms"] = cuda_ms(
             lambda: unfold_local_agg(x, yd, yv, r, mode, temp), n=5)
-        tensor_core_bound(row, flops, nbytes)
+        tensor_core_bound(row, local_agg.local_aggregate_flops(
+            mode, b, h, w, cd, cv, r), nbytes)
         rows.append(row)
     return rows
 
@@ -864,6 +872,177 @@ def bucketed_vs_exact(torch, model, frames, exact_pngs, bucket_pngs):
           f"{layouts['bucketed_ms']:.2f} ms")
     return {"logit_err": err, "logit_tol": tol, "pixels_differ": diff,
             "pixels_excused": excused, **layouts}
+
+
+def band_zero_launches(torch, raft):
+    """The band re-zero's launches in bucketed eval, derived from the
+    models: (a frame of R101 ClipPSP, a TC pair of ``raft``).  In the trunk
+    the input of every spatial conv (ops/masked.py::masked_trunk), the stem
+    max pool, C5 in encode_frame and in fuse_target; in RAFT the input of
+    every spatial conv of both encoders, each pyramid level, a refinement's
+    spatial convs of the motion encoder and flow head with the GRU's 4 (x
+    once, h before each pass and at the end), the mask head's spatial conv
+    and the low-resolution flow."""
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    def spatial_convs(module):
+        return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+                   for m in module.modules())
+
+    ub = raft.update_block
+    return (spatial_convs(build_encoder("resnet101dilated")) + 3,
+            spatial_convs(raft.fnet) + spatial_convs(raft.cnet)
+            + raft.corr_levels
+            + raft.iters * (spatial_convs(ub.encoder)
+                            + spatial_convs(ub.flow_head) + 4)
+            + spatial_convs(ub.mask) + 1)
+
+
+#: the TC check's limit on the largest |bucketed - exact| RAFT flow of a
+#: pair after its first refinement, px: 8.8x the sound run's 1.132e-4 on
+#: the card, whose control read 6.914e-5 and planted fault 4.126 (the same
+#: in three runs, PERF.md §6)
+TC_FLOW_LIMIT_PX = 1e-3
+#: refinements at which the TC check reads the flows: from RAFT's 20,
+#: where rounding noise has grown as large as a bucketing fault, down to
+#: the first, where the check holds them
+TC_CHECK_REFINEMENTS = (20, 5, 3, 2, 1)
+
+
+def flow_gap(torch, exact, other, next_preds):
+    """How far the flows ``other`` lie from ``exact``, pair by pair (lists
+    of [1, 2, H, W] at the pairs' own size): the largest |difference| in px
+    over every pair and both components, the 0.999 quantile of the pairs'
+    largest, and the share of the next predictions' pixels (``next_preds``,
+    [1, H, W] each) that land elsewhere when nearest-warped by ``other``
+    instead of ``exact``."""
+    from cvpr2021_vspw_implement_tpu_torch.tc_cal import warp_pred
+
+    gaps = [(o - e).abs() for e, o in zip(exact, other)]
+    moved = sum(int((warp_pred(p, e) != warp_pred(p, o)).sum().item())
+                for e, o, p in zip(exact, other, next_preds))
+    return {"max_abs_px": max(g.max().item() for g in gaps),
+            "q999_abs_px": max(torch.quantile(g.flatten(), 0.999).item()
+                               for g in gaps),
+            "pred_pixels_differ": moved / sum(p.numel() for p in next_preds)}
+
+
+def tc_flow_check(torch, raft, pairs, next_preds, bucket=64):
+    """The check of bucketed TC: for each pair (``pairs`` of [1, 3, H, W]
+    images in [0, 255]), RAFT's flow through ``tc_cal.pair_flow``, bucketed
+    (``bucket``) and at exact shapes, after the first refinement, held within
+    ``TC_FLOW_LIMIT_PX`` on the pair's own size.  With random weights each
+    refinement amplifies a difference of rounding (about 7x over the first
+    three on the card), so by RAFT's 20th a change of summation order moves
+    some pixels by tens of px, as far as a bucketing fault does: the readings at ``TC_CHECK_REFINEMENTS`` are
+    printed, the first refinement's held.  Three runs are compared with the
+    exact flows:
+
+    * sound: bucketed, the code as shipped;
+    * control: exact, with the corr lookup's plain version in place of its
+      kernel: the same function summed in another order, no fault;
+    * planted: bucketed, with the masked RAFT's re-zero of the
+      low-resolution flow's band (``mask_valid``) left out: a bucketing
+      fault, which the check must catch.
+
+    Raises SystemExit unless sound and control pass and the planted fault
+    fails; returns the readings by refinements."""
+    from cvpr2021_vspw_implement_tpu_torch.models.raft import raft as raft_mod
+    from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import \
+        lookup_corr_pyramid_plain
+    from cvpr2021_vspw_implement_tpu_torch.tc_cal import pair_flow
+
+    def flows(width_bucket, **swap):
+        saved = {k: getattr(raft_mod, k) for k in swap}
+        for k, v in swap.items():
+            setattr(raft_mod, k, v)
+        try:
+            return [pair_flow(raft, a, b, width_bucket) for a, b in pairs]
+        finally:
+            for k, v in saved.items():
+                setattr(raft_mod, k, v)
+
+    iters, out = raft.iters, {}
+    try:
+        for n in TC_CHECK_REFINEMENTS:
+            raft.iters = n
+            exact = flows(0)
+            out[n] = {name: flow_gap(torch, exact, fl, next_preds)
+                      for name, fl in (
+                          ("sound", flows(bucket)),
+                          ("control", flows(0, lookup_corr_pyramid=
+                                            lookup_corr_pyramid_plain)),
+                          ("planted", flows(bucket, mask_valid=lambda x, hw:
+                                            x)))}
+    finally:
+        raft.iters = iters
+    for n, runs in out.items():
+        limit = (f"limit {TC_FLOW_LIMIT_PX:g} px on the largest |diff|"
+                 if n == 1 else "not held")
+        print(f"TC check, bucketed vs exact flow over {len(pairs)} pairs at "
+              f"{n} refinement(s) ({limit}): " + "; ".join(
+                  f"{name} largest {r['max_abs_px']:.3e} px, 0.999 quantile "
+                  f"{r['q999_abs_px']:.3e}, warped prediction pixels moved "
+                  f"{r['pred_pixels_differ']:.3e}"
+                  for name, r in runs.items()))
+    gap = {name: r["max_abs_px"] for name, r in out[1].items()}
+    if not (gap["sound"] <= TC_FLOW_LIMIT_PX
+            and gap["control"] <= TC_FLOW_LIMIT_PX):
+        raise SystemExit("bucketed TC flow disagrees with the exact flow")
+    if not gap["planted"] > TC_FLOW_LIMIT_PX:
+        raise SystemExit("the TC check missed the planted bucketing fault")
+    return out
+
+
+#: every key of the bench's rows (cvpr2021_vspw_implement_tpu_torch/bench.py)
+BENCH_KEYS = (
+    "value", "mfu", "metric", "unit", "stream4_frames_per_sec",
+    "stream_bucketed_frames_per_sec", "stream_bucketed_overhead_pct",
+    "baseline_frames_per_sec", "vs_baseline", "baseline_mfu",
+    "train_step_ms", "train_step_single_readback_ms", "train_mfu",
+    "train_peak_mem_gib", "etc_train_step_ms", "etc_train_mfu",
+    "etc_windows_per_sec", "etc_mfu", "our_warp_windows_per_sec",
+    "our_warp_mfu", "tc_ms_per_pair", "tc_bucketed_ms_per_pair", "tc_mfu",
+    "host_decode_frames_per_sec", "spreads_pct", "device", "power_limit_w",
+    "peak_tflops_f32", "dtype", "not_ported")
+#: the bench's times and rates, each finite and positive
+BENCH_TIMES = (
+    "value", "stream4_frames_per_sec", "stream_bucketed_frames_per_sec",
+    "baseline_frames_per_sec", "vs_baseline", "train_step_ms",
+    "train_step_single_readback_ms", "etc_train_step_ms",
+    "etc_windows_per_sec", "our_warp_windows_per_sec", "tc_ms_per_pair",
+    "tc_bucketed_ms_per_pair", "host_decode_frames_per_sec")
+BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu", "etc_mfu",
+              "our_warp_mfu", "tc_mfu")
+
+
+def check_bench(out, per_frame, per_pair, iters):
+    """The bench's result on the card: every key; every time and rate
+    finite and positive; every ``mfu`` in (0, 1]; and each row's kernel
+    launches in a trial as its loop implies: a bucketed frame ``per_frame``
+    B6 launches, an ETC step ``iters`` each of B1, B2 and B3, an our_warp
+    window 3 of B5 (sigmoid), a TC pair ``iters`` of B1 and twice that of
+    B4 (and bucketed ``per_pair`` of B6); no other launch."""
+    missing = [k for k in BENCH_KEYS if k not in out]
+    bad = [k for k in BENCH_TIMES
+           if not (math.isfinite(out[k]) and out[k] > 0)]
+    bad += [k for k in BENCH_MFUS if not (out[k] is not None
+                                          and 0 < out[k] <= 1)]
+    n = out["counts"]
+    tc = {"corr_lookup": iters * n["pairs"], "sep_gru": 2 * iters * n["pairs"]}
+    want = {"stream_bucketed": {"band_zero": per_frame * n["frames"]},
+            "etc_train": {k: iters * n["etc_train_steps"] for k in (
+                "corr_lookup", "motion_encoder", "gru_flowhead")},
+            "our_warp": {"local_sigmoid_aggregate": 3 * n["windows"]},
+            "tc": tc,
+            "tc_bucketed": {**tc, "band_zero": per_pair * n["pairs"]}}
+    wrong = {row: got for row, got in out["launches"].items()
+             if got != {k: want.get(row, {}).get(k, 0) for k in got}}
+    print(f"bench check: every key present (missing {missing}); times, "
+          f"rates and mfu out of range {bad}; rows whose launches differ "
+          f"from the derived counts {wrong}")
+    if missing or bad or wrong:
+        raise SystemExit("the bench's result fails its check")
 
 
 def small_input_agreement(torch):
@@ -1073,27 +1252,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from cvpr2021_vspw_implement_tpu_torch import kernels, tc_cal, test_clip
+    from cvpr2021_vspw_implement_tpu_torch import (bench, kernels, tc_cal,
+                                                   test_clip)
     from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
-    from cvpr2021_vspw_implement_tpu_torch.ops.corr_lookup import \
-        lookup_corr_pyramid
-    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
-    from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import \
-        gru_flowhead
-    from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import \
-        motion_encoder
-    from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import \
-        sep_conv_gru_pass
-    from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import band_zero
 
-    wrappers = {"corr_lookup": lookup_corr_pyramid,
-                "sep_gru": sep_conv_gru_pass,
-                "motion_encoder": motion_encoder,
-                "gru_flowhead": gru_flowhead,
-                **{f"local_{m}_aggregate":
-                   getattr(local_agg, f"local_{m}_aggregate")
-                   for m in ("sigmoid", "softmax", "nearest")},
-                "band_zero": band_zero}
+    wrappers = bench.WRAPPERS
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1198,20 +1361,9 @@ def main() -> int:
     # spatial conv of both encoders, the 4 pyramid levels, a refinement's
     # spatial convs of the motion encoder and flow head with the GRU's 4
     # (x once, h before each pass and at the end), the mask head's spatial
-    # conv, the low-resolution flow, and the full-resolution flow in tc_cal.
-    # At 480x853 in the 480x896 bucket every one of them has a band.
-    def spatial_convs(module):
-        return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
-                   for m in module.modules())
-
-    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
-    per_frame = spatial_convs(build_encoder("resnet101dilated")) + 3
-    ub = raft.update_block
-    per_pair = (spatial_convs(raft.fnet) + spatial_convs(raft.cnet)
-                + raft.corr_levels
-                + iters * (spatial_convs(ub.encoder)
-                           + spatial_convs(ub.flow_head) + 4)
-                + spatial_convs(ub.mask) + 2)
+    # conv and the low-resolution flow.  At 480x853 in the 480x896 bucket
+    # every one of them has a band.
+    per_frame, per_pair = band_zero_launches(torch, raft)
     preds_b = os.path.join(work, "preds_bucketed")
     reset()
     t0 = time.perf_counter()
@@ -1240,7 +1392,7 @@ def main() -> int:
     tc_b, tc_b_s, tc_b_counts = run_tc(preds_b, 64)
     print(f"TC, bucketed (the default): {1e3 * tc_b_s / pairs:.1f} ms/pair "
           f"(exact: {1e3 * tc_s / pairs:.1f}); TC {tc_b:.6f} (exact "
-          f"{tc:.6f}, |diff| {abs(tc_b - tc):.3e}, limit 1e-3); band_zero "
+          f"{tc:.6f}, |diff| {abs(tc_b - tc):.3e}); band_zero "
           f"{tc_b_counts['band_zero'] / pairs:g} launches a pair (derived "
           f"{per_pair}); kernel launches {tc_b_counts}")
     for name, n in tc_b_counts.items():
@@ -1249,8 +1401,21 @@ def main() -> int:
         if n != want:
             raise SystemExit(f"{name}: {n} launches in the bucketed TC, "
                              f"expected {want}")
-    if not abs(tc_b - tc) <= 1e-3:
-        raise SystemExit("bucketed TC disagrees with exact TC")
+    # bucketed against exact TC, pair by pair on the flows (their TC values
+    # are too coarse to tell a bucketing fault from RAFT's rounding noise)
+    def load(path, dtype):
+        return torch.from_numpy(np.asarray(Image.open(path), dtype)).cuda()
+
+    vdir = os.path.join(root, "data", "video_000", "origin")
+    names = sorted(os.listdir(vdir))
+    images = [load(os.path.join(vdir, n), np.float32).permute(2, 0, 1)[None]
+              for n in names]
+    next_preds = [load(os.path.join(preds, "video_000",
+                                    os.path.splitext(n)[0] + ".png"),
+                       np.int32)[None] for n in names[1:]]
+    tc_check = tc_flow_check(torch, raft.cuda(),
+                             list(zip(images, images[1:])), next_preds)
+    del images, next_preds
 
     # the bucket tax, host clock: the first run of a path also pays the
     # first use of its shapes, so both are run again in the other order
@@ -1392,9 +1557,20 @@ def main() -> int:
         if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
             raise SystemExit(f"{path}: non-finite metric")
 
+    # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
+    # P = 2 pairs, at full width and resolution; it prints its JSON line
+    reset()
+    t0 = time.perf_counter()
+    bench_out = bench.main(["--quick"])
+    bench_counts = counts()
+    print(f"bench --quick: {time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{bench_counts}")
+    check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS)
+
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
-               "clip_psp": psp_counts, "etc": etc_counts, **window_counts}
+               "clip_psp": psp_counts, "etc": etc_counts, **window_counts,
+               "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -1446,6 +1622,7 @@ def main() -> int:
           f"(first reading {rows[0]['ms']:.4f} and "
           f"{rows[0]['plain_ms']:.4f}); clocks {clocks_last}")
     print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check,
+                      "tc_check": tc_check,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,
                       "f32_simt_bounds": simt, "sector_floors": floors}))

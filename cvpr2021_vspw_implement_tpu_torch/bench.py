@@ -1,0 +1,495 @@
+"""The port's benchmark: every ported path, steady state, on one card
+(JAX counterpart: the root ``bench.py``).
+
+    python -m cvpr2021_vspw_implement_tpu_torch.bench             # the card
+    python -m cvpr2021_vspw_implement_tpu_torch.bench --quick     # 4, 2, 2, 2
+    python -m cvpr2021_vspw_implement_tpu_torch.bench --device cpu \
+        --toy --quick                                   # the CPU test's run
+
+Prints ONE JSON line with the JAX bench's key names where a row has a
+counterpart.  The model is the JAX bench's: ResNet-101-dilated TCB-PSP,
+fc_dim 2048, 124 classes, at VSPW-480p (480x853), seeded random weights
+(``models/layers.py::init_weights``), f32 with TF32 off in cuDNN and
+matmuls, as the port's CLIs run.  Every timed step takes its own input,
+made on the device before the clock starts.  The rows:
+
+* ``value`` (frames/s), ``mfu``: TCB-PSP streaming at exact shapes over N
+  frames; a frame is what ``serving.py::ExactShapeEngine`` runs
+  (``encode_frame`` on a permuted HWC view, the blend with the previous
+  frame's pooled stats, ``fuse_target``, upsample and argmax);
+  ``stream4_frames_per_sec`` the same for 4 videos batched;
+  ``stream_bucketed_*`` the same as ``ClipPSPBucketEngine`` runs it (the
+  480x896 bucket, the masked trunk: B6);
+* ``baseline_*``: the reference window formulation, ``ClipPSP.forward``
+  over M windows of 4 frames, the denominator of ``vs_baseline``;
+* ``train_*``: ``parallel/train_state.py::train_step`` with
+  ``clip_psp_loss``, 4 frames x batch 2 x crop 479, K steps back to back
+  with one synchronise (the step returns detached 0-d tensors), and one
+  step with its own readback; ``etc_train_*`` the same for ETC (2 frames,
+  RAFT at 20 refinements: B1, B2, B3);
+* ``etc_windows_per_sec``, ``our_warp_windows_per_sec``: the window forward
+  of ``test_clip --method ETC`` / ``our_warp`` (clip_num 4, r = 10,
+  sigmoid: B5) over M windows;
+* ``tc_ms_per_pair``, ``tc_bucketed_ms_per_pair``: ``tc_cal.run_pair`` over
+  P pairs, RAFT at 20 refinements with the flow head scaled by 0.1 (a
+  trained-like step, as chip_smoke.py's TC), exact (B1, B4) and bucketed
+  (B1, B4, B6);
+* ``host_decode_frames_per_sec``: ``load_frame`` + ``normalize_image`` on
+  one thread over JPEG frames that ``make_synthetic_vspw`` wrote.
+
+Each device row is timed by CUDA events around its whole loop, after a
+warm-up step (the first call of a shape builds the kernels and picks
+cuDNN's engines): the best of 3 trials, and the spread, worst over best
+minus one, in ``spreads_pct``.  An ``mfu`` is the loop's operations over
+its time and the card's f32 peak outside the tensor cores (the port
+computes in f32): the PyTorch ops of one step counted by ``FlopCounterMode``
+and each hand-written kernel's launches by its wrapper's own count
+(``ops/*.py``: the kernels launch through ``ctypes``, out of the counter's
+sight), times the steps.  A card not in ``PEAK_F32_FLOPS`` is refused; on
+the CPU the ``mfu`` fields are null and the times are the host clock's.
+``flops`` gives each row's operations in one trial and ``launches`` its
+kernel launches, from the wrappers' counters.  A row that fails fails the
+run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from . import tc_cal
+from .config import cfg as default_cfg
+from .data import load_frame, make_synthetic_vspw, normalize_image
+from .models.clip_psp import ClipPSP, clip_psp_loss
+from .models.etc import ETC, etc_loss
+from .models.layers import init_weights, set_dropout_generator
+from .models.raft import RAFT
+from .models.resnet import build_encoder
+from .models.segmentation import inference_pred, inference_pred_rt
+from .models.warp_our import ClipWarpNet
+from .ops import local_agg
+from .ops.band_zero import band_zero
+from .ops.corr_lookup import lookup_corr_pyramid
+from .ops.gru_flowhead import gru_flowhead
+from .ops.masked import bucket_hw, feature_valid, pad_to
+from .ops.motion_encoder import motion_encoder
+from .ops.sep_gru import sep_conv_gru_pass
+from .parallel import create_clip_optimizer, train_step
+from .utils import resolve_device
+
+PRESETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
+                       "presets")
+#: the JAX bench's model at VSPW-480p, and a toy of it for the CPU test
+CONFIGS = {
+    "full": {"preset": "vsp-resnet101dilated-ppm_deepsup_clip.yaml",
+             "num_class": 124, "hw": (480, 853), "crop": 479},
+    "toy": {"preset": "vsp-resnet18dilated-ppm_deepsup_clip.yaml",
+            "num_class": 5, "hw": (64, 96), "crop": 63},
+}
+#: N streaming frames, M windows, K train steps (clip_psp, ETC), P TC pairs
+COUNTS = {
+    "full": {"frames": 64, "windows": 16, "train_steps": 8,
+             "etc_train_steps": 4, "pairs": 8},
+    "quick": {"frames": 4, "windows": 2, "train_steps": 2,
+              "etc_train_steps": 2, "pairs": 2},
+}
+#: f32 FLOP/s outside the tensor cores, by the name the card reports
+PEAK_F32_FLOPS = {"NVIDIA H100 80GB HBM3": 67e12}
+RAFT_ITERS = 20
+WIDTH_BUCKET = 64
+TRIALS = 3
+#: rows of the JAX bench the port cannot run yet
+NOT_PORTED = [
+    "int8_stream_frames_per_sec", "int8_speedup",
+    "clipocr_frames_per_sec", "clipocr_mfu",
+    "clipocr_stream4_frames_per_sec", "clipocr_bucketed_frames_per_sec",
+    "tdnet_frames_per_sec", "tdnet_mfu", "tdnet_stream4_frames_per_sec",
+    "tdnet_bucketed_frames_per_sec", "netwarp_train_step_ms",
+    "netwarp_train_mfu", "netwarp_stream_frames_per_sec",
+    "netwarp_stream_mfu", "netwarp_stream_bucketed_frames_per_sec",
+    "propnet_windows_per_sec", "propnet_mfu",
+    "our_warp_merge_windows_per_sec", "our_warp_merge_mfu",
+    "nonlocal3d_windows_per_sec", "nonlocal3d_mfu",
+    "eval_policy_exact_mix_fps", "eval_policy_bucketed_mix_fps",
+    "etc_bucketed_windows_per_sec", "train_b4_ms_per_2_samples",
+    "ocr_head_ms", "host_cores_to_saturate_chip",
+]
+
+
+#: the hand-written kernels' wrappers by name; each counts its launches
+#: (``launches``) and their f32 operations (``flops``; B6 does none)
+WRAPPERS = {"corr_lookup": lookup_corr_pyramid,
+            "sep_gru": sep_conv_gru_pass,
+            "motion_encoder": motion_encoder,
+            "gru_flowhead": gru_flowhead,
+            **{f"local_{m}_aggregate":
+               getattr(local_agg, f"local_{m}_aggregate")
+               for m in ("sigmoid", "softmax", "nearest")},
+            "band_zero": band_zero}
+
+
+def _counters():
+    return {n: (fn.launches, getattr(fn, "flops", 0))
+            for n, fn in WRAPPERS.items()}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Row:
+    """One row's step, ``n`` steps a trial: ``step(i)`` does step i and
+    returns a tensor that depends on its output."""
+
+    def __init__(self, device, step, n: int):
+        self.device, self.step, self.n = device, step, n
+
+    def loop(self):
+        return sum(self.step(i).sum() for i in range(self.n))
+
+    def measure(self) -> dict:
+        """Warm-up step, one step counted, then the timed trials: best and
+        spread of the loop's seconds, its operations (None on the CPU) and
+        its kernel launches in one trial."""
+        self.step(0)
+        _sync(self.device)
+        before = _counters()
+        with FlopCounterMode(display=False) as fc:
+            self.step(0)
+        after = _counters()
+        flops = fc.get_total_flops() + sum(after[k][1] - before[k][1]
+                                           for k in after)
+        before = _counters()
+        seconds = [self._trial() for _ in range(TRIALS)]
+        after = _counters()
+        return {"seconds": min(seconds),
+                "spread_pct": 100.0 * (max(seconds) / min(seconds) - 1.0),
+                "flops": flops * self.n,
+                "launches": {k: (after[k][0] - before[k][0]) // TRIALS
+                             for k in after}}
+
+    def _trial(self) -> float:
+        """Seconds of one loop: CUDA events around it on the card (the end
+        event waits for the device), the host clock on the CPU."""
+        _sync(self.device)
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = self.loop()
+            seconds = time.perf_counter() - t0
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.loop()
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        if not torch.isfinite(out.float()).all():
+            raise RuntimeError("a timed loop gave a non-finite result")
+        return seconds
+
+
+def _model(cls, cfg, num_class: int, device, **kw):
+    model = cls(build_encoder(cfg.MODEL.arch_encoder), num_class,
+                fc_dim=cfg.MODEL.fc_dim, **kw)
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def _checksum(pred):
+    return pred[:, ::97, ::97].sum()
+
+
+def stream_rows(model, fc_dim: int, conf, counts, device, gen, out):
+    """TCB-PSP streaming: exact, 4 videos, bucketed."""
+    h, w = conf["hw"]
+    n = counts["frames"]
+    key = bucket_hw(h, w, WIDTH_BUCKET)
+
+    @torch.inference_mode()
+    def frame(img, prev, bucketed):
+        """One frame as the engines run it: img a [B, 3, H, W] view of HWC
+        frames (the bucket engine pads it to contiguous NCHW)."""
+        if bucketed:
+            c5, pooled = model.encode_frame(pad_to(img, key), valid_hw=(h, w))
+            fv = feature_valid(c5.shape[2], c5.shape[3], (h, w), key)
+        else:
+            c5, pooled = model.encode_frame(img)
+            fv = None
+        blended = [torch.stack([p, q]).mean(0) for p, q in zip(pooled, prev)]
+        logits = model.fuse_target(c5, blended, feat_valid=fv)
+        if fv is None:
+            return pooled, inference_pred(logits, (h, w))
+        return pooled, inference_pred_rt(logits, key, fv, (h, w))[:, :h, :w]
+
+    for name, batch, bucketed in (("stream", 1, False),
+                                  ("stream4", 4, False),
+                                  ("stream_bucketed", 1, True)):
+        frames = torch.randn(n, batch, h, w, 3, device=device, generator=gen)
+        prev = [[torch.zeros(batch, fc_dim, s, s, device=device)
+                 for s in model.pool_scales]]
+
+        def step(i):
+            # one frame as the exact engine views it, [H, W, 3] permuted
+            # then unsqueezed: a batch stride of 3, which PyTorch reads as
+            # NCHW.  A permuted [B, H, W, 3] slice has the strides of
+            # channels-last, and cuDNN then runs the trunk in NHWC: so the
+            # 4 batched videos (no engine batches them)
+            img = (frames[i, 0].permute(2, 0, 1)[None] if batch == 1
+                   else frames[i].permute(0, 3, 1, 2))
+            prev[0], pred = frame(img, prev[0], bucketed)
+            return _checksum(pred)
+
+        out[name] = Row(device, step, n).measure()
+        out[name]["per_second"] = n * batch / out[name]["seconds"]
+        del frames, prev
+
+
+def window_row(model, t1: int, conf, counts, device, gen):
+    """The window forward of ``test_clip._windows`` over M windows of t1
+    frames, target last: the model, then upsample and argmax."""
+    h, w = conf["hw"]
+    n = counts["windows"]
+    windows = torch.randn(n, t1, 1, 3, h, w, device=device, generator=gen)
+
+    @torch.inference_mode()
+    def step(i):
+        return _checksum(inference_pred(model(windows[i]), (h, w)))
+
+    row = Row(device, step, n).measure()
+    row["per_second"] = n / row["seconds"]
+    return row
+
+
+def train_rows(model, loss_fn, frames: int, steps: int, conf, device, gen,
+               single: bool):
+    """``train_step`` over ``steps`` distinct batches of ``frames`` frames x
+    batch 2 x crop, back to back; with ``single`` also one step with its own
+    readback (best of 3)."""
+    c = conf["crop"]
+    batches = [{"img": torch.randn(frames, 2, 3, c, c, device=device,
+                                   generator=gen),
+                "labels": torch.randint(0, conf["num_class"],
+                                        (frames, 2, c, c), device=device,
+                                        generator=gen)}
+               for _ in range(steps)]
+    model.train()
+    set_dropout_generator(model, torch.Generator(device=device).manual_seed(0))
+    optimizer, scheduler = create_clip_optimizer(model, lr=0.002,
+                                                 max_iters=100)
+
+    def step(i):
+        return train_step(model, optimizer, scheduler, batches[i],
+                          loss_fn)["loss"]
+
+    rows = {"chained": Row(device, step, steps).measure()}
+    if single:
+        def readback(i):
+            return torch.tensor(float(step(i)))
+
+        rows["single"] = Row(device, readback, 1).measure()
+    return rows
+
+
+def tc_rows(conf, counts, device, gen):
+    """``tc_cal.run_pair`` over P pairs of a random video, exact and
+    bucketed."""
+    h, w = conf["hw"]
+    n = counts["pairs"]
+    raft = RAFT(iters=RAFT_ITERS)
+    init_weights(raft, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        raft.update_block.flow_head.conv2.weight.mul_(0.1)
+        raft.update_block.flow_head.conv2.bias.mul_(0.1)
+    raft.to(device).eval()
+    frames = 255 * torch.rand(n + 1, 1, 3, h, w, device=device, generator=gen)
+    preds = torch.randint(0, conf["num_class"], (n, 1, h, w), device=device,
+                          generator=gen, dtype=torch.int32)
+    rows = {}
+    for name, bucket in (("tc", 0), ("tc_bucketed", WIDTH_BUCKET)):
+        def step(i):
+            return _checksum(tc_cal.run_pair(raft, frames[i], frames[i + 1],
+                                             preds[i], bucket))
+
+        rows[name] = Row(device, step, n).measure()
+    return rows
+
+
+def host_decode_row(conf, counts) -> dict:
+    """Frames/s of ``load_frame`` + ``normalize_image`` on one thread over
+    N JPEG frames (host clock, best of 3)."""
+    n = counts["frames"]
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_vspw(root, 1, n, conf["hw"], conf["num_class"],
+                            seed=0, splits=("val",))
+        names = sorted(os.listdir(os.path.join(root, "data", "video_000",
+                                               "origin")))
+        times = []
+        for _ in range(TRIALS):
+            t0 = time.perf_counter()
+            for name in names:
+                img, _ = load_frame(root, "video_000", name)
+                normalize_image(np.asarray(img))
+            times.append(time.perf_counter() - t0)
+    return {"seconds": min(times),
+            "spread_pct": 100.0 * (max(times) / min(times) - 1.0),
+            "per_second": n / min(times)}
+
+
+def card(device):
+    """(name, power limit in W, f32 peak FLOP/s) of the card, or Nones on
+    the CPU; a card not in ``PEAK_F32_FLOPS`` is refused."""
+    if device.type != "cuda":
+        return "cpu", None, None
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[index]
+    name, limit = (part.strip() for part in line.rsplit(",", 1))
+    kind = torch.cuda.get_device_name(index)
+    if kind not in PEAK_F32_FLOPS:
+        raise RuntimeError(f"no f32 peak for {kind!r} in PEAK_F32_FLOPS")
+    return name, float(limit.split()[0]), PEAK_F32_FLOPS[kind]
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="the port's benchmark")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--quick", action="store_true",
+                   help="N=4 frames, M=2 windows, K=2 steps, P=2 pairs, at "
+                        "full width and resolution")
+    p.add_argument("--toy", action="store_true",
+                   help="ResNet-18-dilated, 64x96 frames, 5 classes (the "
+                        "CPU test)")
+    return p
+
+
+def run(args) -> dict:
+    device = resolve_device(args.device)
+    conf = CONFIGS["toy" if args.toy else "full"]
+    counts = COUNTS["quick" if args.quick else "full"]
+    name, power_limit, peak = card(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(os.path.join(PRESETS, conf["preset"]))
+    k = conf["num_class"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+
+    def free():
+        _sync(device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    psp = _model(ClipPSP, cfg, k, device).eval()
+    stream_rows(psp, cfg.MODEL.fc_dim, conf, counts, device, gen, rows)
+    free()
+    rows["baseline"] = window_row(psp, 4, conf, counts, device, gen)
+    free()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    train = train_rows(psp, clip_psp_loss, 4, counts["train_steps"], conf,
+                       device, gen, single=True)
+    rows["train"], rows["train_single"] = train["chained"], train["single"]
+    peak_mem = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if device.type == "cuda" else None)
+    del psp, train
+    free()
+    etc = _model(ETC, cfg, k, device, raft_iters=RAFT_ITERS)
+    rows["etc_train"] = train_rows(etc, etc_loss, 2, counts["etc_train_steps"],
+                                   conf, device, gen, single=False)["chained"]
+    free()
+    rows["etc_windows"] = window_row(etc.eval(), 2, conf, counts, device, gen)
+    del etc
+    free()
+    warp = _model(ClipWarpNet, cfg, k, device, clip_num=4,
+                  max_distances=(10,)).eval()
+    rows["our_warp"] = window_row(warp, 4, conf, counts, device, gen)
+    del warp
+    free()
+    rows.update(tc_rows(conf, counts, device, gen))
+    free()
+    host = host_decode_row(conf, counts)
+
+    def mfu(row):
+        if peak is None:
+            return None
+        value = row["flops"] / row["seconds"] / peak
+        if not 0.0 < value <= 1.0:
+            raise RuntimeError(f"mfu {value} outside (0, 1]: the operation "
+                               "count is wrong")
+        return value
+
+    stream = rows["stream"]["per_second"]
+    base = rows["baseline"]["per_second"]
+    h, w = conf["hw"]
+    arch = cfg.MODEL.arch_encoder.replace("resnet", "r").replace("dilated",
+                                                                 "")
+    return {
+        "metric": f"tcb_psp_{arch}_{h}x{w}_streaming_inference",
+        "value": stream,
+        "unit": "frames/sec",
+        "mfu": mfu(rows["stream"]),
+        "stream4_frames_per_sec": rows["stream4"]["per_second"],
+        "stream_bucketed_frames_per_sec":
+            rows["stream_bucketed"]["per_second"],
+        "stream_bucketed_overhead_pct":
+            100.0 * (stream / rows["stream_bucketed"]["per_second"] - 1.0),
+        "baseline_frames_per_sec": base,
+        "vs_baseline": stream / base,
+        "baseline_mfu": mfu(rows["baseline"]),
+        "baseline_def": "reference window formulation (ClipPSP.forward over "
+                        "4 frames a target frame), same model and card",
+        "train_step_ms": 1e3 * rows["train"]["seconds"]
+        / counts["train_steps"],
+        "train_step_single_readback_ms": 1e3 * rows["train_single"]["seconds"],
+        "train_mfu": mfu(rows["train"]),
+        "train_peak_mem_gib": peak_mem,
+        "train_shape": f"T+1=4 x B=2 x {conf['crop']}x{conf['crop']}, "
+                       f"{counts['train_steps']} back-to-back steps / 1 "
+                       "synchronise",
+        "etc_train_step_ms": 1e3 * rows["etc_train"]["seconds"]
+        / counts["etc_train_steps"],
+        "etc_train_mfu": mfu(rows["etc_train"]),
+        "etc_windows_per_sec": rows["etc_windows"]["per_second"],
+        "etc_mfu": mfu(rows["etc_windows"]),
+        "our_warp_windows_per_sec": rows["our_warp"]["per_second"],
+        "our_warp_mfu": mfu(rows["our_warp"]),
+        "tc_ms_per_pair": 1e3 * rows["tc"]["seconds"] / counts["pairs"],
+        "tc_bucketed_ms_per_pair":
+            1e3 * rows["tc_bucketed"]["seconds"] / counts["pairs"],
+        "tc_mfu": mfu(rows["tc"]),
+        "host_decode_frames_per_sec": host["per_second"],
+        "spreads_pct": {**{n: r["spread_pct"] for n, r in rows.items()},
+                        "host_decode": host["spread_pct"]},
+        "device": name,
+        "power_limit_w": power_limit,
+        "peak_tflops_f32": None if peak is None else peak / 1e12,
+        "dtype": "float32",
+        "not_ported": NOT_PORTED,
+        "counts": counts,
+        "flops": {n: r["flops"] for n, r in rows.items()},
+        "launches": {n: r["launches"] for n, r in rows.items()},
+    }
+
+
+def main(argv=None) -> dict:
+    out = run(build_parser().parse_args(argv))
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -34,16 +34,16 @@
 // blocks run in one wave.
 //
 // The arithmetic is the earlier kernel's (one thread a tap), bit for bit.
-// That is a constraint of chip_smoke.py's check, not of the lookup: RAFT
-// feeds each lookup through 20 refinements, which amplify any rounding
-// change into the flow and the TC metric, and at 480x853 with seeded random
-// weights the plain version's order and a separable x-then-y blend each put
-// bucketed TC more than the check's 1e-3 from exact TC.  Until that check
-// tells a bucketing fault from rounding noise, each tap takes the fraction
-// of its own coordinate, (c + d) - floor(c + d) in f32 (c + d rounds where
-// it crosses a power of two), and sums g00 w00 + g01 w01 + g10 w10 + g11 w11
-// (w = wy wx) with the same fused multiply-adds, within 2.4e-7 of the plain
-// version.  Where c + d rounds up onto an integer, the plain version's
+// RAFT feeds each lookup through 20 refinements, which amplify any rounding
+// change into the flow and the TC metric: at 480x853 with seeded random
+// weights the plain version's order and a separable x-then-y blend each
+// moved bucketed TC more than 1e-3 from exact TC.  chip_smoke.py's TC check
+// compares the flows after the first refinement, where rounding noise stays
+// under its limit, so another order is open to this kernel; this one keeps
+// the earlier order: each tap takes the fraction of its own coordinate,
+// (c + d) - floor(c + d) in f32 (c + d rounds where it crosses a power of
+// two), and sums g00 w00 + g01 w01 + g10 w10 + g11 w11 (w = wy wx) with the
+// same fused multiply-adds, within 2.4e-7 of the plain version.  Where c + d rounds up onto an integer, the plain version's
 // lower tap moves one column on with weight 1; the same value comes from
 // the patch's pair (t, t + 1) with fraction 1.
 

@@ -62,6 +62,18 @@ def lookup_corr_pyramid_plain(pyramid, coords: torch.Tensor,
     return out.permute(0, 2, 1).reshape(b, -1, h1, w1)
 
 
+def lookup_corr_pyramid_flops(b: int, h: int, w: int, levels: int,
+                              radius: int = 4) -> int:
+    """f32 operations of one lookup of ``levels`` levels for [B, 2, H, W]
+    coords, for each query and level: the coordinate scaled to the level
+    (2), each of the 2r+1 tap rows and columns (its coordinate, fraction,
+    the fraction's complement and the two weights masked to the level: 5),
+    and the bilinear blend of each window position (4 tap weights, 4
+    products and 3 sums: 11)."""
+    k = 2 * radius + 1
+    return b * h * w * levels * (2 + 2 * 5 * k + 11 * k * k)
+
+
 def lookup_corr_pyramid(pyramid, coords: torch.Tensor,
                         radius: int = 4) -> torch.Tensor:
     """Window lookup of every pyramid level; the layout of
@@ -106,7 +118,12 @@ def lookup_corr_pyramid(pyramid, coords: torch.Tensor,
         kernels.stream(coords.get_device()))
     kernels.check(rc, "corr_lookup_f32")
     lookup_corr_pyramid.launches += 1
+    lookup_corr_pyramid.flops += lookup_corr_pyramid_flops(b, h1, w1, n,
+                                                           radius)
     return out
 
 
+#: the kernel's launches, and their f32 operations
+#: (:func:`lookup_corr_pyramid_flops`)
 lookup_corr_pyramid.launches = 0
+lookup_corr_pyramid.flops = 0

@@ -33,6 +33,14 @@ def gru_flowhead_plain(net, x, weights):
     return net, tap_conv_plain(hidden, *weights["fh_conv2"])
 
 
+def gru_flowhead_flops(b: int, h: int, w: int, hd: int, cx: int,
+                       cf: int) -> int:
+    """f32 operations of one call: the two GRU passes' 5-tap products and
+    the flow head's two 3x3 convolutions, 2 per multiply-add."""
+    return 2 * b * h * w * (2 * 5 * (hd + cx) * 3 * hd + 9 * hd * cf
+                            + 9 * cf * 2)
+
+
 def gru_flowhead(net, x, weights):
     """The layout of :func:`gru_flowhead_plain`.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``kernels/csrc/gru_flowhead.cu``
@@ -73,7 +81,11 @@ def gru_flowhead(net, x, weights):
         hd, cx, cf, kernels.stream(net.get_device())),
         "gru_flowhead_f32")
     gru_flowhead.launches += 1
+    gru_flowhead.flops += gru_flowhead_flops(b, hh, ww, hd, cx, cf)
     return net_out, delta
 
 
+#: the kernel's launches, and their f32 operations
+#: (:func:`gru_flowhead_flops`)
 gru_flowhead.launches = 0
+gru_flowhead.flops = 0

@@ -59,7 +59,16 @@ def local_nearest_aggregate_plain(x, y_dist, y_val, r: int):
     return torch.gather(windows, 2, idx)[:, :, 0]
 
 
-def _launch(fn, entry: str, x, y_dist, y_val, r: int, *extra):
+def local_aggregate_flops(mode: str, b: int, h: int, w: int, cd: int,
+                          cv: int, r: int) -> int:
+    """f32 operations of one aggregation: the window's dot products over
+    Cd channels and, but for ``nearest``, the weighted sum over Cv
+    channels, 2 per multiply-add."""
+    channels = cd if mode == "nearest" else cd + cv
+    return 2 * b * h * w * (2 * r + 1) ** 2 * channels
+
+
+def _launch(fn, mode: str, x, y_dist, y_val, r: int, *extra):
     if x.device.type != "cuda":
         raise RuntimeError(f"no {fn.__name__} for device {x.device}")
     b, cd, h, w = x.shape
@@ -73,11 +82,13 @@ def _launch(fn, entry: str, x, y_dist, y_val, r: int, *extra):
                          f"{MAX_RADIUS} and 1 <= Cd <= {MAX_DIST_CHANNELS}")
     kernels.check_inputs(fn.__name__, (x, y_dist, y_val))
     out = torch.empty(b, cv, h, w, device=x.device)
+    entry = f"local_{mode}_agg_f32"
     kernels.check(kernels.entry(entry)(
         x.data_ptr(), y_dist.data_ptr(), y_val.data_ptr(), out.data_ptr(),
         b, cd, cv, h, w, r, *extra,
         kernels.stream(x.get_device())), entry)
     fn.launches += 1
+    fn.flops += local_aggregate_flops(mode, b, h, w, cd, cv, r)
     return out
 
 
@@ -85,26 +96,27 @@ def local_sigmoid_aggregate(x, y_dist, y_val, r: int):
     """Sigmoid-weighted window mean (the default mode of our_warp)."""
     if x.device.type == "cpu":
         return local_sigmoid_aggregate_plain(x, y_dist, y_val, r)
-    return _launch(local_sigmoid_aggregate, "local_sigmoid_agg_f32", x,
-                   y_dist, y_val, r)
+    return _launch(local_sigmoid_aggregate, "sigmoid", x, y_dist, y_val, r)
 
 
 def local_softmax_aggregate(x, y_dist, y_val, r: int, temp: float = 3.0):
     """Inverse-distance softmax window aggregation (``--distsoftmax``)."""
     if x.device.type == "cpu":
         return local_softmax_aggregate_plain(x, y_dist, y_val, r, temp)
-    return _launch(local_softmax_aggregate, "local_softmax_agg_f32", x,
-                   y_dist, y_val, r, float(temp))
+    return _launch(local_softmax_aggregate, "softmax", x, y_dist, y_val, r,
+                   float(temp))
 
 
 def local_nearest_aggregate(x, y_dist, y_val, r: int):
     """y_val at the window's argmax distance (``--distnearest``)."""
     if x.device.type == "cpu":
         return local_nearest_aggregate_plain(x, y_dist, y_val, r)
-    return _launch(local_nearest_aggregate, "local_nearest_agg_f32", x,
-                   y_dist, y_val, r)
+    return _launch(local_nearest_aggregate, "nearest", x, y_dist, y_val, r)
 
 
+#: each kernel's launches, and their f32 operations
+#: (:func:`local_aggregate_flops`)
 for _fn in (local_sigmoid_aggregate, local_softmax_aggregate,
             local_nearest_aggregate):
     _fn.launches = 0
+    _fn.flops = 0

@@ -83,6 +83,14 @@ def _padded_conv(w, bias):
     return _padded[2]
 
 
+def motion_encoder_flops(b: int, h: int, w: int, ck: int) -> int:
+    """f32 operations of one call: its five convolutions, 2 per
+    multiply-add (conv's 126 output channels, not the kernel's 128)."""
+    per_position = sum(taps * (cin or ck) * cout
+                       for taps, cin, cout in _CHANNELS.values())
+    return 2 * b * h * w * per_position
+
+
 def motion_encoder(corr, flow, weights):
     """The layout of :func:`motion_encoder_plain`.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``kernels/csrc/motion_encoder.cu``
@@ -115,7 +123,11 @@ def motion_encoder(corr, flow, weights):
         kernels.stream(corr.get_device())),
         "motion_encoder_f32")
     motion_encoder.launches += 1
+    motion_encoder.flops += motion_encoder_flops(b, hh, ww, ck)
     return out
 
 
+#: the kernel's launches, and their f32 operations
+#: (:func:`motion_encoder_flops`)
 motion_encoder.launches = 0
+motion_encoder.flops = 0

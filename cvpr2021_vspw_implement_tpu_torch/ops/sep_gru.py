@@ -35,6 +35,12 @@ def sep_conv_gru_pass_plain(h, x, wzr, bzr, wq, bq, axis: int):
     return (1 - z) * h + z * q
 
 
+def sep_conv_gru_pass_flops(b: int, h: int, w: int, hd: int, cx: int) -> int:
+    """f32 operations of one pass: its two 5-tap products (z|r, then q)
+    over hd + cx input channels, 2 per multiply-add."""
+    return 2 * b * h * w * 5 * (hd + cx) * 3 * hd
+
+
 def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
     """One pass, the layout of :func:`sep_conv_gru_pass_plain`.  A CPU
     tensor takes the plain version; a CUDA tensor launches
@@ -68,7 +74,11 @@ def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
         out.data_ptr(), b, hh, ww, hd, cx, axis,
         kernels.stream(h.get_device())), "sep_gru_pass_f32")
     sep_conv_gru_pass.launches += 1
+    sep_conv_gru_pass.flops += sep_conv_gru_pass_flops(b, hh, ww, hd, cx)
     return out
 
 
+#: the kernel's launches, and their f32 operations
+#: (:func:`sep_conv_gru_pass_flops`)
 sep_conv_gru_pass.launches = 0
+sep_conv_gru_pass.flops = 0

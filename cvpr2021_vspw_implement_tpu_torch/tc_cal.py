@@ -26,7 +26,7 @@ from PIL import Image
 
 from .models.layers import init_weights
 from .models.raft import RAFT, pad_to_multiple_of_8, unpad
-from .ops.masked import bucket_hw, mask_valid, pad_to
+from .ops.masked import bucket_hw, pad_to
 from .ops.warp import flowwarp
 from .utils import Evaluator, resolve_device, setup_logger
 
@@ -66,51 +66,45 @@ def build_raft(args, device) -> RAFT:
 
 
 @torch.inference_mode()
-def warp_next_pred(model, img1, img2, next_pred):
-    """img1/img2 [1, 3, H, W] in [0, 255]; next_pred [1, H, W] → the next
-    prediction nearest-warped onto frame t, [1, H, W] int32."""
-    p1, pads = pad_to_multiple_of_8(img1)
-    p2, _ = pad_to_multiple_of_8(img2)
-    _, flow = model(p1, p2)
-    flow = unpad(flow, pads)
+def pair_flow(model, img1, img2, width_bucket: int):
+    """img1/img2 [1, 3, H, W] in [0, 255] on the device → the RAFT flow
+    [1, 2, H, W] from frame t to t+1 at the pair's own size.  With
+    ``width_bucket`` 0 the pair runs at exact shapes, /8-padded
+    (``pad_to_multiple_of_8``).  Otherwise it is zero-padded to its bucket
+    and the reference's symmetric /8 pad is emulated inside it (JAX
+    ``step_bucketed``): the images roll to the (top, left) pad offset, the
+    masked RAFT runs to the /8-aligned extent, and the flow rolls back and
+    is cropped to (H, W), where it equals the exact run's up to the order
+    of f32 sums."""
+    h, w = img1.shape[-2:]
+    if not width_bucket:
+        p1, pads = pad_to_multiple_of_8(img1)
+        p2, _ = pad_to_multiple_of_8(img2)
+        return unpad(model(p1, p2)[1], pads)
+    key = bucket_hw(h, w, width_bucket)
+    pad_h = (((h // 8) + 1) * 8 - h) % 8
+    pad_w = (((w // 8) + 1) * 8 - w) % 8
+    top, left = pad_h // 2, pad_w // 2
+    r1 = torch.roll(pad_to(img1, key), (top, left), (2, 3))
+    r2 = torch.roll(pad_to(img2, key), (top, left), (2, 3))
+    _, flow = model(r1, r2, valid_hw=(h + pad_h, w + pad_w))
+    return torch.roll(flow, (-top, -left), (2, 3))[..., :h, :w]
+
+
+def warp_pred(next_pred, flow):
+    """next_pred [1, H, W] nearest-warped onto frame t by ``flow``
+    [1, 2, H, W] → [1, H, W] int32."""
     warped = flowwarp(next_pred[:, None].float(), flow, mode="nearest")
     return warped[:, 0].to(torch.int32)
 
 
 @torch.inference_mode()
-def warp_next_pred_bucketed(model, img1p, img2p, next_predp, hv: int,
-                            wv: int):
-    """``warp_next_pred`` on a pair zero-padded to its bucket (contiguous
-    [1, 3, Hp, Wp] and [1, Hp, Wp]) whose true size is (hv, wv); the
-    result's valid region is the exact run's, the rest garbage (JAX
-    ``step_bucketed``).  The reference's symmetric /8 InputPadder is
-    emulated inside the bucket: the images roll to the (top, left) pad
-    offset, the masked RAFT runs to the /8-aligned extent, and the flow
-    rolls back."""
-    pad_h = (((hv // 8) + 1) * 8 - hv) % 8
-    pad_w = (((wv // 8) + 1) * 8 - wv) % 8
-    top, left = pad_h // 2, pad_w // 2
-    r1 = torch.roll(img1p, (top, left), (2, 3))
-    r2 = torch.roll(img2p, (top, left), (2, 3))
-    _, flow = model(r1, r2, valid_hw=(hv + pad_h, wv + pad_w))
-    flow = mask_valid(torch.roll(flow, (-top, -left), (2, 3)), (hv, wv))
-    warped = flowwarp(next_predp[:, None].float(), flow, mode="nearest",
-                      valid_hw=(hv, wv))
-    return warped[:, 0].to(torch.int32)
-
-
 def run_pair(model, img1, img2, next_pred, width_bucket: int):
     """img1/img2 [1, 3, H, W], next_pred [1, H, W] on the device → the next
-    prediction warped onto frame t at [1, H, W]: exact shapes when
-    ``width_bucket`` is 0, else padded to the bucket and cropped back."""
-    if not width_bucket:
-        return warp_next_pred(model, img1, img2, next_pred)
-    h, w = img1.shape[-2:]
-    key = bucket_hw(h, w, width_bucket)
-    out = warp_next_pred_bucketed(model, pad_to(img1, key),
-                                  pad_to(img2, key), pad_to(next_pred, key),
-                                  h, w)
-    return out[:, :h, :w]
+    prediction warped onto frame t at [1, H, W], by the flow of
+    :func:`pair_flow` (exact shapes when ``width_bucket`` is 0, else
+    bucketed)."""
+    return warp_pred(next_pred, pair_flow(model, img1, img2, width_bucket))
 
 
 def compute_tc(args, model=None, logger=None) -> float:

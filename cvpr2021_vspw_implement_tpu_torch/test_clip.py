@@ -151,7 +151,7 @@ def evaluate_clip(cfg, args, model=None, logger=None):
         raise ValueError(
             f"--method {args.method} runs exact shapes only: pass "
             "--width_bucket 0 (bucketing of the window path, with a runtime "
-            "valid size in the B5 kernel, is ROADMAP Queue A item 1)")
+            "valid size in the B5 kernel, is ROADMAP Queue A item 2)")
     if model is None:
         model = build_model(cfg, args, device)
     if streaming:

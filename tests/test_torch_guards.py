@@ -75,7 +75,7 @@ def test_port_imports_no_jax():
             "utils/checkpoint.py", "ops/motion_encoder.py",
             "ops/gru_flowhead.py", "ops/local_pairwise.py",
             "ops/local_agg.py", "models/warp_our.py", "ops/masked.py",
-            "ops/band_zero.py", "serving.py", "../chip_smoke.py",
+            "ops/band_zero.py", "serving.py", "bench.py", "../chip_smoke.py",
             "../tools/torch_step_profile.py",
             "../tools/torch_bucket_profile.py",
             "../tools/torch_mma_split_bench.py"} <= set(seen)

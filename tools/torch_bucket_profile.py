@@ -10,6 +10,8 @@ in the 480x896 bucket:
 * ``ClipPSP.encode_frame`` on one frame: exact as the exact engine gives it
   (a permuted HWC view, which cuDNN runs channels-last), exact as contiguous
   NCHW, and bucketed (contiguous NCHW, padded, masked);
+* the rest of a streamed frame, ``fuse_target`` then upsample and argmax as
+  the engines run them, on each of those three C5s;
 * one TC pair: ``tc_cal.run_pair`` with ``width_bucket`` 0 and 64.
 
 Each form is timed on CUDA events (10 calls after 2, in the order of the
@@ -37,7 +39,10 @@ sys.path.insert(0, REPO)
 
 from cvpr2021_vspw_implement_tpu_torch import tc_cal, test_clip  # noqa: E402
 from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg  # noqa: E402
-from cvpr2021_vspw_implement_tpu_torch.ops.masked import pad_to  # noqa: E402
+from cvpr2021_vspw_implement_tpu_torch.models.segmentation import (  # noqa: E402
+    inference_pred, inference_pred_rt)
+from cvpr2021_vspw_implement_tpu_torch.ops.masked import (  # noqa: E402
+    feature_valid, pad_to)
 
 PRESET = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
                       "presets", "vsp-resnet101dilated-ppm_deepsup_clip.yaml")
@@ -86,11 +91,26 @@ def main(argv=None) -> int:
         np.float32)).cuda().permute(2, 0, 1)[None] for _ in range(2)]
     next_pred = torch.from_numpy(rng.integers(0, 124, (1, H, W),
                                               dtype=np.int32)).cuda()
+    with torch.inference_mode():
+        c5s = {"exact (permuted view)": model.encode_frame(img),
+               "exact (NCHW)": model.encode_frame(img.contiguous()),
+               "bucketed": model.encode_frame(pad_to(img, PAD),
+                                              valid_hw=(H, W))}
+    fv = feature_valid(*c5s["bucketed"][0].shape[-2:], (H, W), PAD)
+
+    def fuse(form):
+        c5, pooled = c5s[form]
+        if form != "bucketed":
+            return inference_pred(model.fuse_target(c5, pooled), (H, W))
+        return inference_pred_rt(model.fuse_target(c5, pooled, feat_valid=fv),
+                                 PAD, fv, (H, W))
+
     forms = {
         "encode, exact (permuted view)": lambda: model.encode_frame(img),
         "encode, exact (NCHW)": lambda: model.encode_frame(img.contiguous()),
         "encode, bucketed": lambda: model.encode_frame(
             pad_to(img, PAD), valid_hw=(H, W)),
+        **{f"fuse, {form}": lambda form=form: fuse(form) for form in c5s},
         "TC pair, exact": lambda: tc_cal.run_pair(raft, *pair, next_pred, 0),
         "TC pair, bucketed": lambda: tc_cal.run_pair(raft, *pair, next_pred,
                                                      64),
