@@ -11,7 +11,10 @@
    60x107 and the 60x112 bucket;
    corr lookup, motion encoder and GRU + flow head: the 479 training crop,
    batch 2, 60x60; the three local aggregations of our_warp: 1x60x107,
-   128-d distances, 256-d values, r = 10; the band re-zero: R101 features
+   128-d distances, 256-d values, r = 10, and in the bucket, 60x112 with
+   the valid size 60x107 (also against the launch on the crop, and its band
+   zero); sigmoid at our_warp_merge's 256-d distances, exact and bucketed;
+   the band re-zero: R101 features
    and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
    and a no-band case, bitwise)
    with TF32 off, and times kernel, plain version, bound and the PyTorch
@@ -44,13 +47,17 @@
       R101 preset, crop 479, batch 2: ``--method clip_psp`` (4 frames,
       offsets 3,6,9), then ``--method ETC`` (2 frames, RAFT at 20
       refinements), four steps each;
-   d. our_warp window eval (``test_clip --method our_warp``, seeded random
-      R101 ClipWarpNet, clip_num 4, max_distances 10) in each mode: sigmoid
-      over the 10-frame video, ``--distsoftmax`` and ``--distnearest`` over
-      a 5-frame one, each launching its kernel exactly 3 times a frame;
-   e. ETC window eval (``test_clip --method ETC``) over the 5-frame video;
-   (the window paths run exact shapes: ``--width_bucket 0``)
-   f. the port's bench, ``bench.main(["--quick"])`` (every row at full
+   d. the window eval path over the 10-frame video, seeded random R101
+      models, clip_num 4, max_distances 10: ``test_clip --method our_warp``
+      in each mode (sigmoid, ``--distsoftmax``, ``--distnearest``; B5 3
+      times a window), ``--method ETC --clip_num 2``, ``--method propnet``
+      and ``--method our_warp_merge`` (B5 once a window), each at exact
+      shapes (``--width_bucket 0``) and then at the CLI's default,
+      bucketed in 480x896 (B5 with the valid size, B6 at counts derived
+      from the models); each bucketed run against its exact run (logits
+      within 1e-3 of the largest, PNGs equal off near-ties), host-clock ms
+      a window printed;
+   e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
       positive, every mfu in (0, 1], each row's launches as its loop
@@ -58,7 +65,7 @@
 5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC and
    losses, moving head and encoder parameters, a frozen RAFT) and that the
    card and the CPU agree on small inputs, a train step and ClipWarpNet in
-   its three modes included;
+   its three modes, exact and bucketed, included;
 6. reads the corr lookup again at the TC shape, beside the card's clocks
    before the checks and after the paths;
 7. prints the kernels' JSON line and, last, the device JSON line.
@@ -336,12 +343,16 @@ def check_kernels(torch):
             check_band_zero(torch)]
     for k in [*rows, {"name": "corr_lookup", **at_train},
               {"name": "corr_lookup", **one_level},
-              {"name": "sep_gru", **k2["also_at"][0]}]:
+              {"name": "sep_gru", **k2["also_at"][0]},
+              *[{"name": r["name"], **a} for r in rows
+                if r["name"].startswith("local_") for a in r["also_at"]]]:
         simt = (f", f32 CUDA-core bound {k['bound_f32_simt_ms']:.4f} ms"
                 if "bound_f32_simt_ms" in k else "")
+        crop = (f", the kernel on the contiguous crop {k['crop_ms']:.4f} ms"
+                if "crop_ms" in k else "")
         print(f"{k['name']} at {k['shape']}: kernel {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}){simt}")
+              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}){simt}{crop}")
     return rows
 
 
@@ -608,90 +619,144 @@ def near_ties(dist):
                                  <= 1e-4 * top[:, 0].abs())
 
 
-def check_local_agg(torch):
-    """The three local-aggregation kernels vs plain at our_warp's eval shape
-    (R101 at 480x853: 1x60x107 features, 128-d distance embedding, 256-d
-    values, r = 10, temp 3); returns their JSON rows.  The inputs make the
-    window weights far from uniform: y_dist is the N(0, 0.05^2) x shifted by
-    one pixel down and one left, plus noise whose squared norm at each pixel
-    lies in [0.01, 0.1], so the match's softmax score is 3.3 to 33 against
-    about 0.5 elsewhere, far from the pole of 1 / (dist * 3 + 1e-5).
-    Sigmoid and softmax: max abs error at most 1e-4 and at most 1e-4 of the
-    largest output.  Nearest: the positions whose two largest in-image
-    window distances lie within 1e-4 relative are excused (rounding may flip
-    the argmax there); every other position must be equal."""
+def local_agg_case(torch, g, cd, cv, h, w):
+    """Near-match inputs of B5 at [1, ., h, w]: y_dist is the N(0, 0.05^2) x
+    shifted by one pixel down and one left, plus noise whose squared norm at
+    each pixel lies in [0.01, 0.1], so the match's softmax score is 3.3 to
+    33 against about 0.5 elsewhere, far from the pole of 1 / (dist * 3 +
+    1e-5); y_val N(0, 1).  On a bucketed grid the band holds the same
+    noise, which the kernel must ignore."""
+    x = 0.05 * torch.randn(1, cd, h, w, device="cuda", generator=g)
+    sq = 10.0 ** (torch.rand(1, 1, h, w, device="cuda", generator=g) - 2.0)
+    yd = torch.roll(x, (1, -1), (2, 3)) + (sq / cd).sqrt() * torch.randn(
+        1, cd, h, w, device="cuda", generator=g)
+    yv = torch.randn(1, cv, h, w, device="cuda", generator=g)
+    return x, yd, yv
+
+
+#: the shapes the paths give B5, (label, Cd, Cv, h, w, valid size, modes):
+#: our_warp at 480x853 (1x60x107, 128-d distances, 256-d values, r = 10)
+#: and in the 480x896 bucket (60x112, valid 60x107); our_warp_merge's
+#: 256-d C4 embeddings, exact and bucketed (the smoke runs it sigmoid)
+LOCAL_AGG_CASES = (
+    ("1x60x107, Cd 128, Cv 256, r 10", 128, 256, 60, 107, None,
+     ("sigmoid", "softmax", "nearest")),
+    ("1x60x112 valid 60x107, Cd 128, Cv 256, r 10", 128, 256, 60, 112,
+     (60, 107), ("sigmoid", "softmax", "nearest")),
+    ("merge 1x60x107, Cd 256, Cv 256, r 10", 256, 256, 60, 107, None,
+     ("sigmoid",)),
+    ("merge 1x60x112 valid 60x107, Cd 256, Cv 256, r 10", 256, 256, 60, 112,
+     (60, 107), ("sigmoid",)))
+
+
+def check_local_agg_at(torch, mode, label, x, yd, yv, valid, r=10,
+                       temp=3.0):
+    """One B5 mode vs its plain version on one of LOCAL_AGG_CASES.  Sigmoid
+    and softmax: max abs error at most 1e-4 and at most 1e-4 of the largest
+    output.  Nearest: the positions whose two largest in-image window
+    distances lie within 1e-4 relative are excused (rounding may flip the
+    argmax there); every other position must be equal.  With a valid size
+    also: the band all zero, and the valid region against the launch on
+    the contiguous crop (the difference printed, and whether it is
+    bitwise).  Returns the case's row: errors, times (CUDA events), bound
+    and the unfold yardstick (on the crop)."""
     from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
     from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import \
         local_pairwise_dist
 
-    b, cd, cv, h, w, r, temp = 1, 128, 256, 60, 107, 10, 3.0
-    p, kk = h * w, (2 * r + 1) ** 2
-    g = torch.Generator(device="cuda").manual_seed(5)
-    x = 0.05 * torch.randn(b, cd, h, w, device="cuda", generator=g)
-    sq = 10.0 ** (torch.rand(b, 1, h, w, device="cuda", generator=g) - 2.0)
-    yd = torch.roll(x, (1, -1), (2, 3)) + (sq / cd).sqrt() * torch.randn(
-        b, cd, h, w, device="cuda", generator=g)
-    yv = torch.randn(b, cv, h, w, device="cuda", generator=g)
-    dist = local_pairwise_dist(x, yd, r)
-    tie = near_ties(dist)
-    rows = []
-    for mode in ("sigmoid", "softmax", "nearest"):
-        fn = getattr(local_agg, f"local_{mode}_aggregate")
-        plain = getattr(local_agg, f"local_{mode}_aggregate_plain")
-        kw = {"temp": temp} if mode == "softmax" else {}
-        got = fn(x, yd, yv, r, **kw)
-        torch.cuda.synchronize()
-        want = plain(x, yd, yv, r, **kw)
-        lib_err = (unfold_local_agg(x, yd, yv, r, mode, temp)
-                   - want).abs().max().item()
-        err = (got - want).abs().max().item()
-        row = {"name": f"local_{mode}_aggregate", "route": "cuda",
-               "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
-                         "local_agg.cu",
-               "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/"
-                           "local_agg.py:" + {"sigmoid": "229",
-                                              "softmax": "121",
-                                              "nearest": "197"}[mode],
-               "shape": f"{b}x{h}x{w}, Cd {cd}, Cv {cv}, r {r}",
-               "max_abs_err": err}
+    b, cd, h, w = x.shape
+    cv = yv.shape[1]
+    hv, wv = valid or (h, w)
+    p, kk = hv * wv, (2 * r + 1) ** 2
+    fn = getattr(local_agg, f"local_{mode}_aggregate")
+    plain = getattr(local_agg, f"local_{mode}_aggregate_plain")
+    kw = {"temp": temp} if mode == "softmax" else {}
+    vkw = dict(kw, valid_hw=valid) if valid else kw
+    crop = [t[..., :hv, :wv].contiguous() for t in (x, yd, yv)]
+    got = fn(x, yd, yv, r, **vkw)
+    torch.cuda.synchronize()
+    want = plain(x, yd, yv, r, **vkw)
+    dist = local_pairwise_dist(x, yd, r, valid)
+    lib_err = (unfold_local_agg(*crop, r, mode, temp)
+               - want[..., :hv, :wv]).abs().max().item()
+    err = (got - want).abs().max().item()
+    row = {"shape": label, "max_abs_err": err}
+    if mode == "nearest":
+        tie = near_ties(dist)
+        bad = int(((got != want).any(1) & ~tie).sum().item())
+        row["excused_near_ties"] = int(tie.sum().item())
+        row["mismatches"] = bad
+        picks_in = int((dist.flatten(1, 2).max(1).values[..., :hv, :wv]
+                        < 1e19).sum().item())
+        text = (f"{bad} mismatching positions of {p} after excusing "
+                f"{row['excused_near_ties']} near-ties (max abs error "
+                f"{err:.3e}, out-of-image picks {p - picks_in})")
+        ok = bad == 0
+        nbytes = 4 * (b * p * 2 * cd + picks_in * cv + b * cv * h * w)
+    else:
+        q = weight_spread(torch, dist[..., :hv, :wv], mode, temp)
+        scale = want.abs().max().item()
+        row["rel_err"] = err / scale
+        row["weight_spread_q10_q50_q90"] = q
+        text = (f"max |kernel - plain| = {err:.3e} = {row['rel_err']:.3e} "
+                f"of max |plain| {scale:.3e} (limits 1e-4 and 1e-4 of max "
+                f"|plain|); largest over mean window weight, quantiles "
+                f"0.1/0.5/0.9 over positions: {q[0]:.4g}/{q[1]:.4g}/"
+                f"{q[2]:.4g} (1 if uniform, {kk} at most)")
+        ok = err <= 1e-4 and err <= 1e-4 * scale
+        nbytes = 4 * (b * p * (2 * cd + cv) + b * cv * h * w)
+    if valid:
+        exact = fn(*crop, r, **kw)
+        gap = (got[..., :hv, :wv] - exact).abs().max().item()
+        bitwise = torch.equal(got[..., :hv, :wv], exact)
+        band = int(torch.count_nonzero(got[..., hv:, :]).item()
+                   + torch.count_nonzero(got[..., :hv, wv:]).item())
+        row.update(crop_gap=gap, crop_bitwise=bitwise, band_nonzero=band)
+        text += (f"; valid region vs the launch on the {hv}x{wv} crop: max "
+                 f"|diff| {gap:.3e}, {'bitwise' if bitwise else 'NOT bitwise'}"
+                 f"; band nonzero elements {band}")
         if mode == "nearest":
-            differ = (got != want).any(1)
-            bad = int((differ & ~tie).sum().item())
-            row["excused_near_ties"] = int(tie.sum().item())
-            row["mismatches"] = bad
-            picks_in = int((dist.flatten(1, 2).max(1).values < 1e19).sum()
-                           .item())
-            print(f"local_nearest_aggregate: {bad} mismatching positions of "
-                  f"{p} after excusing {row['excused_near_ties']} near-ties "
-                  f"(max abs error {err:.3e}, out-of-image picks "
-                  f"{p - picks_in}); |unfold - plain| = {lib_err:.3e}")
-            ok = bad == 0
-            nbytes = 4 * (b * p * (2 * cd + cv) + picks_in * cv)
+            crop_ok = not ((got[..., :hv, :wv] != exact).any(1)
+                           & ~tie[..., :hv, :wv]).any().item()
         else:
-            q = weight_spread(torch, dist, mode, temp)
-            scale = want.abs().max().item()
-            row["rel_err"] = err / scale
-            row["weight_spread_q10_q50_q90"] = q
-            print(f"local_{mode}_aggregate: max |kernel - plain| = "
-                  f"{err:.3e} = {row['rel_err']:.3e} of max |plain| "
-                  f"{scale:.3e} (limits 1e-4 and 1e-4 of max |plain|); "
-                  f"largest over mean window weight, quantiles 0.1/0.5/0.9 "
-                  f"over positions: {q[0]:.4g}/{q[1]:.4g}/{q[2]:.4g} (1 if "
-                  f"uniform, {kk} at most); |unfold - plain| = "
-                  f"{lib_err:.3e}")
-            ok = err <= 1e-4 and err <= 1e-4 * scale
-            nbytes = 4 * b * p * (2 * cd + 2 * cv)
-        if not ok:
-            raise SystemExit(f"local_{mode}_aggregate kernel disagrees with "
-                             "its plain version")
-        row["plain_ms"] = cuda_ms(lambda: plain(x, yd, yv, r, **kw), n=5)
-        row["ms"] = cuda_ms(lambda: fn(x, yd, yv, r, **kw))
-        row["library_ms"] = cuda_ms(
-            lambda: unfold_local_agg(x, yd, yv, r, mode, temp), n=5)
-        tensor_core_bound(row, local_agg.local_aggregate_flops(
-            mode, b, h, w, cd, cv, r), nbytes)
-        rows.append(row)
-    return rows
+            crop_ok = gap <= 1e-4 and gap <= 1e-4 * exact.abs().max().item()
+        ok = ok and band == 0 and (bitwise or crop_ok)
+        row["crop_ms"] = cuda_ms(lambda: fn(*crop, r, **kw))
+    print(f"local_{mode}_aggregate at {label}: {text}; |unfold - plain| = "
+          f"{lib_err:.3e}")
+    if not ok:
+        raise SystemExit(f"local_{mode}_aggregate kernel disagrees with its "
+                         f"plain version at {label}")
+    row["plain_ms"] = cuda_ms(lambda: plain(x, yd, yv, r, **vkw), n=5)
+    row["ms"] = cuda_ms(lambda: fn(x, yd, yv, r, **vkw))
+    row["library_ms"] = cuda_ms(
+        lambda: unfold_local_agg(*crop, r, mode, temp), n=5)
+    # the work of the valid region, and the whole output written
+    tensor_core_bound(row, local_agg.local_aggregate_flops(
+        mode, b, hv, wv, cd, cv, r), nbytes)
+    return row
+
+
+def check_local_agg(torch):
+    """The three local-aggregation kernels vs plain at every shape of
+    LOCAL_AGG_CASES (temp 3); returns their JSON rows, each at our_warp's
+    exact shape with the other shapes under ``also_at``."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    by_mode = {}
+    for label, cd, cv, h, w, valid, modes in LOCAL_AGG_CASES:
+        x, yd, yv = local_agg_case(torch, g, cd, cv, h, w)
+        for mode in modes:
+            by_mode.setdefault(mode, []).append(
+                check_local_agg_at(torch, mode, label, x, yd, yv, valid))
+    return [{"name": f"local_{mode}_aggregate", "route": "cuda",
+             "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
+                       "local_agg.cu",
+             "replaces": "cvpr2021_vspw_implement_tpu/ops/pallas/"
+                         "local_agg.py:" + {"sigmoid": "229",
+                                            "softmax": "121",
+                                            "nearest": "197"}[mode],
+             **rows[0], "also_at": rows[1:]}
+            for mode, rows in by_mode.items()]
 
 
 def band_sectors(x, hv, wv):
@@ -994,6 +1059,168 @@ def tc_flow_check(torch, raft, pairs, next_preds, bucket=64):
     return out
 
 
+#: the window CLI phases: (path, --method, flags, B5 launches a window of
+#: the mode's kernel)
+WINDOW_PATHS = (
+    ("our_warp", "our_warp", [], 3),
+    ("our_warp_softmax", "our_warp", ["--distsoftmax", "true"], 3),
+    ("our_warp_nearest", "our_warp", ["--distnearest", "true"], 3),
+    ("etc_eval", "ETC", ["--clip_num", "2"], 0),
+    ("propnet", "propnet", [], 0),
+    ("our_warp_merge", "our_warp_merge", [], 1))
+
+
+def window_band_launches(torch):
+    """The band re-zero's launches in a bucketed window of each path of
+    WINDOW_PATHS, derived from the models: the masked trunk's (the input of
+    every spatial conv, the stem max pool, each of the 4 levels), C5 in the
+    decoder's pyramid, and the head's: the input of each of its spatial
+    convs (the feature-level mask; PropNet runs its SegBlock once a context
+    frame, 3 a window) and the two embeddings our_warp and our_warp_merge
+    re-zero."""
+    from cvpr2021_vspw_implement_tpu_torch.models.propnet import SegBlock
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+    from cvpr2021_vspw_implement_tpu_torch.models.warp_our import WarpNet
+    from cvpr2021_vspw_implement_tpu_torch.models.warp_our_merge import \
+        WarpNetMerge
+
+    def spatial_convs(module):
+        return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+                   for m in module.modules())
+
+    base = spatial_convs(build_encoder("resnet101dilated")) + 1 + 4 + 1
+    warp = base + spatial_convs(WarpNet(124, 4)) + 2
+    return {"our_warp": warp, "our_warp_softmax": warp,
+            "our_warp_nearest": warp, "etc_eval": base,
+            # PropNet's emb and emb2, then 3 SegBlocks
+            "propnet": base + 2 + 3 * spatial_convs(SegBlock(124)),
+            "our_warp_merge": base + spatial_convs(WarpNetMerge(124, 1024))
+            + 2}
+
+
+def capture_window_logits(test_clip, captured):
+    """Wrap ``test_clip``'s prediction heads so that each window's logits
+    (exact: ``inference_pred``; bucketed: ``inference_pred_rt``) are kept
+    in ``captured`` with the arguments of their resize, and our_warp's
+    nearest aggregation so that each window also keeps the union of its
+    aggregations' near-tie positions (:func:`near_ties`, at the feature
+    level; None for the other modes).  Returns what
+    :func:`restore_window_heads` puts back."""
+    import torch
+
+    from cvpr2021_vspw_implement_tpu_torch.models import warp_our
+    from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import \
+        local_pairwise_dist
+
+    saved = (test_clip.inference_pred, test_clip.inference_pred_rt,
+             warp_our.local_nearest_aggregate)
+    ties = []
+
+    def nearest(x, y_dist, y_val, r, valid_hw=None):
+        ties.append(near_ties(local_pairwise_dist(x, y_dist, r, valid_hw)))
+        return saved[2](x, y_dist, y_val, r, valid_hw=valid_hw)
+
+    def window_ties():
+        if not ties:
+            return None
+        out = torch.stack(ties).any(0)
+        ties.clear()
+        return out
+
+    def exact(outputs, size, *args, **kw):
+        captured.append((outputs[0].detach().clone(), size, window_ties()))
+        return saved[0](outputs, size, *args, **kw)
+
+    def bucketed(logits, pad, fv, hw, *args, **kw):
+        captured.append((logits.detach().clone(), pad, fv, hw,
+                         window_ties()))
+        return saved[1](logits, pad, fv, hw, *args, **kw)
+
+    test_clip.inference_pred, test_clip.inference_pred_rt = exact, bucketed
+    warp_our.local_nearest_aggregate = nearest
+    return saved
+
+
+def restore_window_heads(test_clip, saved):
+    from cvpr2021_vspw_implement_tpu_torch.models import warp_our
+
+    (test_clip.inference_pred, test_clip.inference_pred_rt,
+     warp_our.local_nearest_aggregate) = saved
+
+
+def window_bucket_check(torch, path, exact, bucketed, exact_pngs,
+                        bucket_pngs):
+    """A window CLI phase bucketed against its exact run, with the bars of
+    :func:`bucketed_vs_exact`: the upsampled logits on the valid region
+    within 1e-3 of the largest exact logit, and the PNGs equal but at
+    pixels whose exact top-2 margin is below that tolerance.  ``exact`` and
+    ``bucketed``: the captured logits of each window.  For nearest, the
+    value at the window's argmax is a step function of the distances: a
+    pixel whose logits read a feature position where either run's
+    aggregation had a near-tie (the two largest distances within 1e-4
+    relative, where rounding may flip the pick, as in the kernel checks) is
+    excused from both bars, and the count printed."""
+    from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
+        resize_bilinear
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import \
+        resize_bilinear_rt
+
+    def up_exact(i):
+        logits, size, _ = exact[i]
+        return resize_bilinear(logits.float(), size)[0]
+
+    def up_bucketed(i):
+        logits, pad, fv, (h, w), _ = bucketed[i]
+        return resize_bilinear_rt(logits.float(), pad, fv, (h, w))[
+            0, :, :h, :w]
+
+    def touched(i):
+        """Pixels whose logits read a near-tie feature position of window
+        i, and the number of such positions."""
+        tie_e, size = exact[i][2], exact[i][1]
+        if tie_e is None:
+            return None, 0
+        fh, fw = tie_e.shape[-2:]
+        tie = tie_e | bucketed[i][4][..., :fh, :fw]
+        up = resize_bilinear(tie[:, None].float(), size)[0, 0] > 0
+        return up, int(tie.sum().item())
+
+    n = len(exact)
+    if len(bucketed) != n or n != len(exact_pngs):
+        raise SystemExit(f"{path}: captured {n} exact and {len(bucketed)} "
+                         f"bucketed windows for {len(exact_pngs)} frames")
+    tol = 1e-3 * max(up_exact(i).abs().max().item() for i in range(n))
+    err, diff, excused, ties, tie_pixels = 0.0, 0, 0, 0, 0
+    for i in range(n):
+        e, b = up_exact(i), up_bucketed(i)
+        gap = (b - e).abs().amax(0)
+        top = e.topk(2, dim=0).values
+        near = top[0] - top[1] < tol
+        skip, n_ties = touched(i)
+        if skip is not None:
+            gap = gap[~skip]
+            near |= skip
+            ties += n_ties
+            tie_pixels += int(skip.sum().item())
+        if gap.numel():
+            err = max(err, gap.max().item())
+        differ = exact_pngs[i] != bucket_pngs[i]
+        diff += int(differ.sum())
+        excused += int((differ & near.cpu().numpy()).sum())
+    pixels = n * exact_pngs[0].size
+    tie_text = (f"; {ties} near-tie feature positions, {tie_pixels} pixels "
+                "reading them excused" if exact[0][2] is not None else "")
+    print(f"{path} bucketed vs exact window eval: logits on the valid region "
+          f"max |diff| {err:.3e} (limit {tol:.3e}, 1e-3 of the largest exact "
+          f"logit); PNGs differ at {diff} of {pixels} pixels, {excused} of "
+          f"them excused (exact top-2 margin below the limit){tie_text}")
+    if not (err <= tol and diff == excused):
+        raise SystemExit(f"{path}: bucketed window eval disagrees with exact")
+    return {"logit_err": err, "logit_tol": tol, "pixels_differ": diff,
+            "pixels_excused": excused, "near_tie_positions": ties,
+            "near_tie_pixels": tie_pixels}
+
+
 #: every key of the bench's rows (cvpr2021_vspw_implement_tpu_torch/bench.py)
 BENCH_KEYS = (
     "value", "mfu", "metric", "unit", "stream4_frames_per_sec",
@@ -1001,8 +1228,11 @@ BENCH_KEYS = (
     "baseline_frames_per_sec", "vs_baseline", "baseline_mfu",
     "train_step_ms", "train_step_single_readback_ms", "train_mfu",
     "train_peak_mem_gib", "etc_train_step_ms", "etc_train_mfu",
-    "etc_windows_per_sec", "etc_mfu", "our_warp_windows_per_sec",
-    "our_warp_mfu", "tc_ms_per_pair", "tc_bucketed_ms_per_pair", "tc_mfu",
+    "etc_windows_per_sec", "etc_mfu", "etc_bucketed_windows_per_sec",
+    "our_warp_windows_per_sec", "our_warp_mfu",
+    "our_warp_bucketed_windows_per_sec", "propnet_windows_per_sec",
+    "propnet_mfu", "our_warp_merge_windows_per_sec", "our_warp_merge_mfu",
+    "tc_ms_per_pair", "tc_bucketed_ms_per_pair", "tc_mfu",
     "host_decode_frames_per_sec", "spreads_pct", "device", "power_limit_w",
     "peak_tflops_f32", "dtype", "not_ported")
 #: the bench's times and rates, each finite and positive
@@ -1010,19 +1240,24 @@ BENCH_TIMES = (
     "value", "stream4_frames_per_sec", "stream_bucketed_frames_per_sec",
     "baseline_frames_per_sec", "vs_baseline", "train_step_ms",
     "train_step_single_readback_ms", "etc_train_step_ms",
-    "etc_windows_per_sec", "our_warp_windows_per_sec", "tc_ms_per_pair",
-    "tc_bucketed_ms_per_pair", "host_decode_frames_per_sec")
+    "etc_windows_per_sec", "etc_bucketed_windows_per_sec",
+    "our_warp_windows_per_sec", "our_warp_bucketed_windows_per_sec",
+    "propnet_windows_per_sec", "our_warp_merge_windows_per_sec",
+    "tc_ms_per_pair", "tc_bucketed_ms_per_pair",
+    "host_decode_frames_per_sec")
 BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu", "etc_mfu",
-              "our_warp_mfu", "tc_mfu")
+              "our_warp_mfu", "propnet_mfu", "our_warp_merge_mfu", "tc_mfu")
 
 
-def check_bench(out, per_frame, per_pair, iters):
+def check_bench(out, per_frame, per_pair, iters, per_window):
     """The bench's result on the card: every key; every time and rate
     finite and positive; every ``mfu`` in (0, 1]; and each row's kernel
     launches in a trial as its loop implies: a bucketed frame ``per_frame``
     B6 launches, an ETC step ``iters`` each of B1, B2 and B3, an our_warp
-    window 3 of B5 (sigmoid), a TC pair ``iters`` of B1 and twice that of
-    B4 (and bucketed ``per_pair`` of B6); no other launch."""
+    window 3 of B5 (sigmoid), an our_warp_merge window 1, a bucketed
+    window ``per_window`` (by path) of B6, a TC pair ``iters`` of B1 and
+    twice that of B4 (and bucketed ``per_pair`` of B6); no other
+    launch."""
     missing = [k for k in BENCH_KEYS if k not in out]
     bad = [k for k in BENCH_TIMES
            if not (math.isfinite(out[k]) and out[k] > 0)]
@@ -1030,10 +1265,15 @@ def check_bench(out, per_frame, per_pair, iters):
                                           and 0 < out[k] <= 1)]
     n = out["counts"]
     tc = {"corr_lookup": iters * n["pairs"], "sep_gru": 2 * iters * n["pairs"]}
+    m = n["windows"]
     want = {"stream_bucketed": {"band_zero": per_frame * n["frames"]},
             "etc_train": {k: iters * n["etc_train_steps"] for k in (
                 "corr_lookup", "motion_encoder", "gru_flowhead")},
-            "our_warp": {"local_sigmoid_aggregate": 3 * n["windows"]},
+            "etc_bucketed": {"band_zero": per_window["etc_eval"] * m},
+            "our_warp": {"local_sigmoid_aggregate": 3 * m},
+            "our_warp_bucketed": {"local_sigmoid_aggregate": 3 * m,
+                                  "band_zero": per_window["our_warp"] * m},
+            "our_warp_merge": {"local_sigmoid_aggregate": m},
             "tc": tc,
             "tc_bucketed": {**tc, "band_zero": per_pair * n["pairs"]}}
     wrong = {row: got for row, got in out["launches"].items()
@@ -1091,13 +1331,16 @@ def clip_warp_agreement(torch):
     nearest) or 0.3 (softmax): the match then weighs far more than the rest
     of its window.  Each context frame's aggregation, on the CPU's
     embeddings, within 1e-4 of its largest value (nearest: equal off
-    near-ties); logits within 1e-4 of their range."""
+    near-ties); logits within 1e-4 of their range, at exact shapes and
+    width-bucketed (the frames cut to 120x176 in the 128x192 bucket; the
+    valid region)."""
     from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
     from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
     from cvpr2021_vspw_implement_tpu_torch.models.warp_our import (
         ClipWarpNet, warp_one_scale)
     from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import \
         local_pairwise_dist
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import pad_to
 
     g = torch.Generator().manual_seed(6)
     base = torch.randn(1, 3, 128, 192, generator=g)
@@ -1145,10 +1388,19 @@ def clip_warp_agreement(torch):
         else:
             agg = (f"max |diff| / max |plain| = {err:.3e} (largest over mean "
                    f"window weight, quantiles 0.1/0.5/0.9: {spread})")
+        # width-bucketed: the frames cut to 120x176 and padded back to
+        # 128x192 (the 64-column bucket): features 16x24, 15x22 valid
+        padded = pad_to(imgs[..., :120, :176], (128, 192))
+        with torch.inference_mode():
+            gpu = model(padded.cuda(), valid_hw=(120, 176))[0].cpu()
+            cpu = model.cpu()(padded, valid_hw=(120, 176))[0]
+        gpu, cpu = gpu[..., :15, :22], cpu[..., :15, :22]
+        rel_b = ((cpu - gpu).abs().max() / (cpu.max() - cpu.min())).item()
         print(f"ClipWarpNet ({mode}): aggregations kernel vs plain on the "
               f"model's embeddings, {agg}; logits card vs CPU, max |diff| / "
-              f"range = {rel:.3e} (limits 1e-4)")
-        if not (err <= 1e-4 and rel <= 1e-4):
+              f"range = {rel:.3e}, bucketed (120x176 in 128x192, on the "
+              f"valid region) {rel_b:.3e} (limits 1e-4)")
+        if not (err <= 1e-4 and rel <= 1e-4 and rel_b <= 1e-4):
             raise SystemExit(f"ClipWarpNet ({mode}) on the card disagrees "
                              "with the CPU")
 
@@ -1519,43 +1771,55 @@ def main() -> int:
           f"{iters} x {per_iter:.3f} = {iters * per_iter:.1f} ms (each timed "
           "at 2x60x60)")
 
-    # the window eval path: our_warp in its three modes (the main video for
-    # the default mode, a 5-frame one for the other two), then ETC
-    short_root = os.path.join(work, "vspw_short")
-    make_synthetic_vspw(short_root, 1, 5, hw, k, seed=2)
-    window_counts = {}
-    for path, flags, root_v, n_v in (
-            ("our_warp", [], root, n_frames),
-            ("our_warp_softmax", ["--distsoftmax", "true"], short_root, 5),
-            ("our_warp_nearest", ["--distnearest", "true"], short_root, 5),
-            ("etc_eval", ["--clip_num", "2"], short_root, 5)):
-        method = "ETC" if path == "etc_eval" else "our_warp"
-        out_dir = os.path.join(work, "preds_" + path)
-        reset()
-        t0 = time.perf_counter()
-        m, _ = test_clip.main([
-            "--cfg", preset, "--dataroot", root_v, "--num_class", str(k),
-            "--method", method, *flags, "--vc_clip_num", "4",
-            "--width_bucket", "0", "--is_save", "--saveroot", out_dir,
-            "--seed", "0"])
-        secs = time.perf_counter() - t0
-        window_counts[path] = c = counts()
-        print(f"{path} window eval (R101, 480x853, {n_v} frames): "
-              f"{1e3 * secs / n_v:.1f} ms/frame including the first frame "
-              f"and model set-up; per window (evaluate_clip's frame times: "
-              f"decode, forward, argmax) {m['first_frame_ms']:.1f} ms for "
-              f"the first, then {m['frame_ms']:.1f} ms; mIoU "
-              f"{m['mIoU']:.6f} VC {m['VC']:.6f}; kernel launches {c}")
-        mode = {"our_warp": "sigmoid", "our_warp_softmax": "softmax",
-                "our_warp_nearest": "nearest"}.get(path)
-        for name, n in c.items():
-            want = 3 * n_v if name == f"local_{mode}_aggregate" else 0
-            if n != want:
-                raise SystemExit(f"{name}: {n} launches on the {path} path, "
-                                 f"expected {want}")
-        check_pngs(os.path.join(out_dir, "video_000"), n_v)
-        if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
-            raise SystemExit(f"{path}: non-finite metric")
+    # the window eval path over the 10-frame video, each method exact
+    # (--width_bucket 0) then at the CLI's default, bucketed in 480x896:
+    # our_warp in its three modes, ETC, propnet and our_warp_merge
+    per_window = window_band_launches(torch)
+    window_counts, window_checks = {}, {}
+    for path, method, flags, b5 in WINDOW_PATHS:
+        mode = {"our_warp_softmax": "softmax",
+                "our_warp_nearest": "nearest"}.get(path, "sigmoid")
+        runs = {}
+        for bucket in (0, 64):
+            name = path + ("_bucketed" if bucket else "")
+            out_dir = os.path.join(work, "preds_" + name)
+            captured = []
+            saved = capture_window_logits(test_clip, captured)
+            reset()
+            t0 = time.perf_counter()
+            try:
+                m, _ = test_clip.main([
+                    "--cfg", preset, "--dataroot", root, "--num_class",
+                    str(k), "--method", method, *flags, "--width_bucket",
+                    str(bucket), "--is_save", "--saveroot", out_dir,
+                    "--seed", "0"])
+            finally:
+                restore_window_heads(test_clip, saved)
+            secs = time.perf_counter() - t0
+            window_counts[name] = c = counts()
+            print(f"{name} window eval (R101, 480x853"
+                  + (" in the 480x896 bucket" if bucket else "")
+                  + f", {n_frames} frames), host clock: "
+                  f"{1e3 * secs / n_frames:.1f} ms/frame including the first "
+                  f"frame and model set-up; per window (evaluate_clip's frame "
+                  f"times: decode, forward, argmax) {m['first_frame_ms']:.1f} "
+                  f"ms for the first, then {m['frame_ms']:.1f} ms; mIoU "
+                  f"{m['mIoU']:.6f} VC {m['VC']:.6f}; kernel launches {c}")
+            want = {f"local_{mode}_aggregate": b5 * n_frames,
+                    "band_zero": per_window[path] * n_frames if bucket else 0}
+            for kname, n in c.items():
+                if n != want.get(kname, 0):
+                    raise SystemExit(f"{kname}: {n} launches on the {name} "
+                                     f"path, expected {want.get(kname, 0)}")
+            check_pngs(os.path.join(out_dir, "video_000"), n_frames)
+            if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
+                raise SystemExit(f"{name}: non-finite metric")
+            runs[bucket] = (captured, pngs(out_dir), m)
+        window_checks[path] = window_bucket_check(
+            torch, path, runs[0][0], runs[64][0], runs[0][1], runs[64][1])
+        window_checks[path]["host_ms_per_window"] = {
+            "exact": runs[0][2]["frame_ms"], "bucketed": runs[64][2]["frame_ms"]}
+        del runs
 
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
@@ -1565,7 +1829,7 @@ def main() -> int:
     bench_counts = counts()
     print(f"bench --quick: {time.perf_counter() - t0:.1f} s; kernel launches "
           f"{bench_counts}")
-    check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS)
+    check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS, per_window)
 
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
@@ -1580,6 +1844,18 @@ def main() -> int:
                              "path")
     # the lookup's two shapes: 1x60x107 on the TC path, 2x60x60 in ETC
     rows[0]["also_at"][0]["launches"] = etc_counts["corr_lookup"]
+    # B5's other shapes: their launches on the window CLI paths (the
+    # bench's are in the row's total only)
+    for row in rows:
+        for a in row.get("also_at", ()) if row["name"].startswith(
+                "local_") else ():
+            merge, bucket = a["shape"].startswith("merge"), "valid" in a[
+                "shape"]
+            a["launches"] = sum(
+                window_counts[p + ("_bucketed" if bucket else "")][
+                    row["name"]]
+                for p, method, _, _ in WINDOW_PATHS
+                if (method == "our_warp_merge") == merge)
 
     # "shape" says where ms, bound and error were taken,
     # "also_at" holds the same numbers at a path's other shape, or (one
@@ -1588,6 +1864,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "also_at", "rel_err",
             "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches",
+            "crop_gap", "crop_bitwise", "band_nonzero", "crop_ms",
             "two_slice_zero_ms", "profiler_ms", "enqueue_ms",
             "library_profiler_ms", "library_enqueue_ms",
             "two_slice_zero_profiler_ms", "two_slice_zero_enqueue_ms")
@@ -1622,6 +1899,7 @@ def main() -> int:
           f"(first reading {rows[0]['ms']:.4f} and "
           f"{rows[0]['plain_ms']:.4f}); clocks {clocks_last}")
     print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check,
+                      "window_bucketed_vs_exact": window_checks,
                       "tc_check": tc_check,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,

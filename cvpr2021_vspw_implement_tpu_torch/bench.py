@@ -27,9 +27,18 @@ made on the device before the clock starts.  The rows:
   with one synchronise (the step returns detached 0-d tensors), and one
   step with its own readback; ``etc_train_*`` the same for ETC (2 frames,
   RAFT at 20 refinements: B1, B2, B3);
-* ``etc_windows_per_sec``, ``our_warp_windows_per_sec``: the window forward
-  of ``test_clip --method ETC`` / ``our_warp`` (clip_num 4, r = 10,
-  sigmoid: B5) over M windows;
+* ``etc_windows_per_sec``, ``our_warp_windows_per_sec``,
+  ``propnet_windows_per_sec``, ``our_warp_merge_windows_per_sec``: the
+  window forward of ``test_clip --method ETC`` / ``our_warp`` /
+  ``propnet`` / ``our_warp_merge`` (``test_clip.window_pred``: the model,
+  upsample and argmax; ETC 2 frames, the others clip_num 4 and r = 10,
+  sigmoid: our_warp 3 B5 a window, our_warp_merge 1) over M windows at
+  exact shapes; ``etc_bucketed_windows_per_sec`` and
+  ``our_warp_bucketed_windows_per_sec`` the same in the 480x896 bucket as
+  the CLI's default runs it (the window padded in the step, as
+  ``stream_bucketed`` pads its frame; the masked model: B6, and B5 with the
+  valid size 60x107 on the 60x112 grid).  The JAX bench has no
+  ``our_warp_bucketed`` row: that key is the port's own;
 * ``tc_ms_per_pair``, ``tc_bucketed_ms_per_pair``: ``tc_cal.run_pair`` over
   P pairs, RAFT at 20 refinements with the flow head scaled by 0.1 (a
   trained-like step, as chip_smoke.py's TC), exact (B1, B4) and bucketed
@@ -45,7 +54,10 @@ its time and the card's f32 peak outside the tensor cores (the port
 computes in f32): the PyTorch ops of one step counted by ``FlopCounterMode``
 and each hand-written kernel's launches by its wrapper's own count
 (``ops/*.py``: the kernels launch through ``ctypes``, out of the counter's
-sight), times the steps.  A card not in ``PEAK_F32_FLOPS`` is refused; on
+sight; B5 over the padded grid when bucketed), times the steps.  The
+counter counts products and convolutions, not elementwise ops: propnet's
+window distances, elementwise in the plain formulation, are outside its
+``mfu``.  A card not in ``PEAK_F32_FLOPS`` is refused; on
 the CPU the ``mfu`` fields are null and the times are the host clock's.
 ``flops`` gives each row's operations in one trial and ``launches`` its
 kernel launches, from the wrappers' counters.  A row that fails fails the
@@ -65,16 +77,18 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from . import tc_cal
+from . import tc_cal, test_clip
 from .config import cfg as default_cfg
 from .data import load_frame, make_synthetic_vspw, normalize_image
 from .models.clip_psp import ClipPSP, clip_psp_loss
 from .models.etc import ETC, etc_loss
+from .models.propnet import PropNet
 from .models.layers import init_weights, set_dropout_generator
 from .models.raft import RAFT
 from .models.resnet import build_encoder
 from .models.segmentation import inference_pred, inference_pred_rt
 from .models.warp_our import ClipWarpNet
+from .models.warp_our_merge import OurWarpMerge
 from .ops import local_agg
 from .ops.band_zero import band_zero
 from .ops.corr_lookup import lookup_corr_pyramid
@@ -115,11 +129,9 @@ NOT_PORTED = [
     "tdnet_bucketed_frames_per_sec", "netwarp_train_step_ms",
     "netwarp_train_mfu", "netwarp_stream_frames_per_sec",
     "netwarp_stream_mfu", "netwarp_stream_bucketed_frames_per_sec",
-    "propnet_windows_per_sec", "propnet_mfu",
-    "our_warp_merge_windows_per_sec", "our_warp_merge_mfu",
     "nonlocal3d_windows_per_sec", "nonlocal3d_mfu",
     "eval_policy_exact_mix_fps", "eval_policy_bucketed_mix_fps",
-    "etc_bucketed_windows_per_sec", "train_b4_ms_per_2_samples",
+    "train_b4_ms_per_2_samples",
     "ocr_head_ms", "host_cores_to_saturate_chip",
 ]
 
@@ -254,16 +266,16 @@ def stream_rows(model, fc_dim: int, conf, counts, device, gen, out):
         del frames, prev
 
 
-def window_row(model, t1: int, conf, counts, device, gen):
+def window_row(model, t1: int, conf, counts, device, gen, bucket: int = 0):
     """The window forward of ``test_clip._windows`` over M windows of t1
-    frames, target last: the model, then upsample and argmax."""
+    frames, target last: the model, then upsample and argmax; with
+    ``bucket`` padded to the bucket and masked, as the CLI's default."""
     h, w = conf["hw"]
     n = counts["windows"]
     windows = torch.randn(n, t1, 1, 3, h, w, device=device, generator=gen)
 
-    @torch.inference_mode()
     def step(i):
-        return _checksum(inference_pred(model(windows[i]), (h, w)))
+        return _checksum(test_clip.window_pred(model, windows[i], bucket))
 
     row = Row(device, step, n).measure()
     row["per_second"] = n / row["seconds"]
@@ -412,13 +424,22 @@ def run(args) -> dict:
                                    conf, device, gen, single=False)["chained"]
     free()
     rows["etc_windows"] = window_row(etc.eval(), 2, conf, counts, device, gen)
+    rows["etc_bucketed"] = window_row(etc, 2, conf, counts, device, gen,
+                                      WIDTH_BUCKET)
     del etc
     free()
     warp = _model(ClipWarpNet, cfg, k, device, clip_num=4,
                   max_distances=(10,)).eval()
     rows["our_warp"] = window_row(warp, 4, conf, counts, device, gen)
+    rows["our_warp_bucketed"] = window_row(warp, 4, conf, counts, device, gen,
+                                           WIDTH_BUCKET)
     del warp
     free()
+    for row, cls in (("propnet", PropNet), ("our_warp_merge", OurWarpMerge)):
+        model = _model(cls, cfg, k, device).eval()
+        rows[row] = window_row(model, 4, conf, counts, device, gen)
+        del model
+        free()
     rows.update(tc_rows(conf, counts, device, gen))
     free()
     host = host_decode_row(conf, counts)
@@ -465,8 +486,16 @@ def run(args) -> dict:
         "etc_train_mfu": mfu(rows["etc_train"]),
         "etc_windows_per_sec": rows["etc_windows"]["per_second"],
         "etc_mfu": mfu(rows["etc_windows"]),
+        "etc_bucketed_windows_per_sec": rows["etc_bucketed"]["per_second"],
         "our_warp_windows_per_sec": rows["our_warp"]["per_second"],
         "our_warp_mfu": mfu(rows["our_warp"]),
+        "our_warp_bucketed_windows_per_sec":
+            rows["our_warp_bucketed"]["per_second"],
+        "propnet_windows_per_sec": rows["propnet"]["per_second"],
+        "propnet_mfu": mfu(rows["propnet"]),
+        "our_warp_merge_windows_per_sec":
+            rows["our_warp_merge"]["per_second"],
+        "our_warp_merge_mfu": mfu(rows["our_warp_merge"]),
         "tc_ms_per_pair": 1e3 * rows["tc"]["seconds"] / counts["pairs"],
         "tc_bucketed_ms_per_pair":
             1e3 * rows["tc_bucketed"]["seconds"] / counts["pairs"],

@@ -55,9 +55,9 @@ SIGNATURES = {
         "band_zero_f32": [_P] + [_I] * 5 + [_P],
     },
     "local_agg": {
-        "local_sigmoid_agg_f32": [_P] * 4 + [_I] * 6 + [_P],
-        "local_softmax_agg_f32": [_P] * 4 + [_I] * 6 + [_F, _P],
-        "local_nearest_agg_f32": [_P] * 4 + [_I] * 6 + [_P],
+        "local_sigmoid_agg_f32": [_P] * 4 + [_I] * 8 + [_P],
+        "local_softmax_agg_f32": [_P] * 4 + [_I] * 8 + [_F, _P],
+        "local_nearest_agg_f32": [_P] * 4 + [_I] * 8 + [_P],
     },
 }
 

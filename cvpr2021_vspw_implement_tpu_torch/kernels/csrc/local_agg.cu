@@ -19,6 +19,17 @@
 // Layout: x, y_dist [B, Cd, H, W], y_val and out [B, Cv, H, W], all NCHW
 // contiguous, as the warping head's convolutions produce them.
 //
+// Valid size.  Width-bucketed eval pads the feature maps bottom/right and
+// passes the true size (Hv, Wv) <= (H, W) beside them: the kernel computes
+// the Hv x Wv image in the buffer's top-left corner, whose rows and planes
+// keep the buffer's strides.  Key rows and columns at or beyond the valid
+// size are out of image, as they are beyond the edge of an unpadded map,
+// and the outputs beyond it are written as zeros (a NaN there would reach
+// the valid region through the bilinear resize's matrix product).  A block
+// keeps its tile origins, and no arithmetic of a valid position depends on
+// (H, W), so the valid region equals bit for bit the launch on the
+// contiguous Hv x Wv crop.  (Hv, Wv) = (H, W) is the unpadded kernel.
+//
 // Bound on this card: operations.  At our_warp's eval shape (B = 1, 60x107
 // = 6420 positions, Cd 128, Cv 256, r = 10, k^2 = 441) the distances take
 // 6420 * 441 * 128 * 2 = 0.72 GFLOP and the aggregation 1.45 GFLOP: 0.013
@@ -119,6 +130,7 @@ enum Mode { kSigmoid = 0, kSoftmax = 1, kNearest = 2 };
 
 struct Shape {
   int Cd, Cv, H, W, r;
+  int Hv, Wv;   // the valid size inside the H x W buffer
   int cd_pad;   // Cd rounded up to kSub: kQ quarters of 32-channel K steps
   int tr;       // query rows of a block
   int n_chunks;
@@ -154,6 +166,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                      const Shape s) {
   extern __shared__ __align__(16) float smem[];
   const int Cd = s.Cd, Cv = s.Cv, H = s.H, W = s.W, r = s.r;
+  const int Hv = s.Hv, Wv = s.Wv;
   const int k = 2 * r + 1;
   const int TR = s.tr, cd_pad = s.cd_pad;
   const int nthreads = blockDim.x, tid = threadIdx.x;
@@ -165,6 +178,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const float* const xb = x + (int64_t)b * Cd * plane;
   const float* const ydb = yd + (int64_t)b * Cd * plane;
   const float* const yvb = yv + (int64_t)b * Cv * plane;
+
+  // a tile wholly beyond the valid size: zeros, its chunk's channels
+  if (w0 >= Wv || h0 >= Hv) {
+    const int nc = kMode == kNearest ? Cv : min(Cv - c0v, kChunk);
+    for (int e = tid; e < nc * TR * kTileW; e += nthreads) {
+      const int hq = h0 + e / kTileW % TR, wq = w0 + e % kTileW;
+      const int c = c0v + e / (kTileW * TR);
+      if (hq < H && wq < W)
+        out[(int64_t)(b * Cv + c) * plane + (int64_t)hq * W + wq] = 0.0f;
+    }
+    return;
+  }
 
   // shared memory: the x tile, the y_dist stage (two for nearest), the
   // y_val stage, and each warp's exchange with the others of its m-tile
@@ -178,14 +203,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   // the key rows staged: the halo's rows inside the image, each in nsub
   // y_dist steps of kSub channels
-  const int ky0 = max(0, h0 - r), ky1 = min(H - 1, h0 + TR - 1 + r);
+  const int ky0 = max(0, h0 - r), ky1 = min(Hv - 1, h0 + TR - 1 + r);
   const int nsub = (cd_pad + kSub - 1) / kSub;
   const int steps = (ky1 - ky0 + 1) * nsub;
 
   // copies: one key column (64 a row) a thread, every cstep-th channel row
   // from crow; the x tile one position (32 a row)
   const int col = tid % kSeg, gw = w0 - r + col;
-  const bool col_in = gw >= 0 && gw < W;
+  const bool col_in = gw >= 0 && gw < Wv;
   const int crow = tid / kSeg, cstep = nthreads / kSeg;
   const auto load_yd = [&](int stage, int step) {
     const int hy = ky0 + step / nsub, sub = step % nsub;
@@ -211,7 +236,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   {
     const int xc = tid % kTileW, xrow = tid / kTileW, xstep = nthreads / kTileW;
     for (int t = 0; t < TR; ++t) {
-      const bool ok = h0 + t < H && w0 + xc < W;
+      const bool ok = h0 + t < Hv && w0 + xc < Wv;
       const float* const src = xb + (ok ? (int64_t)(h0 + t) * W + w0 + xc : 0);
       for (int c = xrow; c < cd_pad; c += xstep)
         cp_async4(smem_addr(xs + (t * cd_pad + c) * kLDX + xc),
@@ -232,7 +257,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int group = warp / kQ, h = warp % kQ, ro = h % 2;
   const int t = group / 2, i = group % 2;
   const int hq = h0 + t;
-  const bool q_ok = hq < H;
+  const bool q_ok = hq < Hv;  // a query row of the image
   const int p0 = 16 * i + 2 * gid;
   const float* const xw = xs + t * cd_pad * kLDX + p0;
   float* const my_xch = xch + warp * kXch + lane;
@@ -271,7 +296,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // Softmax and nearest take them in dy order: the rows above before the
   // staged ones, those below after them.
   const int n_above = q_ok ? max(0, r - hq) : 0;
-  const int n_below = q_ok ? max(0, hq + r - (H - 1)) : 0;
+  const int n_below = q_ok ? max(0, hq + r - (Hv - 1)) : 0;
   if (n_above > 0) {
     if (kMode == kSoftmax) {
 #pragma unroll
@@ -406,7 +431,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         const int key = 16 * i + 8 * n + 2 * tig + e;
         const float y2 = __shfl_sync(kFull, y2g, 4 * (2 * tig + e));
         const int kx = w0 - r + key;
-        const float y2v = kx >= 0 && kx < W ? y2 : kOutOfImage;
+        const float y2v = kx >= 0 && kx < Wv ? y2 : kOutOfImage;
         const float d = (x2ro + y2v) - 2.0f * dot[n][e];
         const int dx = key - (p0 + ro);
         const bool band = active && dx >= 0 && dx <= 2 * r;
@@ -563,7 +588,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const float d = x2ro + kOutOfImage;
       if (d > best) {  // the first row below the image, dx = 0
         best = d;
-        best_at = (H - hq + r) * k;
+        best_at = (Hv - hq + r) * k;
       }
     }
   }
@@ -573,9 +598,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     int* const chosen = reinterpret_cast<int*>(xs) + group * 16;
     if (h < 2 && tig == 0) chosen[2 * gid + ro] = best_at;
     group_sync(group);
-    if (!q_ok) return;
+    if (hq >= H) return;
     // the group gathers its 16 positions' values, each warp a quarter of
-    // the channels
+    // the channels; zeros beyond the valid size
 #pragma unroll 4
     for (int e = lane; e < 16 * ((Cv + kQ - 1 - h) / kQ); e += 32) {
       const int q = e % 16, c = kQ * (e / 16) + h;
@@ -583,13 +608,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (wq >= W) continue;
       const int hy = hq + chosen[q] / k - r;
       const int wx = wq + chosen[q] % k - r;
-      const bool in = hy >= 0 && hy < H && wx >= 0 && wx < W;
+      const bool in = q_ok && wq < Wv && hy >= 0 && hy < Hv && wx >= 0 &&
+                      wx < Wv;
       out[(int64_t)(b * Cv + c) * plane + (int64_t)hq * W + wq] =
           in ? yvb[c * plane + (int64_t)hy * W + wx] : 0.0f;
     }
     return;
   }
-  if (!q_ok) return;
+  if (hq >= H) return;
   const float kk = (float)(k * k);
 #pragma unroll
   for (int jn = 0; jn < kNT; ++jn)
@@ -600,17 +626,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const int c = c0v + kWarpCv * h + 8 * jn + 2 * tig + e % 2;
       if (wq < W && c < Cv)
         out[(int64_t)(b * Cv + c) * plane + (int64_t)hq * W + wq] =
-            (kMode == kSoftmax ? acc[jn][e] / run_sum[ro] : acc[jn][e]) / kk;
+            q_ok && wq < Wv ? (kMode == kSoftmax ? acc[jn][e] / run_sum[ro]
+                                                 : acc[jn][e]) /
+                                  kk
+                            : 0.0f;
     }
 }
 
 template <int kMode>
 int launch(const void* x, const void* yd, const void* yv, void* out, int B,
-           int Cd, int Cv, int H, int W, int r, float temp, void* stream) {
+           int Cd, int Cv, int H, int W, int Hv, int Wv, int r, float temp,
+           void* stream) {
   if (B < 1 || Cd < 1 || Cd > kMaxCd || Cv < 1 || H < 1 || W < 1 || r < 0 ||
-      r > kMaxR)
+      r > kMaxR || Hv < 1 || Hv > H || Wv < 1 || Wv > W)
     return (int)cudaErrorInvalidValue;
-  Shape s{Cd, Cv, H, W, r, (Cd + kSub - 1) / kSub * kSub, 0, 0, temp};
+  Shape s{Cd, Cv, H, W, r, Hv, Wv, (Cd + kSub - 1) / kSub * kSub, 0, 0, temp};
   s.tr = s.cd_pad <= kSub ? 2 : 1;
   s.n_chunks = kMode == kNearest ? 1 : (Cv + kChunk - 1) / kChunk;
   const int threads = 32 * kQ * 2 * s.tr;
@@ -639,27 +669,29 @@ int launch(const void* x, const void* yd, const void* yv, void* out, int B,
 }  // namespace
 
 // Each returns cudaGetLastError() after its launch (0 on success), or
-// cudaErrorInvalidValue outside r <= 15, Cd <= 256.
+// cudaErrorInvalidValue outside r <= 15, Cd <= 256, 1 <= Hv <= H,
+// 1 <= Wv <= W.
 extern "C" int local_sigmoid_agg_f32(const void* x, const void* y_dist,
                                      const void* y_val, void* out, int B,
-                                     int Cd, int Cv, int H, int W, int r,
-                                     void* stream) {
-  return launch<kSigmoid>(x, y_dist, y_val, out, B, Cd, Cv, H, W, r, 0.0f,
-                          stream);
+                                     int Cd, int Cv, int H, int W, int Hv,
+                                     int Wv, int r, void* stream) {
+  return launch<kSigmoid>(x, y_dist, y_val, out, B, Cd, Cv, H, W, Hv, Wv, r,
+                          0.0f, stream);
 }
 
 extern "C" int local_softmax_agg_f32(const void* x, const void* y_dist,
                                      const void* y_val, void* out, int B,
-                                     int Cd, int Cv, int H, int W, int r,
-                                     float temp, void* stream) {
-  return launch<kSoftmax>(x, y_dist, y_val, out, B, Cd, Cv, H, W, r, temp,
-                          stream);
+                                     int Cd, int Cv, int H, int W, int Hv,
+                                     int Wv, int r, float temp,
+                                     void* stream) {
+  return launch<kSoftmax>(x, y_dist, y_val, out, B, Cd, Cv, H, W, Hv, Wv, r,
+                          temp, stream);
 }
 
 extern "C" int local_nearest_agg_f32(const void* x, const void* y_dist,
                                      const void* y_val, void* out, int B,
-                                     int Cd, int Cv, int H, int W, int r,
-                                     void* stream) {
-  return launch<kNearest>(x, y_dist, y_val, out, B, Cd, Cv, H, W, r, 0.0f,
-                          stream);
+                                     int Cd, int Cv, int H, int W, int Hv,
+                                     int Wv, int r, void* stream) {
+  return launch<kNearest>(x, y_dist, y_val, out, B, Cd, Cv, H, W, Hv, Wv, r,
+                          0.0f, stream);
 }

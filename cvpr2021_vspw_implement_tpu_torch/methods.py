@@ -4,8 +4,9 @@ train_clip2.py:264-321).
 
 Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
 -> outputs`` convention and a loss ``(outputs, batch) -> (loss, acc)``.
-Ported so far: ``clip_psp`` and ``ETC`` (train and eval) and ``our_warp``
-(eval only: its loss is None, and the trainer refuses it).
+Ported so far: ``clip_psp`` and ``ETC`` (train and eval), and
+``our_warp``, ``propnet`` and ``our_warp_merge`` (eval only: their loss is
+None, and the trainer refuses them).
 """
 
 from __future__ import annotations
@@ -41,8 +42,21 @@ def _build_our_warp(cfg, args):
     return build_clip_warp(cfg, args.num_class, args), None
 
 
+def _build_propnet(cfg, args):
+    from .models.propnet import build_propnet
+    return build_propnet(cfg, args.num_class, args), None
+
+
+def _build_warp_merge(cfg, args):
+    from .models.warp_our_merge import build_warp_merge
+    return build_warp_merge(cfg, args.num_class, args), None
+
+
 METHODS = {"clip_psp": _build_clip_psp, "ETC": _build_etc,
-           "our_warp": _build_our_warp}
+           "our_warp": _build_our_warp, "propnet": _build_propnet,
+           "our_warp_merge": _build_warp_merge}
+#: methods whose eval alone is ported
+EVAL_ONLY_METHODS = ("our_warp", "propnet", "our_warp_merge")
 
 
 def get_collate(method: str, clip_num: int):

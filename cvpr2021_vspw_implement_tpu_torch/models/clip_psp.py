@@ -22,10 +22,10 @@ from torch import nn
 
 from ..ops.interpolate import resize_bilinear
 from ..ops.masked import (adaptive_avg_pool2d_rt, feature_valid,
-                          global_avg_pool_rt, mask_valid, masked_trunk,
-                          resize_bilinear_rt)
+                          global_avg_pool_rt, mask_valid, masked_trunk)
 from ..ops.pooling import adaptive_avg_pool2d, global_avg_pool
 from ..utils.metrics import pixel_acc
+from .decoders import pyramid_concat
 from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
 from .resnet import build_encoder
 from .segmentation import upsampled_logprob_loss_projected
@@ -46,17 +46,8 @@ class PPMConv(nn.Module):
             Conv(512, num_class, 1))
 
     def forward(self, target_c5, blended, feat_valid=None):
-        size = target_c5.shape[-2:]
-        if feat_valid is None:
-            out = [target_c5] + [resize_bilinear(m(f), size)
-                                 for m, f in zip(self.ppm, blended)]
-        else:
-            # width-bucketed: the pyramid is resized onto the valid region
-            # and the concat is zero on the band, so the fuse conv is exact
-            out = [mask_valid(target_c5, feat_valid)] + [
-                resize_bilinear_rt(m(f), size, f.shape[-2:], feat_valid)
-                for m, f in zip(self.ppm, blended)]
-        return self.conv_last_(torch.cat(out, 1))
+        return self.conv_last_(pyramid_concat(
+            target_c5, [m(f) for m, f in zip(self.ppm, blended)], feat_valid))
 
 
 class ClipPSP(nn.Module):

@@ -1,12 +1,16 @@
 """PPM decoder pieces of the temporal heads (JAX counterpart:
-models/decoders.py ``PPMPyramid``, ``PPMLastConv``, ``PPMDeepsupClip``;
-reference models/models.py:889-1044).
+models/decoders.py ``PPMPyramid``, ``PPMLastConv``, ``PPMDeepsupClip``,
+``PPMClip``; reference models/models.py:889-1083).
 
 Decoders return raw logits; log_softmax and NLL are in the loss
 (segmentation.py).  Module names are the reference's (``ppm.{i}.1/2``,
 ``conv_last_.0/1/4``, ``cbr_deepsup.0/1``, ``conv_last_deepsup_``), so a
 ``state_dict()`` reads back through the JAX package's
 ``import_ppm_decoder_state_dict``.
+
+Width-bucketed eval (``valid_hw``, ops/masked.py): the pyramid pools C5's
+valid region and resizes each branch onto it, and the concat is zero on the
+band, so the 3x3 conv after it is exact on the valid region.
 """
 
 from __future__ import annotations
@@ -15,7 +19,22 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_bilinear
+from ..ops.masked import adaptive_avg_pool2d_rt, mask_valid, resize_bilinear_rt
 from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
+
+
+def pyramid_concat(conv5, branches, feat_valid=None):
+    """cat([conv5, branches resized to conv5's grid]) along channels.  With
+    ``feat_valid`` (conv5's valid size) conv5's band is re-zeroed in place
+    and each branch is resized onto the valid region, zero beyond it: the
+    concat is the unpadded run's there and zero on the band."""
+    size = conv5.shape[-2:]
+    if feat_valid is None:
+        return torch.cat([conv5] + [resize_bilinear(p, size)
+                                    for p in branches], 1)
+    return torch.cat([mask_valid(conv5, feat_valid)] + [
+        resize_bilinear_rt(p, size, p.shape[-2:], feat_valid)
+        for p in branches], 1)
 
 
 class PPMPyramid(nn.ModuleList):
@@ -29,10 +48,14 @@ class PPMPyramid(nn.ModuleList):
                           BatchNorm2d(512), nn.ReLU(inplace=True))
             for scale in pool_scales)
 
-    def forward(self, conv5):
-        size = conv5.shape[-2:]
-        return torch.cat([conv5] + [resize_bilinear(branch(conv5), size)
-                                    for branch in self], 1)
+    def forward(self, conv5, valid_hw=None):
+        """``valid_hw``: conv5's valid size in width-bucketed eval."""
+        if valid_hw is None:
+            return pyramid_concat(conv5, [branch(conv5) for branch in self])
+        return pyramid_concat(conv5, [
+            branch[1:](adaptive_avg_pool2d_rt(conv5, branch[0].output_size,
+                                              valid_hw))
+            for branch in self], valid_hw)
 
 
 class PPMLastConv(nn.Sequential):
@@ -62,10 +85,27 @@ class PPMDeepsupClip(nn.Module):
         self.dropout_deepsup = Dropout2d(0.1)
         self.conv_last_deepsup_ = Conv(fc_dim // 4, num_class, 1)
 
-    def forward(self, conv_out):
-        ppm_out = self.ppm(conv_out[-1])
+    def forward(self, conv_out, valid_hw=None):
+        """``valid_hw``: C5's valid size in width-bucketed eval."""
+        ppm_out = self.ppm(conv_out[-1], valid_hw)
         emb = self.conv_last_(ppm_out)
         if not self.training:
             return None, emb, ppm_out
         d = self.dropout_deepsup(self.cbr_deepsup(conv_out[-2]))
         return self.conv_last_deepsup_(d), emb, ppm_out
+
+
+class PPMClip(nn.Module):
+    """PPM embedding head without classifier (reference
+    models/models.py:1046-1083): the 512-d embedding.  The reference builds
+    ``cbr_deepsup`` and never uses it; it is kept so that a reference
+    ``state_dict`` loads (the JAX importer drops it)."""
+
+    def __init__(self, fc_dim: int = 4096, pool_scales=(1, 2, 3, 6)):
+        super().__init__()
+        self.ppm = PPMPyramid(fc_dim, pool_scales)
+        self.conv_last_ = PPMLastConv(None, fc_dim + len(pool_scales) * 512)
+        self.cbr_deepsup = ConvBNReLU(fc_dim // 2, fc_dim // 4)
+
+    def forward(self, conv_out, valid_hw=None):
+        return self.conv_last_(self.ppm(conv_out[-1], valid_hw))

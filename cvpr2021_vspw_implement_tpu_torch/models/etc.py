@@ -20,6 +20,7 @@ from torch import nn
 
 from ..data.datasets import MEAN, STD
 from ..ops.interpolate import resize_bilinear, resize_nearest
+from ..ops.masked import masked_encode
 from ..ops.warp import flowwarp
 from ..utils.metrics import pixel_acc
 from .decoders import PPMDeepsupClip, PPMLastConv
@@ -54,14 +55,21 @@ class ETC(nn.Module):
         self.raft.eval()
         return self
 
-    def forward(self, imgs):
+    def forward(self, imgs, valid_hw=None):
         """imgs [2, B, 3, H, W], [prev, target].  Training mode: a dict of
         ``pred_t``, ``pred_p`` [B, K, h, w], ``deepsup`` [2B, K, h, w]
         (target then prev) and ``flow`` [B, 2, H, W]; eval mode: (logits of
-        imgs[-1],)."""
+        imgs[-1],).
+
+        ``valid_hw``: the true (rows, cols) of width-bucketed zero-padded
+        ``imgs`` (eval only, under inference mode): the masked trunk, each
+        level re-zeroed, the decoder on C5's valid region; its concat is
+        zero on the band, so ``conv_last_``'s 3x3 is exact (JAX
+        models/etc.py:64-86)."""
         target = imgs[-1]
         if not self.training:
-            _, _, ppm_out = self.decoder(self.encoder(target))
+            conv_out, fv = masked_encode(self.encoder, target, valid_hw)
+            _, _, ppm_out = self.decoder(conv_out, fv)
             return (self.conv_last_(ppm_out),)
 
         prev = imgs[0]

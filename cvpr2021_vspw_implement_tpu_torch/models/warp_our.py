@@ -25,23 +25,31 @@ from torch import nn
 
 from ..ops.local_agg import (local_nearest_aggregate, local_sigmoid_aggregate,
                              local_softmax_aggregate)
+from ..ops.masked import feature_mask, mask_valid, masked_encode
 from .decoders import PPMDeepsupClip
 from .layers import Conv, ConvBNReLU, Dropout2d
 from .resnet import build_encoder
 
-TRAINING_NOT_PORTED = ("training of our_warp needs B5's backward, not "
-                       "ported yet")
+
+def training_not_ported(method: str) -> str:
+    """The refusal of the eval-only window methods' training."""
+    return (f"training of {method} is not ported yet: it follows B5's "
+            "backward (ROADMAP Queue A item 3)")
 
 
 def warp_one_scale(target_e2, e2, es, r: int, distsoftmax: bool = False,
-                   distnearest: bool = False, temp: float = 3.0):
+                   distnearest: bool = False, temp: float = 3.0,
+                   valid_hw=None):
     """One (scale, context frame) aggregation (reference:
-    warp_our.py:131-160): the kernel wrapper of the mode."""
+    warp_our.py:131-160): the kernel wrapper of the mode, over the feature
+    valid size ``valid_hw`` when width-bucketed."""
     if distsoftmax:
-        return local_softmax_aggregate(target_e2, e2, es, r, temp=temp)
+        return local_softmax_aggregate(target_e2, e2, es, r, temp=temp,
+                                       valid_hw=valid_hw)
     if distnearest:
-        return local_nearest_aggregate(target_e2, e2, es, r)
-    return local_sigmoid_aggregate(target_e2, e2, es, r)
+        return local_nearest_aggregate(target_e2, e2, es, r,
+                                       valid_hw=valid_hw)
+    return local_sigmoid_aggregate(target_e2, e2, es, r, valid_hw=valid_hw)
 
 
 class WarpNet(nn.Module):
@@ -67,17 +75,28 @@ class WarpNet(nn.Module):
         self.last_layer = nn.Sequential(Dropout2d(0.1),
                                         Conv(emb_dim, num_class, 1))
 
-    def forward(self, clip_embs, t1: int):
+    def forward(self, clip_embs, t1: int, feat_valid=None):
         """clip_embs [t1*B, 512, h, w], target frame LAST group → (logits
-        [B, K, h, w], emb2 [t1*B, fc_dim, h, w])."""
-        emb2 = self.emb_2(clip_embs)
+        [B, K, h, w], emb2 [t1*B, fc_dim, h, w]).
+
+        ``feat_valid``: the valid (rows, cols) of the features in
+        width-bucketed eval: every spatial conv re-zeroes its input's band
+        (the feature grid is the padded grid), both embeddings are
+        re-zeroed, and B5 takes the valid size (the JAX package takes its
+        XLA formulation there; the function is the same)."""
+        with feature_mask(self, feat_valid, clip_embs.shape[-2:]):
+            emb2 = self.emb_2(clip_embs)
+            emb = self.emb(clip_embs)
+        if feat_valid is not None:
+            mask_valid(emb2, feat_valid)
+            mask_valid(emb, feat_valid)
         e2 = emb2.unflatten(0, (t1, -1))
-        es = self.emb(clip_embs).unflatten(0, (t1, -1))
+        es = emb.unflatten(0, (t1, -1))
         final = [es[-1]]
         for f in range(t1 - 1):
             per_scale = [warp_one_scale(e2[-1], e2[f], es[f], r,
                                         self.distsoftmax, self.distnearest,
-                                        self.temp)
+                                        self.temp, feat_valid)
                          for r in self.max_distances]
             final.append(torch.stack(per_scale, 0).mean(0))
         if self.linear_combine:
@@ -105,13 +124,20 @@ class ClipWarpNet(nn.Module):
         self.last_layer = nn.Sequential(Dropout2d(0.1),
                                         Conv(128, num_class, 1))
 
-    def forward(self, imgs):
-        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],)."""
+    def forward(self, imgs, valid_hw=None):
+        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],).
+
+        ``valid_hw``: the true (rows, cols) of width-bucketed zero-padded
+        ``imgs`` (under inference mode): the masked trunk, each level
+        re-zeroed, the decoder on C5's valid region, the head masked at
+        the feature level (JAX models/warp_our.py:147-213)."""
         if self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
+            raise NotImplementedError(training_not_ported("our_warp"))
         t1 = imgs.shape[0]
-        _, clip_embs, _ = self.decoder(self.encoder(imgs.flatten(0, 1)))
-        pred, _ = self.prop_clip(clip_embs, t1)
+        conv_out, fv = masked_encode(self.encoder, imgs.flatten(0, 1),
+                                     valid_hw)
+        _, clip_embs, _ = self.decoder(conv_out, fv)
+        pred, _ = self.prop_clip(clip_embs, t1, fv)
         return (pred,)
 
 

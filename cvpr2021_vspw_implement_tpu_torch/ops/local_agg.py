@@ -16,6 +16,13 @@ ops/local_pairwise.py (|y|^2 = 1e20 and y = 0 outside the image):
   out-of-image position wins and gives 0), first occurrence in (dy, dx)
   order.
 
+``valid_hw`` (every function): the true (rows, cols) of the maps inside a
+width-bucketed buffer [.., H, W].  Positions at or beyond it are out of
+image, as beyond the edge of an unpadded map (ops/local_pairwise.py), and
+the output is zero there; on the valid region the result is the unpadded
+run's.  The JAX package takes its XLA formulation when masked; the kernel
+takes the valid size at run time.
+
 A CPU tensor takes the plain version; a CUDA tensor launches
 ``kernels/csrc/local_agg.cu`` (the distances' dot products and the weighted
 sum on the tensor cores at f32 accuracy: 3xTF32).
@@ -27,7 +34,7 @@ import torch
 
 from .. import kernels
 from .local_pairwise import (local_pairwise_dist, local_weighted_aggregate,
-                             local_window_gather)
+                             local_window_gather, valid_region)
 
 #: limits of the kernels' shared-memory staging and register tiles
 #: (local_agg.cu)
@@ -35,28 +42,38 @@ MAX_RADIUS = 15
 MAX_DIST_CHANNELS = 256
 
 
-def local_sigmoid_aggregate_plain(x, y_dist, y_val, r: int):
+def _zero_band(t: torch.Tensor, valid_hw) -> torch.Tensor:
+    """``t`` with zeros beyond ``valid_hw`` (a new tensor), or ``t``."""
+    if valid_hw is None:
+        return t
+    return torch.where(valid_region(t, valid_hw), t, 0.0)
+
+
+def local_sigmoid_aggregate_plain(x, y_dist, y_val, r: int, valid_hw=None):
     k = 2 * r + 1
-    dist = local_pairwise_dist(x, y_dist, r)
+    dist = local_pairwise_dist(x, y_dist, r, valid_hw)
     wts = 1.0 - (torch.sigmoid(dist) - 0.5) * 2.0
-    return local_weighted_aggregate(y_val, wts, r) / (k * k)
+    out = local_weighted_aggregate(_zero_band(y_val, valid_hw), wts, r)
+    return _zero_band(out / (k * k), valid_hw)
 
 
 def local_softmax_aggregate_plain(x, y_dist, y_val, r: int,
-                                  temp: float = 3.0):
+                                  temp: float = 3.0, valid_hw=None):
     k = 2 * r + 1
-    flat = local_pairwise_dist(x, y_dist, r).flatten(1, 2)   # [B, k*k, H, W]
+    flat = local_pairwise_dist(x, y_dist, r, valid_hw).flatten(1, 2)
     wts = torch.softmax(1.0 / (flat * temp + 1e-5), dim=1)
-    return local_weighted_aggregate(y_val, wts.unflatten(1, (k, k)),
-                                    r) / (k * k)
+    out = local_weighted_aggregate(_zero_band(y_val, valid_hw),
+                                   wts.unflatten(1, (k, k)), r)
+    return _zero_band(out / (k * k), valid_hw)
 
 
-def local_nearest_aggregate_plain(x, y_dist, y_val, r: int):
-    idx = torch.argmax(local_pairwise_dist(x, y_dist, r).flatten(1, 2),
-                       dim=1)                                 # [B, H, W]
-    windows = local_window_gather(y_val, r).flatten(2, 3)    # [B, C, k*k, H, W]
+def local_nearest_aggregate_plain(x, y_dist, y_val, r: int, valid_hw=None):
+    idx = torch.argmax(local_pairwise_dist(x, y_dist, r, valid_hw)
+                       .flatten(1, 2), dim=1)                 # [B, H, W]
+    windows = local_window_gather(_zero_band(y_val, valid_hw),
+                                  r).flatten(2, 3)           # [B, C, k*k, H, W]
     idx = idx[:, None, None].expand(-1, windows.shape[1], 1, -1, -1)
-    return torch.gather(windows, 2, idx)[:, :, 0]
+    return _zero_band(torch.gather(windows, 2, idx)[:, :, 0], valid_hw)
 
 
 def local_aggregate_flops(mode: str, b: int, h: int, w: int, cd: int,
@@ -68,7 +85,21 @@ def local_aggregate_flops(mode: str, b: int, h: int, w: int, cd: int,
     return 2 * b * h * w * (2 * r + 1) ** 2 * channels
 
 
-def _launch(fn, mode: str, x, y_dist, y_val, r: int, *extra):
+def _valid_size(fn, x, valid_hw) -> tuple[int, int]:
+    """(Hv, Wv) of a call: ``valid_hw``, or the whole grid; raises unless
+    1 <= Hv <= H and 1 <= Wv <= W."""
+    h, w = x.shape[-2:]
+    if valid_hw is None:
+        return h, w
+    hv, wv = (int(v) for v in valid_hw)
+    if not (1 <= hv <= h and 1 <= wv <= w):
+        raise ValueError(f"{fn.__name__}: valid size {hv}x{wv} outside the "
+                         f"{h}x{w} grid")
+    return hv, wv
+
+
+def _launch(fn, mode: str, x, y_dist, y_val, r: int, hv: int, wv: int,
+            *extra):
     if x.device.type != "cuda":
         raise RuntimeError(f"no {fn.__name__} for device {x.device}")
     b, cd, h, w = x.shape
@@ -81,37 +112,45 @@ def _launch(fn, mode: str, x, y_dist, y_val, r: int, *extra):
         raise ValueError(f"{fn.__name__}: the kernel takes 0 <= r <= "
                          f"{MAX_RADIUS} and 1 <= Cd <= {MAX_DIST_CHANNELS}")
     kernels.check_inputs(fn.__name__, (x, y_dist, y_val))
+    # the kernel writes every element, zeros beyond the valid size
     out = torch.empty(b, cv, h, w, device=x.device)
     entry = f"local_{mode}_agg_f32"
     kernels.check(kernels.entry(entry)(
         x.data_ptr(), y_dist.data_ptr(), y_val.data_ptr(), out.data_ptr(),
-        b, cd, cv, h, w, r, *extra,
+        b, cd, cv, h, w, hv, wv, r, *extra,
         kernels.stream(x.get_device())), entry)
     fn.launches += 1
     fn.flops += local_aggregate_flops(mode, b, h, w, cd, cv, r)
     return out
 
 
-def local_sigmoid_aggregate(x, y_dist, y_val, r: int):
+def local_sigmoid_aggregate(x, y_dist, y_val, r: int, valid_hw=None):
     """Sigmoid-weighted window mean (the default mode of our_warp)."""
+    hv, wv = _valid_size(local_sigmoid_aggregate, x, valid_hw)
     if x.device.type == "cpu":
-        return local_sigmoid_aggregate_plain(x, y_dist, y_val, r)
-    return _launch(local_sigmoid_aggregate, "sigmoid", x, y_dist, y_val, r)
+        return local_sigmoid_aggregate_plain(x, y_dist, y_val, r, valid_hw)
+    return _launch(local_sigmoid_aggregate, "sigmoid", x, y_dist, y_val, r,
+                   hv, wv)
 
 
-def local_softmax_aggregate(x, y_dist, y_val, r: int, temp: float = 3.0):
+def local_softmax_aggregate(x, y_dist, y_val, r: int, temp: float = 3.0,
+                            valid_hw=None):
     """Inverse-distance softmax window aggregation (``--distsoftmax``)."""
+    hv, wv = _valid_size(local_softmax_aggregate, x, valid_hw)
     if x.device.type == "cpu":
-        return local_softmax_aggregate_plain(x, y_dist, y_val, r, temp)
+        return local_softmax_aggregate_plain(x, y_dist, y_val, r, temp,
+                                             valid_hw)
     return _launch(local_softmax_aggregate, "softmax", x, y_dist, y_val, r,
-                   float(temp))
+                   hv, wv, float(temp))
 
 
-def local_nearest_aggregate(x, y_dist, y_val, r: int):
+def local_nearest_aggregate(x, y_dist, y_val, r: int, valid_hw=None):
     """y_val at the window's argmax distance (``--distnearest``)."""
+    hv, wv = _valid_size(local_nearest_aggregate, x, valid_hw)
     if x.device.type == "cpu":
-        return local_nearest_aggregate_plain(x, y_dist, y_val, r)
-    return _launch(local_nearest_aggregate, "nearest", x, y_dist, y_val, r)
+        return local_nearest_aggregate_plain(x, y_dist, y_val, r, valid_hw)
+    return _launch(local_nearest_aggregate, "nearest", x, y_dist, y_val, r,
+                   hv, wv)
 
 
 #: each kernel's launches, and their f32 operations

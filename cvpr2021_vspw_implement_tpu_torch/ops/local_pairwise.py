@@ -22,14 +22,32 @@ import torch.nn.functional as F
 OUT_OF_IMAGE = 1e20
 
 
-def local_pairwise_dist(x: torch.Tensor, y: torch.Tensor,
-                        r: int) -> torch.Tensor:
-    """x, y [B, C, H, W] → dist [B, k, k, H, W] (float32)."""
+def valid_region(t: torch.Tensor, valid_hw) -> torch.Tensor:
+    """[H, W] bool mask of the top-left ``valid_hw`` of ``t``'s grid."""
+    inside = torch.zeros(t.shape[-2:], dtype=torch.bool, device=t.device)
+    inside[:int(valid_hw[0]), :int(valid_hw[1])] = True
+    return inside
+
+
+def local_pairwise_dist(x: torch.Tensor, y: torch.Tensor, r: int,
+                        valid_hw=None) -> torch.Tensor:
+    """x, y [B, C, H, W] → dist [B, k, k, H, W] (float32).
+
+    ``valid_hw``: the true (rows, cols) of the maps inside a width-bucketed
+    buffer.  Positions of y at or beyond it get y = 0 and |y|^2 = 1e20, as
+    the unpadded run treats positions beyond its edge, so the distances on
+    the valid region are the unpadded run's (the argmax order that
+    ``distnearest`` relies on included)."""
     b, _, h, w = x.shape
     k = 2 * r + 1
     xf, yf = x.float(), y.float()
+    if valid_hw is not None:
+        inside = valid_region(y, valid_hw)
+        yf = torch.where(inside, yf, 0.0)
     x2 = xf.square().sum(1)                                   # [B, H, W]
     y2 = yf.square().sum(1)
+    if valid_hw is not None:
+        y2 = torch.where(inside, y2, OUT_OF_IMAGE)
     y_pad = F.pad(yf, (r, r, r, r))
     y2_pad = F.pad(y2, (r, r, r, r), value=OUT_OF_IMAGE)
     rows = []

@@ -217,14 +217,16 @@ def _mask_input_hook(_module, args):
 
 
 @contextlib.contextmanager
-def masked_trunk(module: nn.Module, valid_hw, pad_hw):
-    """Run ``module`` width-bucketed: for the length of the context every
-    ``nn.Conv2d`` of it whose kernel is larger than 1x1 re-zeros its input's
-    band (a forward pre-hook, in place), and :func:`current_mask` is set for
-    the bare spatial functions.  The counterpart of the JAX package's
-    ``masked_trunk`` (flax ``intercept_methods``)."""
+def masked_trunk(module, valid_hw, pad_hw):
+    """Run ``module`` (a module or a sequence of them) width-bucketed: for
+    the length of the context every ``nn.Conv2d`` of it whose kernel is
+    larger than 1x1 re-zeros its input's band (a forward pre-hook, in
+    place), and :func:`current_mask` is set for the bare spatial functions.
+    The counterpart of the JAX package's ``masked_trunk`` (flax
+    ``intercept_methods``)."""
+    modules = [module] if isinstance(module, nn.Module) else module
     handles = [m.register_forward_pre_hook(_mask_input_hook)
-               for m in module.modules()
+               for mod in modules for m in mod.modules()
                if isinstance(m, nn.Conv2d) and _spatial(m)]
     try:
         with mask_context(valid_hw, pad_hw):
@@ -232,3 +234,29 @@ def masked_trunk(module: nn.Module, valid_hw, pad_hw):
     finally:
         for hd in handles:
             hd.remove()
+
+
+def masked_encode(encoder: nn.Module, x: torch.Tensor, valid_hw=None):
+    """``encoder(x)`` width-bucketed (eval only, under inference mode): the
+    trunk under :func:`masked_trunk`, then every level's band re-zeroed
+    (the JAX window models' masked trunk).  Returns (levels, the feature
+    valid size of the last level); (levels, None) at exact shapes, when
+    ``valid_hw`` is None."""
+    if valid_hw is None:
+        return encoder(x), None
+    pad_hw = x.shape[-2:]
+    with masked_trunk(encoder, valid_hw, pad_hw):
+        levels = encoder(x)
+    levels = [mask_valid(lv, feature_valid(*lv.shape[-2:], valid_hw, pad_hw))
+              for lv in levels]
+    return levels, feature_valid(*levels[-1].shape[-2:], valid_hw, pad_hw)
+
+
+def feature_mask(module, feat_valid, feat_hw):
+    """:func:`masked_trunk` of a head whose spatial convs all sit on one
+    feature grid ``feat_hw`` (the padded grid is the feature grid, so the
+    valid size is ``feat_valid`` itself); nothing when ``feat_valid`` is
+    None."""
+    if feat_valid is None:
+        return contextlib.nullcontext()
+    return masked_trunk(module, feat_valid, feat_hw)

@@ -7,11 +7,13 @@ frame is padded to its bucket (``--width_bucket 64``; heights to the stride
 32) and the masked model takes its true size (ops/masked.py).
 ``--eval_policy exact`` runs every frame at its own shape, and ``auto`` runs
 a shape exactly where the val list holds at least ``--exact_min_frames`` of
-its frames (the JAX CLI's policy and defaults).  ``--method our_warp`` and
-``--method ETC`` take the window path at exact shapes only, and need
-``--width_bucket 0``: per eval frame, its centred ``clip_num``
-neighbourhood (``TestClipDataset``) and the frame itself, target last, go
-through the model at once.  Global and per-video mIoU, VC, and optional
+its frames (the JAX CLI's policy and defaults).  ``--method our_warp``,
+``ETC``, ``propnet`` and ``our_warp_merge`` take the window path: per eval
+frame, its centred ``clip_num`` neighbourhood (``TestClipDataset``) and the
+frame itself, target last, go through the model at once, padded to the
+frame's bucket with its true size beside it unless ``--width_bucket 0``
+(``--eval_policy`` governs the streaming engines only, as in the JAX CLI).
+Global and per-video mIoU, VC, and optional
 palette PNG dumps (``--is_save``).  Flags keep the JAX CLI's names.
 ``--load`` takes a port checkpoint (``torch.save`` of the model's
 ``state_dict``, or the trainer's ``model_epoch_N.pth``); without it the
@@ -19,8 +21,7 @@ weights are a seeded random init.
 
     python -m cvpr2021_vspw_implement_tpu_torch.test_clip \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup_clip.yaml \\
-        --dataroot DATA --num_class 124 --method our_warp --width_bucket 0 \
-        --device cpu
+        --dataroot DATA --num_class 124 --method our_warp --device cpu
 """
 
 from __future__ import annotations
@@ -40,14 +41,15 @@ from .config.args import postprocess_args
 from .data import TestClipDataset, TestFrameDataset, list_videos
 from .methods import build_method
 from .models.layers import init_weights
-from .models.segmentation import inference_pred
+from .models.segmentation import inference_pred, inference_pred_rt
+from .ops.masked import bucket_hw, feature_valid, pad_to
 from .serving import (ClipPSPBucketEngine, ClipPSPStreamer,
                       ExactShapeEngine, video_shape_census)
 from .utils import (Evaluator, get_common, resolve_device, setup_logger,
                     vspw_palette)
 
 #: methods whose eval is ported: clip_psp streams, the others take windows
-EVAL_METHODS = ("clip_psp", "our_warp", "ETC")
+EVAL_METHODS = ("clip_psp", "our_warp", "ETC", "propnet", "our_warp_merge")
 
 
 def _bool(s: str) -> bool:
@@ -86,7 +88,7 @@ def build_eval_clip_parser():
                    help="pad eval frame widths to multiples of this "
                         "(heights to the stride, 32) and run the masked "
                         "model at the true size (ops/masked.py); 0 = exact "
-                        "shapes.  clip_psp only: the window methods need 0")
+                        "shapes")
     p.add_argument("--eval_policy", choices=("bucketed", "exact", "auto"),
                    default="bucketed",
                    help="clip_psp streaming: 'bucketed' pads to the width "
@@ -124,7 +126,21 @@ def _stream_clip_psp(model, ds, dilation2, device, engine=None):
 
 
 @torch.inference_mode()
-def _windows(model, ds, device):
+def window_pred(model, imgs, bucket: int = 0):
+    """The prediction [B, H, W] of a window imgs [T, B, 3, H, W], target
+    last: at its shape, or with ``bucket`` padded to its bucket and the
+    masked model given its true size, its logits' valid region resized to
+    (H, W) and cropped (JAX test_clip.py:266-357)."""
+    h, w = imgs.shape[-2:]
+    if not bucket:
+        return inference_pred(model(imgs), (h, w))
+    pad_hw = bucket_hw(h, w, bucket)
+    logits = model(pad_to(imgs, pad_hw), valid_hw=(h, w))[0]
+    fv = feature_valid(*logits.shape[-2:], (h, w), pad_hw)
+    return inference_pred_rt(logits, pad_hw, fv, (h, w))[:, :h, :w]
+
+
+def _windows(model, ds, device, bucket: int = 0):
     """(index, prediction, label, PNG name) of every frame of ``ds``: its
     context window and itself, target last, through the model at once (JAX
     test_clip.py:566-602)."""
@@ -133,7 +149,7 @@ def _windows(model, ds, device):
         imgs = np.stack(clips + [img])[:, None]           # [T, 1, H, W, 3]
         imgs = torch.from_numpy(np.ascontiguousarray(
             imgs.transpose(0, 1, 4, 2, 3))).to(device)   # [T, 1, 3, H, W]
-        pred = inference_pred(model(imgs), imgs.shape[-2:])
+        pred = window_pred(model, imgs, bucket)
         yield i, pred[0].cpu().numpy(), gt, name
 
 
@@ -147,11 +163,6 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     # the trainer's validation passes its own args: exact shapes there
     bucket = getattr(args, "width_bucket", 0)
     policy = getattr(args, "eval_policy", "bucketed")
-    if bucket and not streaming:
-        raise ValueError(
-            f"--method {args.method} runs exact shapes only: pass "
-            "--width_bucket 0 (bucketing of the window path, with a runtime "
-            "valid size in the B5 kernel, is ROADMAP Queue A item 2)")
     if model is None:
         model = build_model(cfg, args, device)
     if streaming:
@@ -191,7 +202,7 @@ def evaluate_clip(cfg, args, model=None, logger=None):
             preds = _stream_clip_psp(model, ds, dilation2, device, eng)
         else:
             ds = TestClipDataset(args.dataroot, video, args)
-            preds = _windows(model, ds, device)
+            preds = _windows(model, ds, device, bucket)
         eval_video = Evaluator(args.num_class)
         gt_list, pred_list = [None] * len(ds), [None] * len(ds)
         t = time.perf_counter()

@@ -24,7 +24,7 @@ on both sides, f32 on the CPU:
     equal to those), ``tc_cal --width_bucket 64``
     the JAX TC within 1e-3 (random RAFT weights: a nearest warp can move a
     label where the flow sits within rounding of a half pixel), and the
-    window methods refuse a non-zero ``--width_bucket``.
+    window methods at the default bucket give their exact-shape PNGs.
 """
 
 import argparse
@@ -436,8 +436,20 @@ def test_tc_cal_bucketed_matches_jax(two_widths, raft, monkeypatch):
     assert abs(tc_port - tc_jax) <= 1e-3
 
 
-@pytest.mark.parametrize("method", ["our_warp", "ETC"])
-def test_window_methods_refuse_a_bucket(tmp_path, method):
-    with pytest.raises(ValueError, match="--width_bucket 0"):
-        test_clip.main(["--cfg", PRESET, "--dataroot", str(tmp_path),
-                        "--method", method, "--device", "cpu"])
+@pytest.mark.parametrize("method,flags", [
+    ("our_warp", []), ("ETC", ["--clip_num", "2"]), ("propnet", []),
+    ("our_warp_merge", [])])
+def test_window_methods_bucketed_give_exact_pngs(two_widths, method, flags):
+    """The window methods run bucketed at the CLI's default bucket (both
+    videos in 64x128) and give the PNGs of ``--width_bucket 0``."""
+    root, _, _, tmp = two_widths
+    outs = {}
+    for bucket in ("64", "0"):
+        out = str(tmp / f"{method}_{bucket}")
+        test_clip.main([
+            "--cfg", PRESET, "--dataroot", root, "--num_class", str(K),
+            "--method", method, *flags, "--max_distances", "2", "--is_save",
+            "--saveroot", out, "--width_bucket", bucket, "--device", "cpu"])
+        outs[bucket] = out
+    for video in ("video_000", "video_001"):
+        _assert_same_pngs(outs["64"], outs["0"], video)

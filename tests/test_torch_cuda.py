@@ -17,8 +17,10 @@ element, and at most 1e-4 of the largest output overall, on the near-match
 inputs of ``local_agg_inputs``, whose window weights are far from uniform
 and whose softmax scores stay far from the pole of 1 / (dist * temp +
 1e-5)); nearest must pick the same value except where the two largest
-in-image window distances lie within 1e-4 relative.  The band re-zero (B6)
-only stores zeros: bitwise equal.
+in-image window distances lie within 1e-4 relative.  With a valid size B5
+writes zeros beyond it and its valid region is bitwise the launch on the
+contiguous crop (no arithmetic of a valid position depends on the buffer's
+size).  The band re-zero (B6) only stores zeros: bitwise equal.
 """
 
 import os
@@ -414,6 +416,84 @@ def test_local_agg_kernel_matches_float64(cuda_device, mode):
     keep = ~_near_ties(x, yd, r)[:, None].expand_as(got)
     torch.testing.assert_close(got[keep].double(), want[keep], rtol=0,
                                atol=0)
+
+
+def _check_local_agg_valid(mode, x, yd, yv, r, hv, wv):
+    """B5 with a valid size: within the bars of its plain version (the band
+    zero on both), zero beyond the valid size, and on the valid region
+    bitwise the launch on the contiguous crop."""
+    fn = getattr(local_agg, f"local_{mode}_aggregate")
+    before = fn.launches
+    got = fn(x, yd, yv, r, valid_hw=(hv, wv))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert not got[..., hv:, :].any() and not got[..., :hv, wv:].any()
+    want = getattr(local_agg, f"local_{mode}_aggregate_plain")(
+        x, yd, yv, r, valid_hw=(hv, wv))
+    if mode != "nearest":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    else:
+        dist = local_pairwise_dist(x, yd, r, (hv, wv)).flatten(1, 2)
+        top = torch.topk(dist, 2, dim=1).values
+        tie = (top[:, 0] < 1e19) & (top[:, 0] - top[:, 1]
+                                    <= 1e-4 * top[:, 0].abs())
+        keep = ~tie[:, None].expand_as(got)
+        torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=0)
+    crop = [t[..., :hv, :wv].contiguous() for t in (x, yd, yv)]
+    assert torch.equal(got[..., :hv, :wv], fn(*crop, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,hv,wv,r", [
+    (37, 80, 30, 80, 4),      # rows only
+    (37, 80, 37, 61, 4),      # columns only, 61 not a multiple of 32
+    (37, 80, 30, 45, 10),     # both
+    (37, 80, 5, 3, 10),       # a valid region smaller than a window
+    (60, 112, 60, 107, 10),   # our_warp's bucket at 480x853
+    (60, 160, 57, 100, 10)])  # column tiles wholly beyond the valid size
+@pytest.mark.parametrize("mode", MODES)
+def test_local_agg_kernel_valid_size(cuda_device, mode, h, w, hv, wv, r):
+    x, yd, yv = _local_agg_case(cuda_device, 11 + hv, 2 if h == 37 else 1,
+                                h, w)
+    _check_local_agg_valid(mode, x, yd, yv, r, hv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_local_agg_kernel_whole_grid_is_unpadded(cuda_device, mode):
+    """(Hv, Wv) = (H, W) is bitwise the call without a valid size."""
+    x, yd, yv = _local_agg_case(cuda_device, 13, 1, 60, 107)
+    fn = getattr(local_agg, f"local_{mode}_aggregate")
+    assert torch.equal(fn(x, yd, yv, 10, valid_hw=(60, 107)),
+                       fn(x, yd, yv, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [(61, 107), (60, 113), (0, 107),
+                                   (60, 0)])
+def test_local_agg_kernel_refuses_a_valid_size_outside(cuda_device, valid):
+    x, yd, yv = _local_agg_case(cuda_device, 14, 1, 60, 107)
+    for mode in MODES:
+        fn = getattr(local_agg, f"local_{mode}_aggregate")
+        before = fn.launches
+        with pytest.raises(ValueError, match="outside the"):
+            fn(x, yd, yv, 10, valid_hw=valid)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [None, (60, 107)])
+@pytest.mark.parametrize("mode", MODES)
+def test_local_agg_kernel_merge_shape(cuda_device, mode, valid):
+    """our_warp_merge's warp: 256-d C4 embeddings for the distances, 256-d
+    values, exact (60x107) and bucketed (60x112, valid 60x107)."""
+    w = 107 if valid is None else 112
+    x, yd, yv = _local_agg_case(cuda_device, 15, 1, 60, w, cd=256, cv=256)
+    if valid is None:
+        _check_local_agg(mode, x, yd, yv, 10)
+    else:
+        _check_local_agg_valid(mode, x, yd, yv, 10, *valid)
 
 
 @pytest.mark.cuda

@@ -74,7 +74,8 @@ def test_port_imports_no_jax():
             "parallel/train_state.py", "data/loader.py", "config/args.py",
             "utils/checkpoint.py", "ops/motion_encoder.py",
             "ops/gru_flowhead.py", "ops/local_pairwise.py",
-            "ops/local_agg.py", "models/warp_our.py", "ops/masked.py",
+            "ops/local_agg.py", "models/warp_our.py", "models/propnet.py",
+            "models/warp_our_merge.py", "ops/masked.py",
             "ops/band_zero.py", "serving.py", "bench.py", "../chip_smoke.py",
             "../tools/torch_step_profile.py",
             "../tools/torch_bucket_profile.py",

@@ -205,3 +205,20 @@ def tf32_products(conv, inp, w, passes: int):
         return conv(ih, wh)
     il, wl = tf32_round(inp - ih), tf32_round(w - wh)
     return conv(il, wh) + conv(ih, wl) + conv(ih, wh)
+
+
+@torch.no_grad()
+def perturb_port_batchnorm(model: torch.nn.Module, seed: int):
+    """Give every BatchNorm of a port model random scale, bias, mean and
+    var (the port-side counterpart of :func:`perturb_batchnorm`); returns
+    the model."""
+    rng = np.random.default_rng(seed)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            n = m.num_features
+            for t, v in ((m.running_mean, rng.normal(0, 0.1, n)),
+                         (m.running_var, rng.uniform(0.5, 1.5, n)),
+                         (m.weight, rng.uniform(0.5, 1.5, n)),
+                         (m.bias, rng.normal(0, 0.1, n))):
+                t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return model
