@@ -14,6 +14,10 @@
    128-d distances, 256-d values, r = 10, and in the bucket, 60x112 with
    the valid size 60x107 (also against the launch on the crop, and its band
    zero); sigmoid at our_warp_merge's 256-d distances, exact and bucketed;
+   B5's backward, ``local_agg_bwd.cu``, at the training shape 2x60x60, r =
+   10: sigmoid, softmax and nearest at Cd 128, sigmoid at Cd 256, against
+   the plain backward, timed beside ``.backward()`` through the unfold
+   formulation;
    the band re-zero: R101 features
    and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
    and a no-band case, bitwise)
@@ -46,7 +50,11 @@
    c. the clip trainer (``train_clip``) on synthetic 480x853 videos, the same
       R101 preset, crop 479, batch 2: ``--method clip_psp`` (4 frames,
       offsets 3,6,9), then ``--method ETC`` (2 frames, RAFT at 20
-      refinements), four steps each;
+      refinements), four steps each; then the window methods' training,
+      four steps each at clip_num 4, r = 10: ``--method our_warp`` with
+      ``--allsup``, with ``--distsoftmax`` and with ``--distnearest`` (3 B5
+      forward and 3 backward launches a step), ``--method our_warp_merge``
+      (1 and 1, 256-d distances) and ``--method propnet`` (none);
    d. the window eval path over the 10-frame video, seeded random R101
       models, clip_num 4, max_distances 10: ``test_clip --method our_warp``
       in each mode (sigmoid, ``--distsoftmax``, ``--distnearest``; B5 3
@@ -64,8 +72,9 @@
       implies;
 5. checks the outputs (PNG shapes and classes, finite mIoU, VC, TC and
    losses, moving head and encoder parameters, a frozen RAFT) and that the
-   card and the CPU agree on small inputs, a train step and ClipWarpNet in
-   its three modes, exact and bucketed, included;
+   card and the CPU agree on small inputs, an ETC train step, an our_warp
+   train step (sigmoid and softmax, through B5's backward kernels) and
+   ClipWarpNet in its three modes, exact and bucketed, included;
 6. reads the corr lookup again at the TC shape, beside the card's clocks
    before the checks and after the paths;
 7. prints the kernels' JSON line and, last, the device JSON line.
@@ -76,6 +85,7 @@ a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -759,6 +769,168 @@ def check_local_agg(torch):
             for mode, rows in by_mode.items()]
 
 
+def unfold_local_agg_backward(x, yd, yv, g, r, mode, temp=3.0):
+    """``.backward()`` through :func:`unfold_local_agg` (its forward
+    included, as the kernels recompute the distances): the PyTorch
+    yardstick of B5's backward; timed with TF32 allowed, never called by
+    the port."""
+    ts = [t.detach().requires_grad_() for t in (x, yd, yv)]
+    unfold_local_agg(*ts, r, mode, temp).backward(g)
+    return [t.grad for t in ts]
+
+
+#: the training shapes of B5's backward: (label, Cd, modes); B = 2, the 479
+#: crop's 60x60 features, Cv 256, r = 10
+LOCAL_AGG_BACKWARD_CASES = (
+    ("2x60x60, Cd 128, Cv 256, r 10", 128, ("sigmoid", "softmax", "nearest")),
+    ("merge 2x60x60, Cd 256, Cv 256, r 10", 256, ("sigmoid",)))
+
+
+#: the seed of the generator that makes LOCAL_AGG_BACKWARD_CASES' inputs
+BACKWARD_SEED = 8
+
+
+def local_agg_backward_case(torch, g, cd, cv=256, h=60, w=60):
+    """B5's backward inputs at ``cd`` (``g`` a CUDA generator): the
+    near-match x, y_dist, y_val of :func:`local_agg_case` and the same
+    moved by 7 columns as the second image, and an upstream gradient
+    N(0, 1) [2, cv, h, w]."""
+    x, yd, yv = local_agg_case(torch, g, cd, cv, h, w)
+    x, yd, yv = (torch.cat([t, t.roll(7, 3)]) for t in (x, yd, yv))
+    return x, yd, yv, torch.randn(2, cv, h, w, device="cuda", generator=g)
+
+
+def nearest_index_check(torch, x, yd, yv, r):
+    """The nearest forward with its index buffer (the training path's
+    launch) against the eval launch and the plain argmax: its output
+    bitwise the eval kernel's and bitwise the plain gather at its index;
+    its index equal to the plain argmax off the near-ties (excused as in
+    :func:`check_local_agg_at`).  Returns (the kernel's int32 index, the
+    index the plain backward gathers through: the plain argmax, and the
+    kernel's pick at an excused near-tie where the two differ)."""
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
+    from cvpr2021_vspw_implement_tpu_torch.ops.local_pairwise import \
+        local_pairwise_dist
+
+    out, idx = local_agg.local_nearest_aggregate_index(x, yd, yv, r)
+    eval_out = local_agg.local_nearest_aggregate(x, yd, yv, r)
+    picked = local_agg.local_nearest_aggregate_plain(x, yd, yv, r,
+                                                     idx=idx.long())
+    torch.cuda.synchronize()
+    plain_idx = local_agg.local_nearest_index_plain(x, yd, r)
+    tie = near_ties(local_pairwise_dist(x, yd, r))
+    differ = idx.long() != plain_idx
+    off_tie = int((differ & ~tie).sum().item())
+    as_eval, as_picked = torch.equal(out, eval_out), torch.equal(out, picked)
+    print(f"local_nearest_aggregate with its index buffer at "
+          f"{'x'.join(map(str, idx.shape))}: output bitwise the eval "
+          f"launch's {as_eval}, bitwise the plain gather at its index "
+          f"{as_picked}; index vs the plain argmax: "
+          f"{int(differ.sum().item())} positions differ, "
+          f"{int(tie.sum().item())} near-ties excused, {off_tie} differ "
+          "off them (limit 0)")
+    if not (as_eval and as_picked and off_tie == 0):
+        raise SystemExit("the nearest forward's index buffer disagrees with "
+                         "its output or with the plain argmax")
+    return idx, torch.where(differ & tie, idx.long(), plain_idx)
+
+
+def check_local_agg_backward(torch):
+    """B5's backward kernels (local_agg_bwd.cu) against their plain
+    backward at the training shapes, on near-match inputs and an upstream
+    gradient N(0, 1): each of dx, dy_dist and dy_val within 1e-4 of the
+    largest element of a float64 run of the plain backward (the f32 plain
+    backward's own distance from it is printed beside: softmax's G carries
+    s^2 times the rounding of near-match distances); nearest: the kernel
+    gathers through the forward kernel's index (held by
+    :func:`nearest_index_check`), the plain backward through the plain
+    argmax, and the two are equal.
+    Times (CUDA events) the kernel, the plain backward and the unfold
+    yardstick's forward and backward (TF32 allowed), and the query-side and
+    key-side kernels of a smooth mode apart (the profiler's device time);
+    the bound counts the window products at the 3xTF32 rate (the nearest
+    gather: its bytes).  Returns the kernels' rows, our_warp's shape
+    first."""
+    from cvpr2021_vspw_implement_tpu_torch.kernels import timing
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
+
+    g = torch.Generator(device="cuda").manual_seed(BACKWARD_SEED)
+    b, h, w, cv, r = 2, 60, 60, 256, 10
+    rows = {}
+    for label, cd, modes in LOCAL_AGG_BACKWARD_CASES:
+        x, yd, yv, up = local_agg_backward_case(torch, g, cd)
+        for mode in modes:
+            name = f"local_{mode}_aggregate_backward"
+            fn = getattr(local_agg, name)
+            plain_fn = getattr(local_agg, f"{name}_plain")
+            flops = local_agg.local_aggregate_backward_flops(
+                mode, b, h, w, cd, cv, r)
+            if mode == "nearest":
+                idx, plain_idx = nearest_index_check(torch, x, yd, yv, r)
+                args, plain_args = (idx, up, r), (plain_idx, up, r)
+                got = [fn(*args)]
+                want = [plain_fn(*plain_args)]
+                nbytes = 4 * (2 * b * cv * h * w + b * h * w)
+            else:
+                args = plain_args = (x, yd, yv, up, r)
+                got = fn(*args)
+                f32 = plain_fn(*args)
+                want = plain_fn(*(t.double() for t in args[:4]), r)
+                nbytes = 4 * b * h * w * (4 * cd + 3 * cv)
+            torch.cuda.synchronize()
+            errs = [((a - e).abs().max() / e.abs().max()).item()
+                    for a, e in zip(got, want)]
+            err = max((a - e).abs().max().item() for a, e in zip(got, want))
+            ok = (all(torch.equal(a, e) for a, e in zip(got, want))
+                  if mode == "nearest" else max(errs) <= 1e-4)
+            own = "" if mode == "nearest" else (
+                "; the f32 plain backward's own: " + str([
+                    "%.3e" % ((a - e).abs().max() / e.abs().max()).item()
+                    for a, e in zip(f32, want)]))
+            print(f"{name} at {label}: max |kernel - plain| / max |plain| "
+                  f"per gradient (dx, dy_dist, dy_val; plain in "
+                  f"{'f32' if mode == 'nearest' else 'float64'}) "
+                  f"{['%.3e' % e for e in errs]} (limit "
+                  f"{'equal' if mode == 'nearest' else '1e-4'}){own}")
+            if not ok:
+                raise SystemExit(f"{name} kernel disagrees with its plain "
+                                 f"backward at {label}")
+            row = {"shape": label, "max_abs_err": err, "rel_err": max(errs)}
+            row["ms"] = cuda_ms(lambda: fn(*args))
+            if mode != "nearest":
+                # the wrapper's one count covers both kernels: time each
+                by_kernel = timing.profiler_kernels_ms(lambda: fn(*args),
+                                                       counted=(fn,))
+                for side in ("query", "key"):
+                    row[f"{side}_kernel_ms"] = sum(
+                        v for k, v in by_kernel.items()
+                        if f"{side}_kernel" in k) or None
+                print(f"{name} at {label}: query-side kernel "
+                      f"{row['query_kernel_ms']} ms, key-side kernel "
+                      f"{row['key_kernel_ms']} ms (profiler device time)")
+            row["plain_ms"] = cuda_ms(lambda: plain_fn(*plain_args), n=3,
+                                      warm=1)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                row["library_ms"] = cuda_ms(lambda: unfold_local_agg_backward(
+                    x, yd, yv, up, r, mode), n=3, warm=1)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tensor_core_bound(row, flops, nbytes)
+            if mode == "nearest":
+                row["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+                row["bound_by"] = "bytes"
+            rows.setdefault(mode, []).append(row)
+    return [{"name": f"local_{mode}_aggregate_backward", "route": "cuda",
+             "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
+                       "local_agg_bwd.cu",
+             # port-only: the JAX package trains through the XLA
+             # formulation; its Pallas B5 has no VJP
+             "replaces": "cvpr2021_vspw_implement_tpu/models/warp_our.py:38",
+             **rs[0], "also_at": rs[1:]}
+            for mode, rs in rows.items()]
+
+
 def band_sectors(x, hv, wv):
     """The 32-byte sectors of device memory that the band of ``x`` beyond
     (hv, wv) touches: each row's column run [wv, W) of rows [0, hv) and each
@@ -1059,6 +1231,25 @@ def tc_flow_check(torch, raft, pairs, next_preds, bucket=64):
     return out
 
 
+#: the window methods' train phases: (path, --method, flags, the head
+#: parameter that must move, B5 forward (and backward) launches a step of
+#: the mode's kernels, the mode, a parameter that only B5's backward
+#: reaches: without ``--allsup`` our_warp's emb_2 feeds nothing but B5's
+#: x and y_dist; with it, and in our_warp_merge, whose C4 embedding also
+#: has its deep supervision, no parameter does); every phase clip_num 4,
+#: r = 10, full width
+TRAIN_PATHS = (
+    ("train_our_warp", "our_warp", ["--allsup", "true"],
+     "prop_clip.emb.0.weight", 3, "sigmoid", None),
+    ("train_our_warp_softmax", "our_warp", ["--distsoftmax", "true"],
+     "prop_clip.emb.0.weight", 3, "softmax", "prop_clip.emb_2.0.weight"),
+    ("train_our_warp_nearest", "our_warp", ["--distnearest", "true"],
+     "prop_clip.emb.0.weight", 3, "nearest", "prop_clip.emb_2.0.weight"),
+    ("train_our_warp_merge", "our_warp_merge", [],
+     "prop_clip.emb2.0.weight", 1, "sigmoid", None),
+    ("train_propnet", "propnet", [], "segblock.conv1.conv1.weight", 0, None,
+     None))
+
 #: the window CLI phases: (path, --method, flags, B5 launches a window of
 #: the mode's kernel)
 WINDOW_PATHS = (
@@ -1228,6 +1419,7 @@ BENCH_KEYS = (
     "baseline_frames_per_sec", "vs_baseline", "baseline_mfu",
     "train_step_ms", "train_step_single_readback_ms", "train_mfu",
     "train_peak_mem_gib", "etc_train_step_ms", "etc_train_mfu",
+    "our_warp_train_step_ms", "our_warp_train_mfu",
     "etc_windows_per_sec", "etc_mfu", "etc_bucketed_windows_per_sec",
     "our_warp_windows_per_sec", "our_warp_mfu",
     "our_warp_bucketed_windows_per_sec", "propnet_windows_per_sec",
@@ -1240,13 +1432,15 @@ BENCH_TIMES = (
     "value", "stream4_frames_per_sec", "stream_bucketed_frames_per_sec",
     "baseline_frames_per_sec", "vs_baseline", "train_step_ms",
     "train_step_single_readback_ms", "etc_train_step_ms",
-    "etc_windows_per_sec", "etc_bucketed_windows_per_sec",
+    "our_warp_train_step_ms", "etc_windows_per_sec",
+    "etc_bucketed_windows_per_sec",
     "our_warp_windows_per_sec", "our_warp_bucketed_windows_per_sec",
     "propnet_windows_per_sec", "our_warp_merge_windows_per_sec",
     "tc_ms_per_pair", "tc_bucketed_ms_per_pair",
     "host_decode_frames_per_sec")
-BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu", "etc_mfu",
-              "our_warp_mfu", "propnet_mfu", "our_warp_merge_mfu", "tc_mfu")
+BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu",
+              "our_warp_train_mfu", "etc_mfu", "our_warp_mfu", "propnet_mfu",
+              "our_warp_merge_mfu", "tc_mfu")
 
 
 def check_bench(out, per_frame, per_pair, iters, per_window):
@@ -1254,7 +1448,8 @@ def check_bench(out, per_frame, per_pair, iters, per_window):
     finite and positive; every ``mfu`` in (0, 1]; and each row's kernel
     launches in a trial as its loop implies: a bucketed frame ``per_frame``
     B6 launches, an ETC step ``iters`` each of B1, B2 and B3, an our_warp
-    window 3 of B5 (sigmoid), an our_warp_merge window 1, a bucketed
+    window 3 of B5 (sigmoid), an our_warp train step 3 of B5 and 3 of its
+    backward (sigmoid), an our_warp_merge window 1, a bucketed
     window ``per_window`` (by path) of B6, a TC pair ``iters`` of B1 and
     twice that of B4 (and bucketed ``per_pair`` of B6); no other
     launch."""
@@ -1274,6 +1469,9 @@ def check_bench(out, per_frame, per_pair, iters, per_window):
             "our_warp_bucketed": {"local_sigmoid_aggregate": 3 * m,
                                   "band_zero": per_window["our_warp"] * m},
             "our_warp_merge": {"local_sigmoid_aggregate": m},
+            "our_warp_train": {k: 3 * n["train_steps"] for k in (
+                "local_sigmoid_aggregate",
+                "local_sigmoid_aggregate_backward")},
             "tc": tc,
             "tc_bucketed": {**tc, "band_zero": per_pair * n["pairs"]}}
     wrong = {row: got for row, got in out["launches"].items()
@@ -1439,25 +1637,155 @@ def train_step_agreement(torch):
         raise SystemExit("the train step on the card disagrees with the CPU")
 
 
-def train_phase(torch, method, flags, root, work, preset, k, steps):
+#: the BatchNorm scale of each window method's distance embedding, which
+#: the smoke's training checks set (all channels) before the first step:
+#: at the default init (1) the embeddings' squared distances sum over 128
+#: or 256 channels of unit size, the sigmoid saturates and B5's smooth
+#: gradients are exactly 0 in f32, which any backward would match; at 0.05
+#: they lie where the sigmoid and the softmax scores have a slope (a
+#: trained-like start, as the TC phases scale RAFT's flow head)
+DIST_BN = {"our_warp": "prop_clip.emb_2.1.weight",
+           "our_warp_merge": "prop_clip.emb2.1.weight"}
+DIST_BN_SCALE = 0.05
+
+
+@contextlib.contextmanager
+def recorded_backward(mode, sink, keep=False):
+    """While open, each backward of B5's ``mode`` (its autograd Function in
+    ``ops/local_agg.py``, which calls the backward wrapper) appends the
+    gradients it returns to ``sink``: their norms, or with ``keep``
+    detached copies."""
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
+
+    cls = {"sigmoid": local_agg._SigmoidAggregate,
+           "softmax": local_agg._SoftmaxAggregate,
+           "nearest": local_agg._NearestAggregate}[mode]
+    backward = cls.backward
+
+    def recorded(ctx, *grads):
+        out = backward(ctx, *grads)
+        sink.append([t.detach().clone() if keep else t.detach().norm()
+                     for t in out if t is not None])
+        return out
+
+    cls.backward = staticmethod(recorded)
+    try:
+        yield
+    finally:
+        cls.backward = staticmethod(backward)
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| / max |want|, ``got`` moved to ``want``'s device;
+    raises where ``want`` is all zero, which any ``got`` of zeros would
+    match."""
+    scale = want.abs().max().item()
+    if not scale > 0:
+        raise SystemExit("a gradient held card against CPU is all zero")
+    return (got.to(want.device) - want).abs().max().item() / scale
+
+
+def warp_train_agreement(torch):
+    """One our_warp train step (ResNet-18-dilated, 124 classes, clip_num 4,
+    batch 2, 64x96, r = 3, dropout off, no ``allsup``) on the card, through
+    B5's forward and backward kernels, and on the CPU, through the plain
+    versions, in the sigmoid and softmax modes, ``emb_2``'s BatchNorm
+    scale at DIST_BN_SCALE.  Without ``allsup`` the distance embedding
+    ``emb_2`` is reached only through B5's dx and dy_dist.  Held within
+    1e-3 relative: the loss; each of the 3 backward calls' gradients (dx,
+    dy_dist, dy_val) element by element, against the largest element, none
+    all zero; the gradients of ``emb_2``'s and ``emb``'s conv weights
+    element by element; the norm of the encoder's first conv's gradient.
+    (Nearest's picks are a step function of the embeddings, which cuDNN
+    and the CPU round apart.)"""
+    from cvpr2021_vspw_implement_tpu_torch.models import layers
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+    from cvpr2021_vspw_implement_tpu_torch.models.warp_our import (
+        ClipWarpNet, clip_warp_loss)
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
+
+    g = torch.Generator().manual_seed(9)
+    batch = {"img": torch.randn(4, 2, 3, 64, 96, generator=g),
+             "labels": torch.randint(0, 124, (4, 2, 64, 96), generator=g)}
+    watched = ("prop_clip.emb_2.0.weight", "prop_clip.emb.0.weight")
+    layers.set_dropout_override(0.0)
+    try:
+        for mode in ("sigmoid", "softmax"):
+            model = ClipWarpNet(build_encoder("resnet18dilated"), 124,
+                                fc_dim=512, max_distances=(3,),
+                                distsoftmax=mode == "softmax")
+            layers.init_weights(model, torch.Generator().manual_seed(10))
+            with torch.no_grad():
+                model.get_parameter(DIST_BN["our_warp"]).fill_(DIST_BN_SCALE)
+            bwd = getattr(local_agg, f"local_{mode}_aggregate_backward")
+            out = {}
+            for dev in ("cpu", "cuda"):
+                model.to(dev).train().zero_grad()
+                launches, calls = bwd.launches, []
+                on_dev = {k: v.to(dev) for k, v in batch.items()}
+                with recorded_backward(mode, calls, keep=True):
+                    loss, _ = clip_warp_loss(model(on_dev["img"]), on_dev)
+                    loss.backward()
+                params = dict(model.named_parameters())
+                out[dev] = (loss.item(), calls,
+                            [params[n].grad.clone() for n in watched],
+                            model.encoder.conv1.weight.grad.norm().item())
+                if (len(calls) != 3 or (bwd.launches - launches)
+                        != (3 if dev == "cuda" else 0)):
+                    raise SystemExit(f"our_warp ({mode}) step on {dev}: "
+                                     f"{len(calls)} backward calls, "
+                                     f"{bwd.launches - launches} launches")
+            (l0, calls0, p0, n0), (l1, calls1, p1, n1) = (out["cpu"],
+                                                          out["cuda"])
+            call_gaps = [max(rel_gap(a, e) for a, e in zip(c1, c0))
+                         for c1, c0 in zip(calls1, calls0)]
+            param_gaps = [rel_gap(a, e) for a, e in zip(p1, p0)]
+            scalar_gaps = [abs(l1 - l0) / abs(l0), abs(n1 - n0) / n0]
+            print(f"our_warp ({mode}) train step card vs CPU: loss {l1:.6f} "
+                  f"vs {l0:.6f}; B5 backward gradients, largest gap a call "
+                  f"{['%.3e' % v for v in call_gaps]}; gradients of "
+                  f"{', '.join(watched)}: {['%.3e' % v for v in param_gaps]} "
+                  f"(norms {[round(t.norm().item(), 6) for t in p0]}); "
+                  f"encoder.conv1 gradient norm {n1:.6f} vs {n0:.6f} "
+                  "(limit 1e-3 relative each)")
+            if not max(call_gaps + param_gaps + scalar_gaps) <= 1e-3:
+                raise SystemExit(f"the our_warp ({mode}) train step on the "
+                                 "card disagrees with the CPU")
+    finally:
+        layers.set_dropout_override(None)
+
+
+def train_phase(torch, method, flags, root, work, preset, k, steps,
+                head=None, name=None, b5=None, b5_only=None):
     """``steps`` steps of ``train_clip.main`` at full width; prints step
     times, losses and peak memory and returns the model.  Fails unless the
-    losses are finite, a head and an encoder parameter moved and RAFT did
-    not."""
+    losses are finite, a head parameter (``head``, or the first one named
+    ``*.4.weight``) and an encoder parameter moved and RAFT did not.
+    ``b5``: the mode of B5 the path trains through; every call of its
+    backward must then give finite gradients, and each of its gradients
+    (dx, dy_dist, dy_val; nearest: dy_val) must be nonzero in some call.
+    ``b5_only``: a parameter that only B5's backward reaches; its last
+    step's gradient must be finite and not all zero, or all zero for
+    nearest, which gives x and y_dist none.  A window method's distance
+    embedding starts at DIST_BN_SCALE."""
     from cvpr2021_vspw_implement_tpu_torch import train_clip
 
-    records, before = [], {}
+    records, before, b5_grads = [], {}, []
     step = train_clip.train_step
 
     def watched(model):
         named = dict(model.named_parameters())
         names = [n for n in named if n.startswith("encoder.")][:1]
-        names += [n for n in named if n.endswith(".4.weight")][:1]
+        names += [head] if head else [
+            n for n in named if n.endswith(".4.weight")][:1]
         names += [n for n in named if n.startswith("raft.")][:1]
         return {n: named[n] for n in names}
 
     def timed_step(model, *args):
         if not before:
+            if method in DIST_BN:
+                with torch.no_grad():
+                    model.get_parameter(DIST_BN[method]).fill_(DIST_BN_SCALE)
             before.update({n: p.detach().clone()
                            for n, p in watched(model).items()})
         torch.cuda.synchronize()
@@ -1470,12 +1798,15 @@ def train_phase(torch, method, flags, root, work, preset, k, steps):
     torch.cuda.reset_peak_memory_stats()
     train_clip.train_step = timed_step
     try:
-        model = train_clip.main([
+        with (recorded_backward(b5, b5_grads) if b5
+              else contextlib.nullcontext()):
+            model = train_clip.main([
             "--cfg", preset, "--dataroot", root, "--num_class", str(k),
-            "--method", method, *flags, "--batchsize", "2", "--cropsize",
-            "479", "--lr", "0.002", "--totalepoch", str(steps // 2),
-            "--saveroot", os.path.join(work, "ckpt_" + method), "--seed", "0",
-            "DIR", os.path.join(work, "cfg_" + method)])
+                "--method", method, *flags, "--batchsize", "2",
+                "--cropsize", "479", "--lr", "0.002", "--totalepoch",
+                str(steps // 2), "--saveroot",
+                os.path.join(work, "ckpt_" + (name or method)), "--seed", "0",
+                "DIR", os.path.join(work, "cfg_" + (name or method))])
     finally:
         train_clip.train_step = step
     peak = torch.cuda.max_memory_allocated()
@@ -1483,12 +1814,37 @@ def train_phase(torch, method, flags, root, work, preset, k, steps):
     losses = [loss for _, loss in records]
     if len(records) != steps or not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"{method}: {len(records)} steps, losses {losses}")
-    for name, p in watched(model).items():
-        moved = not torch.equal(p.detach(), before[name])
-        if moved == name.startswith("raft."):
-            raise SystemExit(f"{method}: parameter {name} "
+    for pname, p in watched(model).items():
+        moved = not torch.equal(p.detach(), before[pname])
+        if moved == pname.startswith("raft."):
+            raise SystemExit(f"{method}: parameter {pname} "
                              f"{'moved' if moved else 'did not move'}")
-    print(f"train {method} (R101, crop 479, batch 2, f32): first step "
+    # [call][gradient]: a call may rightly give zeros (a softmax window
+    # whose weight is one-hot), every gradient of the phase may not
+    norms = [[v.item() for v in call] for call in b5_grads]
+    largest = [max(v) for v in zip(*norms)]
+    if b5 and not (largest and min(largest) > 0 and all(
+            math.isfinite(v) for call in norms for v in call)):
+        raise SystemExit(f"{name or method}: B5's {b5} backward gave "
+                         f"{len(b5_grads)} calls, gradient norms {norms}")
+    if b5_only:
+        grad = dict(model.named_parameters())[b5_only].grad
+        nonzero = int(torch.count_nonzero(grad).item())
+        if (not torch.isfinite(grad).all().item()
+                or (nonzero == 0) != (b5 == "nearest")):
+            raise SystemExit(f"{name or method}: {b5_only}, reached only "
+                             f"through B5's backward, has a gradient with "
+                             f"{nonzero} nonzero elements")
+    if b5:
+        none = ", which gives it none in nearest" if b5 == "nearest" else ""
+        print(f"{name or method}: {len(b5_grads)} calls of B5's {b5} "
+              f"backward, the largest norm of each gradient "
+              f"{['%.4g' % v for v in largest]}, calls with a gradient all "
+              f"zero {sum(min(call) == 0 for call in norms)}" + (
+                  f"; {b5_only} (reached only through B5{none}) has a "
+                  f"gradient of norm {grad.norm().item():.4g}"
+                  if b5_only else ""))
+    print(f"train {name or method} (R101, crop 479, batch 2, f32): first step "
           f"{1e3 * times[0]:.1f} ms, then "
           f"{1e3 * sum(times[1:]) / (steps - 1):.1f} ms/step over "
           f"{steps - 1} steps; losses {[round(v, 4) for v in losses]}; "
@@ -1528,7 +1884,8 @@ def main() -> int:
     print(f"kernels built in {seconds:.2f} s: {sorted(kernels.SIGNATURES)}")
     ptxas = [f"{name}: {line}"
              for name in ("sep_gru", "gru_flowhead", "motion_encoder",
-                          "local_agg", "corr_lookup", "band_zero")
+                          "local_agg", "local_agg_bwd", "corr_lookup",
+                          "band_zero")
              for line in ptxas_lines(logs.get(name, ""))]
     for line in ptxas:
         print(f"ptxas: {line}")
@@ -1539,10 +1896,12 @@ def main() -> int:
     print(f"card clocks before the kernel checks (SM, SM max, power, "
           f"temperature): {clocks_first}")
     rows = check_kernels(torch)
+    rows += check_local_agg_backward(torch)
     routes = update_block_routes(torch)
     small_input_agreement(torch)
     clip_warp_agreement(torch)
     train_step_agreement(torch)
+    warp_train_agreement(torch)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     root, preds = os.path.join(work, "vspw"), os.path.join(work, "preds")
@@ -1770,6 +2129,26 @@ def main() -> int:
           f"refinements): {raft_ms:.1f} ms, of which the three kernels "
           f"{iters} x {per_iter:.3f} = {iters * per_iter:.1f} ms (each timed "
           "at 2x60x60)")
+    del etc
+
+    # the window methods' training: our_warp in each mode (3 B5 forward and
+    # 3 backward launches of the mode a step), our_warp_merge (1 and 1,
+    # Cd 256) and propnet (no kernel)
+    train_counts = {}
+    warp_flags = ["--clip_num", "4", "--max_distances", "10"]
+    for path, method, flags, head, b5, mode, b5_only in TRAIN_PATHS:
+        reset()
+        train_phase(torch, method, warp_flags + flags, train_root, work,
+                    preset, k, steps, head=head, name=path, b5=mode,
+                    b5_only=b5_only)
+        train_counts[path] = c = counts()
+        want = {f"local_{mode}_aggregate": b5 * steps,
+                f"local_{mode}_aggregate_backward": b5 * steps} if b5 else {}
+        print(f"kernel launches in the {path} phase {c}")
+        for kname, n in c.items():
+            if n != want.get(kname, 0):
+                raise SystemExit(f"{kname}: {n} launches on the {path} "
+                                 f"path, expected {want.get(kname, 0)}")
 
     # the window eval path over the 10-frame video, each method exact
     # (--width_bucket 0) then at the CLI's default, bucketed in 480x896:
@@ -1833,8 +2212,8 @@ def main() -> int:
 
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
-               "clip_psp": psp_counts, "etc": etc_counts, **window_counts,
-               "bench": bench_counts}
+               "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
+               **window_counts, "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -1847,8 +2226,12 @@ def main() -> int:
     # B5's other shapes: their launches on the window CLI paths (the
     # bench's are in the row's total only)
     for row in rows:
+        backward = row["name"].endswith("_backward")
+        for a in row.get("also_at", ()) if backward else ():
+            # our_warp_merge's Cd 256: its train path
+            a["launches"] = train_counts["train_our_warp_merge"][row["name"]]
         for a in row.get("also_at", ()) if row["name"].startswith(
-                "local_") else ():
+                "local_") and not backward else ():
             merge, bucket = a["shape"].startswith("merge"), "valid" in a[
                 "shape"]
             a["launches"] = sum(
@@ -1865,6 +2248,7 @@ def main() -> int:
             "launches_by_path", "also_at", "rel_err",
             "weight_spread_q10_q50_q90", "excused_near_ties", "mismatches",
             "crop_gap", "crop_bitwise", "band_nonzero", "crop_ms",
+            "picks_outside_image", "most_picks_of_a_key", "keys_picked",
             "two_slice_zero_ms", "profiler_ms", "enqueue_ms",
             "library_profiler_ms", "library_enqueue_ms",
             "two_slice_zero_profiler_ms", "two_slice_zero_enqueue_ms")

@@ -26,7 +26,10 @@ made on the device before the clock starts.  The rows:
   ``clip_psp_loss``, 4 frames x batch 2 x crop 479, K steps back to back
   with one synchronise (the step returns detached 0-d tensors), and one
   step with its own readback; ``etc_train_*`` the same for ETC (2 frames,
-  RAFT at 20 refinements: B1, B2, B3);
+  RAFT at 20 refinements: B1, B2, B3); ``our_warp_train_*`` the same for
+  our_warp (``clip_warp_loss`` with ``allsup``, 4 frames, r = 10, sigmoid:
+  3 B5 forward and 3 B5 backward launches a step); the JAX bench has no
+  such row, the key is the port's own;
 * ``etc_windows_per_sec``, ``our_warp_windows_per_sec``,
   ``propnet_windows_per_sec``, ``our_warp_merge_windows_per_sec``: the
   window forward of ``test_clip --method ETC`` / ``our_warp`` /
@@ -72,6 +75,7 @@ import os
 import subprocess
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -87,7 +91,7 @@ from .models.layers import init_weights, set_dropout_generator
 from .models.raft import RAFT
 from .models.resnet import build_encoder
 from .models.segmentation import inference_pred, inference_pred_rt
-from .models.warp_our import ClipWarpNet
+from .models.warp_our import ClipWarpNet, clip_warp_loss
 from .models.warp_our_merge import OurWarpMerge
 from .ops import local_agg
 from .ops.band_zero import band_zero
@@ -142,8 +146,9 @@ WRAPPERS = {"corr_lookup": lookup_corr_pyramid,
             "sep_gru": sep_conv_gru_pass,
             "motion_encoder": motion_encoder,
             "gru_flowhead": gru_flowhead,
-            **{f"local_{m}_aggregate":
-               getattr(local_agg, f"local_{m}_aggregate")
+            **{f"local_{m}_aggregate{d}":
+               getattr(local_agg, f"local_{m}_aggregate{d}")
+               for d in ("", "_backward")
                for m in ("sigmoid", "softmax", "nearest")},
             "band_zero": band_zero}
 
@@ -443,6 +448,17 @@ def run(args) -> dict:
     rows.update(tc_rows(conf, counts, device, gen))
     free()
     host = host_decode_row(conf, counts)
+    # last, so that the rows before it run as before it was added: run
+    # ahead of propnet's host-bound row, that row read 6.9% slower than
+    # without it (H100, the two alternated); with this row last, 0.75%,
+    # inside that row's spread
+    warp = _model(ClipWarpNet, cfg, k, device, clip_num=4,
+                  max_distances=(10,))
+    rows["our_warp_train"] = train_rows(
+        warp, partial(clip_warp_loss, allsup=True), 4,
+        counts["train_steps"], conf, device, gen, single=False)["chained"]
+    del warp
+    free()
 
     def mfu(row):
         if peak is None:
@@ -484,6 +500,9 @@ def run(args) -> dict:
         "etc_train_step_ms": 1e3 * rows["etc_train"]["seconds"]
         / counts["etc_train_steps"],
         "etc_train_mfu": mfu(rows["etc_train"]),
+        "our_warp_train_step_ms": 1e3 * rows["our_warp_train"]["seconds"]
+        / counts["train_steps"],
+        "our_warp_train_mfu": mfu(rows["our_warp_train"]),
         "etc_windows_per_sec": rows["etc_windows"]["per_second"],
         "etc_mfu": mfu(rows["etc_windows"]),
         "etc_bucketed_windows_per_sec": rows["etc_bucketed"]["per_second"],

@@ -57,7 +57,12 @@ SIGNATURES = {
     "local_agg": {
         "local_sigmoid_agg_f32": [_P] * 4 + [_I] * 8 + [_P],
         "local_softmax_agg_f32": [_P] * 4 + [_I] * 8 + [_F, _P],
-        "local_nearest_agg_f32": [_P] * 4 + [_I] * 8 + [_P],
+        "local_nearest_agg_f32": [_P] * 5 + [_I] * 8 + [_P],
+    },
+    "local_agg_bwd": {
+        "local_sigmoid_agg_bwd_f32": [_P] * 9 + [_I] * 6 + [_P],
+        "local_softmax_agg_bwd_f32": [_P] * 9 + [_I] * 6 + [_F, _P],
+        "local_nearest_agg_bwd_f32": [_P] * 3 + [_I] * 5 + [_P],
     },
 }
 

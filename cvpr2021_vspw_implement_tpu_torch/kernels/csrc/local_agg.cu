@@ -14,7 +14,11 @@
 //   softmax: out_p = sum_q softmax_q(1 / (dist * temp + 1e-5)) y_val(q) / k^2,
 //            out-of-image positions (score ~3e-21) kept in the denominator
 //   nearest: out_p = y_val at the first (dy, dx) of the window's maximum
-//            dist (the reference's argmax quirk: out-of-image wins, gives 0)
+//            dist (the reference's argmax quirk: out-of-image wins, gives 0);
+//            with an index buffer (int32 [B, H, W], training) it also
+//            writes the chosen offset dy * k + dx of each position, which
+//            the backward (local_agg_bwd.cu) gathers through, so that both
+//            use one argmax.  Eval passes none and is unchanged.
 //
 // Layout: x, y_dist [B, Cd, H, W], y_val and out [B, Cv, H, W], all NCHW
 // contiguous, as the warping head's convolutions produce them.
@@ -163,7 +167,7 @@ template <int kMode, int NKT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     local_agg_kernel(const float* __restrict__ x, const float* __restrict__ yd,
                      const float* __restrict__ yv, float* __restrict__ out,
-                     const Shape s) {
+                     int* __restrict__ idx, const Shape s) {
   extern __shared__ __align__(16) float smem[];
   const int Cd = s.Cd, Cv = s.Cv, H = s.H, W = s.W, r = s.r;
   const int Hv = s.Hv, Wv = s.Wv;
@@ -599,6 +603,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     if (h < 2 && tig == 0) chosen[2 * gid + ro] = best_at;
     group_sync(group);
     if (hq >= H) return;
+    if (idx != nullptr && h == 0 && lane < 16 && w0 + 16 * i + lane < W)
+      idx[(int64_t)b * plane + (int64_t)hq * W + w0 + 16 * i + lane] =
+          chosen[lane];
     // the group gathers its 16 positions' values, each warp a quarter of
     // the channels; zeros beyond the valid size
 #pragma unroll 4
@@ -634,9 +641,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 }
 
 template <int kMode>
-int launch(const void* x, const void* yd, const void* yv, void* out, int B,
-           int Cd, int Cv, int H, int W, int Hv, int Wv, int r, float temp,
-           void* stream) {
+int launch(const void* x, const void* yd, const void* yv, void* out,
+           void* idx, int B, int Cd, int Cv, int H, int W, int Hv, int Wv,
+           int r, float temp, void* stream) {
   if (B < 1 || Cd < 1 || Cd > kMaxCd || Cv < 1 || H < 1 || W < 1 || r < 0 ||
       r > kMaxR || Hv < 1 || Hv > H || Wv < 1 || Wv > W)
     return (int)cudaErrorInvalidValue;
@@ -662,7 +669,8 @@ int launch(const void* x, const void* yd, const void* yv, void* out, int B,
   if (set != cudaSuccess) return (int)set;
   kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(yd),
-      static_cast<const float*>(yv), static_cast<float*>(out), s);
+      static_cast<const float*>(yv), static_cast<float*>(out),
+      static_cast<int*>(idx), s);
   return (int)cudaGetLastError();
 }
 
@@ -675,8 +683,8 @@ extern "C" int local_sigmoid_agg_f32(const void* x, const void* y_dist,
                                      const void* y_val, void* out, int B,
                                      int Cd, int Cv, int H, int W, int Hv,
                                      int Wv, int r, void* stream) {
-  return launch<kSigmoid>(x, y_dist, y_val, out, B, Cd, Cv, H, W, Hv, Wv, r,
-                          0.0f, stream);
+  return launch<kSigmoid>(x, y_dist, y_val, out, nullptr, B, Cd, Cv, H, W, Hv,
+                          Wv, r, 0.0f, stream);
 }
 
 extern "C" int local_softmax_agg_f32(const void* x, const void* y_dist,
@@ -684,14 +692,15 @@ extern "C" int local_softmax_agg_f32(const void* x, const void* y_dist,
                                      int Cd, int Cv, int H, int W, int Hv,
                                      int Wv, int r, float temp,
                                      void* stream) {
-  return launch<kSoftmax>(x, y_dist, y_val, out, B, Cd, Cv, H, W, Hv, Wv, r,
-                          temp, stream);
+  return launch<kSoftmax>(x, y_dist, y_val, out, nullptr, B, Cd, Cv, H, W, Hv,
+                          Wv, r, temp, stream);
 }
 
+// idx: null, or int32 [B, H, W] for each position's chosen offset
 extern "C" int local_nearest_agg_f32(const void* x, const void* y_dist,
-                                     const void* y_val, void* out, int B,
-                                     int Cd, int Cv, int H, int W, int Hv,
-                                     int Wv, int r, void* stream) {
-  return launch<kNearest>(x, y_dist, y_val, out, B, Cd, Cv, H, W, Hv, Wv, r,
-                          0.0f, stream);
+                                     const void* y_val, void* out, void* idx,
+                                     int B, int Cd, int Cv, int H, int W,
+                                     int Hv, int Wv, int r, void* stream) {
+  return launch<kNearest>(x, y_dist, y_val, out, idx, B, Cd, Cv, H, W, Hv, Wv,
+                          r, 0.0f, stream);
 }

@@ -9,7 +9,8 @@ larger of the two, so for a kernel of a few microseconds they read the host.
   replayed between CUDA events: the host is out of the way, and what is left
   is the device's time a launch, the graph's gap between kernels included;
 * :func:`profiler_ms` — the kernels' own durations as the profiler (CUPTI)
-  records them, summed over a call: the cross-check, without the gaps;
+  records them, summed over a call: the cross-check, without the gaps
+  (:func:`profiler_kernels_ms`: the same, kernel by kernel);
 * :func:`enqueue_ms` — the host clock over ``n`` calls with no synchronise
   inside, the median of a few such runs: what a call costs the host.
 
@@ -57,11 +58,12 @@ def device_ms(fn, n: int = 50, warm: int = 3, replays: int = 5,
     return start.elapsed_time(end) / (replays * n)
 
 
-def profiler_ms(fn, n: int = 20, warm: int = 3, counted=()):
-    """Device time of one call of ``fn`` as the profiler records it: the
-    durations of every kernel, memset and copy on the device over ``n``
-    calls, over ``n``.  None when the profiler reports no device time.
-    The counters of ``counted`` are put back as they were."""
+def profiler_kernels_ms(fn, n: int = 20, warm: int = 3,
+                        counted=()) -> dict:
+    """Device time of one call of ``fn`` by kernel as the profiler records
+    it: {name of a kernel, memset or copy: its durations over ``n`` calls,
+    over ``n``}, empty when the profiler reports no device time.  The
+    counters of ``counted`` are put back as they were."""
     from torch.profiler import ProfilerActivity, profile
 
     before = [w.launches for w in counted]
@@ -75,9 +77,18 @@ def profiler_ms(fn, n: int = 20, warm: int = 3, counted=()):
         torch.cuda.synchronize()
     for w, count in zip(counted, before):
         w.launches = count
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / n if us > 0 else None
+    return {e.key: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def profiler_ms(fn, n: int = 20, warm: int = 3, counted=()):
+    """Device time of one call of ``fn`` as the profiler records it: the
+    durations of every kernel, memset and copy on the device over ``n``
+    calls, over ``n``.  None when the profiler reports no device time."""
+    by_kernel = profiler_kernels_ms(fn, n, warm, counted)
+    return sum(by_kernel.values()) if by_kernel else None
 
 
 def enqueue_ms(fn, n: int = 200, warm: int = 3, blocks: int = 5,

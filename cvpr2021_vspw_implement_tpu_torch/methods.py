@@ -4,9 +4,8 @@ train_clip2.py:264-321).
 
 Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
 -> outputs`` convention and a loss ``(outputs, batch) -> (loss, acc)``.
-Ported so far: ``clip_psp`` and ``ETC`` (train and eval), and
-``our_warp``, ``propnet`` and ``our_warp_merge`` (eval only: their loss is
-None, and the trainer refuses them).
+Ported so far, train and eval: ``clip_psp``, ``ETC``, ``our_warp``,
+``propnet`` and ``our_warp_merge``.
 """
 
 from __future__ import annotations
@@ -38,25 +37,29 @@ def _build_etc(cfg, args):
 
 
 def _build_our_warp(cfg, args):
-    from .models.warp_our import build_clip_warp
-    return build_clip_warp(cfg, args.num_class, args), None
+    from .models.warp_our import build_clip_warp, clip_warp_loss
+    return build_clip_warp(cfg, args.num_class, args), partial(
+        clip_warp_loss, deep_sup_scale=getattr(args, "deepsup_scale", 0.4),
+        allsup=getattr(args, "allsup", False),
+        allsup_scale=getattr(args, "allsup_scale", 0.3),
+        fix=getattr(args, "fix", False))
 
 
 def _build_propnet(cfg, args):
-    from .models.propnet import build_propnet
-    return build_propnet(cfg, args.num_class, args), None
+    from .models.propnet import build_propnet, propnet_loss
+    return build_propnet(cfg, args.num_class, args), partial(
+        propnet_loss, deep_sup_scale=getattr(args, "deepsup_scale", 0.4))
 
 
 def _build_warp_merge(cfg, args):
-    from .models.warp_our_merge import build_warp_merge
-    return build_warp_merge(cfg, args.num_class, args), None
+    from .models.warp_our_merge import build_warp_merge, warp_merge_loss
+    return build_warp_merge(cfg, args.num_class, args), partial(
+        warp_merge_loss, deep_sup_scale=getattr(args, "deepsup_scale", 0.4))
 
 
 METHODS = {"clip_psp": _build_clip_psp, "ETC": _build_etc,
            "our_warp": _build_our_warp, "propnet": _build_propnet,
            "our_warp_merge": _build_warp_merge}
-#: methods whose eval alone is ported
-EVAL_ONLY_METHODS = ("our_warp", "propnet", "our_warp_merge")
 
 
 def get_collate(method: str, clip_num: int):

@@ -20,15 +20,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.interpolate import resize_bilinear
 from ..ops.masked import (adaptive_avg_pool2d_rt, feature_valid,
                           global_avg_pool_rt, mask_valid, masked_trunk)
 from ..ops.pooling import adaptive_avg_pool2d, global_avg_pool
-from ..utils.metrics import pixel_acc
 from .decoders import pyramid_concat
 from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
 from .resnet import build_encoder
-from .segmentation import upsampled_logprob_loss_projected
+from .segmentation import pixel_accuracy, upsampled_logprob_loss_projected
 
 
 class PPMConv(nn.Module):
@@ -139,9 +137,7 @@ def clip_psp_loss(outs, batch, deep_sup_scale: float | None = 0.4):
     if deep_sup_scale is not None:
         loss = loss + deep_sup_scale * upsampled_logprob_loss_projected(
             deepsup, labels.flatten(0, 1))
-    up = resize_bilinear(main.detach().float(), label.shape[1:3])
-    acc = pixel_acc(up, torch.where(label == 255, -1, label))
-    return loss, acc
+    return loss, pixel_accuracy(main, label)
 
 
 def build_clip_psp(cfg, num_class: int, psp_weight: bool = False) -> ClipPSP:

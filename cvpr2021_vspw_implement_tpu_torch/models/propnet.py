@@ -9,13 +9,18 @@ is concatenated with the target's embedding and refined by a stack of
 separable convs (``SegBlock``); inference means the per-frame SegBlock
 logits with the per-frame head's logits on the target.
 
-Only the eval forward is ported; training is refused.  The parameter names
-are the reference's (``emb.{0,1}``, ``emb2.{0,1}``, ``last_layer.1``,
-``segblock.conv{1-4}.{conv1,bn1,conv2,bn2}``, ``segblock.last_layer``), so
-a ``state_dict()`` reads back through the JAX package's
-``import_propnet_state_dict``.  No TPU kernel is involved: the JAX package
-leaves the class-masked window minimum to XLA, and the port computes it
-with one ``scatter_reduce`` (:func:`prop_pred`).
+Training (JAX models/propnet.py:158-219) propagates hard labels taken from
+the per-frame head's log-probabilities upsampled to the frame's size and
+returns each context frame's SegBlock logits beside the per-frame head and
+the deep supervision.  The distances stay plain PyTorch in training as in
+eval: the gradient reaches the embeddings through ``scatter_reduce``'s
+``amin``, which splits it evenly among tied minima as JAX's ``min`` does.
+The parameter names are the reference's (``emb.{0,1}``, ``emb2.{0,1}``,
+``last_layer.1``, ``segblock.conv{1-4}.{conv1,bn1,conv2,bn2}``,
+``segblock.last_layer``), so a ``state_dict()`` reads back through the JAX
+package's ``import_propnet_state_dict``.  No TPU kernel is involved: the
+JAX package leaves the class-masked window minimum to XLA, and the port
+computes it with one ``scatter_reduce`` (:func:`prop_pred`).
 """
 
 from __future__ import annotations
@@ -23,13 +28,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.interpolate import resize_nearest
+from ..ops.interpolate import resize_bilinear, resize_nearest
 from ..ops.local_pairwise import local_pairwise_dist, local_window_gather
 from ..ops.masked import feature_mask, masked_encode
 from .decoders import PPMDeepsupClip
-from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
+from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d, log_softmax
 from .resnet import build_encoder
-from .warp_our import _int_list, training_not_ported
+from .segmentation import pixel_accuracy, upsampled_logprob_loss_projected
+from .warp_our import _int_list
 
 
 def prop_pred(prev_emb, query_emb, prev_labels, max_distance: int,
@@ -58,7 +64,7 @@ def prop_pred(prev_emb, query_emb, prev_labels, max_distance: int,
     lwin = local_window_gather(labels, max_distance, pad_value=-1.0)
     idx = lwin.flatten(1, 3).flatten(2).long()            # [B, k^2, h*w]
     idx = torch.where(idx < 0, num_class, idx)
-    out = torch.ones(b, num_class + 1, h * w, device=d.device)
+    out = d.new_ones(b, num_class + 1, h * w)
     out.scatter_reduce_(1, idx, d.flatten(1, 2).flatten(2), "amin",
                         include_self=True)
     return out[:, :num_class].unflatten(2, (h, w))
@@ -107,19 +113,33 @@ class PropNet(nn.Module):
         self.segblock = SegBlock(num_class, emb_dim)
 
     def forward(self, imgs, valid_hw=None):
-        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],).
+        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],),
+        or in training {"pred_s": the per-frame head [(T+1)*B, K, h, w],
+        "deepsup": [(T+1)*B, K, h, w], "preds_c": each context frame's
+        SegBlock logits [B, K, h, w]}.
 
         ``valid_hw``: the true (rows, cols) of width-bucketed zero-padded
         ``imgs`` (under inference mode): the masked trunk, each level
         re-zeroed, the decoder on C5's valid region, the heads masked at
         the feature level, and :func:`prop_pred` over the valid region
         (JAX models/propnet.py:99-188)."""
-        if self.training:
-            raise NotImplementedError(training_not_ported("propnet"))
         t1, b = imgs.shape[:2]
         conv_out, fv = masked_encode(self.encoder, imgs.flatten(0, 1),
                                      valid_hw)
-        _, clip_embs, _ = self.decoder(conv_out, fv)
+        deepsup, clip_embs, _ = self.decoder(conv_out, fv)
+        if self.training:
+            pred_s = self.last_layer(self.emb(clip_embs))
+            e2 = self.emb2(clip_embs).unflatten(0, (t1, b))
+            # the per-frame hard labels at the frames' size (JAX
+            # propnet.py:158-172); prop_pred resizes them to the features
+            with torch.no_grad():
+                labels = resize_bilinear(log_softmax(pred_s),
+                                         imgs.shape[-2:]).argmax(1)
+            labels = labels.unflatten(0, (t1, b))
+            preds_c = [self.segblock(torch.cat([e2[-1], prop_pred(
+                e2[f], e2[-1], labels[f], self.max_distance,
+                self.num_class)], 1)) for f in range(t1 - 1)]
+            return {"pred_s": pred_s, "deepsup": deepsup, "preds_c": preds_c}
         with feature_mask((self.emb, self.emb2, self.segblock), fv,
                           clip_embs.shape[-2:]):
             ps = self.last_layer(self.emb(clip_embs)).unflatten(0, (t1, b))
@@ -130,6 +150,25 @@ class PropNet(nn.Module):
                                  self.max_distance, self.num_class, fv)
                 out.append(self.segblock(torch.cat([e2[-1], prop], 1)))
         return (torch.stack(out, 0).mean(0),)
+
+
+def propnet_loss(outs, batch, deep_sup_scale: float | None = 0.4,
+                 allsup_scale: float = 0.3):
+    """Training loss → (loss, acc) (JAX models/propnet.py:191-219;
+    reference propnet.py:186-237): the mean NLL of the context frames'
+    SegBlock logits on the target, plus the per-frame head's and (scaled)
+    the deep supervision's on every frame, scaled by ``allsup_scale``."""
+    labels = batch["labels"]
+    label = labels[-1]
+    all_label = labels.flatten(0, 1)
+    loss_a = upsampled_logprob_loss_projected(outs["pred_s"], all_label)
+    if deep_sup_scale is not None:
+        loss_a = (loss_a + deep_sup_scale * upsampled_logprob_loss_projected(
+            outs["deepsup"], all_label)) * allsup_scale
+    losses = [upsampled_logprob_loss_projected(p, label)
+              for p in outs["preds_c"]]
+    loss = sum(losses) / len(losses) + loss_a
+    return loss, pixel_accuracy(outs["preds_c"][-1], label)
 
 
 def build_propnet(cfg, num_class: int, args) -> PropNet:

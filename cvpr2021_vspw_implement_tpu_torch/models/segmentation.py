@@ -12,6 +12,7 @@ import torch
 
 from ..ops.interpolate import linear_weights, resize_bilinear
 from ..ops.masked import resize_bilinear_rt
+from ..utils.metrics import pixel_acc
 from .layers import log_softmax
 
 
@@ -55,6 +56,14 @@ def upsampled_logprob_loss_projected(logits: torch.Tensor,
     m = torch.einsum("hf,bhwk->bfwk", rh, onehot)
     m = torch.einsum("wg,bfwk->bkfg", rw, m)              # [b, k, fh, fw]
     return -(m * logp).sum() / valid.sum().clamp(min=1)
+
+
+def pixel_accuracy(logits: torch.Tensor, label: torch.Tensor):
+    """Accuracy of the argmax of ``logits`` upsampled to ``label``'s size,
+    255 ignored (the argmax of the upsampled log-probabilities, which the
+    JAX losses take, is the same)."""
+    up = resize_bilinear(logits.detach().float(), label.shape[1:3])
+    return pixel_acc(up, torch.where(label == 255, -1, label))
 
 
 def inference_pred(outputs, seg_size, align_corners: bool = False):

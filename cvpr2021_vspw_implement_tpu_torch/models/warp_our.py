@@ -10,12 +10,15 @@ softmax or the argmax "nearest" quirk), means the scales, means the frames
 with the target's own embedding (optionally scaled per frame by ``w{i}``
 under ``linear_combine``) and classifies with a 1x1 conv.
 
-Only the eval forward is ported: B5 has no backward (the JAX package
-defines none either), so training raises.  Every parameter of the training
-heads exists, with the reference's torch names (``prop_clip.emb.{0,1}``,
-``prop_clip.emb_2.{0,1}``, ``prop_clip.w{i}``, ``prop_clip.last_layer.1``,
-``last_layer.1``), so a ``state_dict()`` reads back through the JAX
-package's ``import_clip_warp_state_dict``.
+Training (JAX models/warp_our.py:196-246) returns the target's logits,
+the decoder's deep supervision and the all-frame head over ``emb_2``; B5's
+gradients come from its explicit backward (ops/local_agg.py: the kernels
+of ``local_agg_bwd.cu`` on the card, their plain version on the CPU).
+``fix`` runs the encoder and decoder in eval mode and stops the gradient at
+their outputs.  The parameters carry the reference's torch names
+(``prop_clip.emb.{0,1}``, ``prop_clip.emb_2.{0,1}``, ``prop_clip.w{i}``,
+``prop_clip.last_layer.1``, ``last_layer.1``), so a ``state_dict()`` reads
+back through the JAX package's ``import_clip_warp_state_dict``.
 """
 
 from __future__ import annotations
@@ -29,12 +32,7 @@ from ..ops.masked import feature_mask, mask_valid, masked_encode
 from .decoders import PPMDeepsupClip
 from .layers import Conv, ConvBNReLU, Dropout2d
 from .resnet import build_encoder
-
-
-def training_not_ported(method: str) -> str:
-    """The refusal of the eval-only window methods' training."""
-    return (f"training of {method} is not ported yet: it follows B5's "
-            "backward (ROADMAP Queue A item 3)")
+from .segmentation import pixel_accuracy, upsampled_logprob_loss_projected
 
 
 def warp_one_scale(target_e2, e2, es, r: int, distsoftmax: bool = False,
@@ -112,8 +110,10 @@ class ClipWarpNet(nn.Module):
     def __init__(self, encoder: nn.Module, num_class: int,
                  fc_dim: int = 2048, clip_num: int = 4, max_distances=(10,),
                  linear_combine: bool = False, distsoftmax: bool = False,
-                 distnearest: bool = False, temp: float = 3.0):
+                 distnearest: bool = False, temp: float = 3.0,
+                 fix: bool = False):
         super().__init__()
+        self.fix = fix
         self.encoder = encoder
         self.decoder = PPMDeepsupClip(num_class, fc_dim)
         self.prop_clip = WarpNet(num_class, clip_num, max_distances,
@@ -124,21 +124,60 @@ class ClipWarpNet(nn.Module):
         self.last_layer = nn.Sequential(Dropout2d(0.1),
                                         Conv(128, num_class, 1))
 
+    def train(self, mode: bool = True):
+        """With ``fix`` the encoder and decoder stay in eval mode (their
+        BatchNorm statistics frozen, the decoder's deep supervision off), as
+        the JAX model runs them with ``train=False``."""
+        super().train(mode)
+        if mode and self.fix:
+            self.encoder.eval()
+            self.decoder.eval()
+        return self
+
     def forward(self, imgs, valid_hw=None):
-        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],).
+        """imgs [T+1, B, 3, H, W], target LAST → (logits [B, K, h, w],),
+        or in training {"pred", "deepsup" ([(T+1)*B, K, h, w], None with
+        ``fix``), "allsup" ([(T+1)*B, K, h, w])}.
 
         ``valid_hw``: the true (rows, cols) of width-bucketed zero-padded
         ``imgs`` (under inference mode): the masked trunk, each level
         re-zeroed, the decoder on C5's valid region, the head masked at
         the feature level (JAX models/warp_our.py:147-213)."""
-        if self.training:
-            raise NotImplementedError(training_not_ported("our_warp"))
         t1 = imgs.shape[0]
         conv_out, fv = masked_encode(self.encoder, imgs.flatten(0, 1),
                                      valid_hw)
-        _, clip_embs, _ = self.decoder(conv_out, fv)
-        pred, _ = self.prop_clip(clip_embs, t1, fv)
-        return (pred,)
+        deepsup, clip_embs, _ = self.decoder(conv_out, fv)
+        if self.fix:
+            clip_embs = clip_embs.detach()
+            deepsup = None if deepsup is None else deepsup.detach()
+        pred, emb2 = self.prop_clip(clip_embs, t1, fv)
+        if not self.training:
+            return (pred,)
+        return {"pred": pred, "deepsup": deepsup,
+                "allsup": self.last_layer(emb2)}
+
+
+def clip_warp_loss(outs, batch, deep_sup_scale: float | None = 0.4,
+                   allsup: bool = False, allsup_scale: float = 0.3,
+                   fix: bool = False):
+    """Training loss → (loss, acc) (JAX models/warp_our.py:219-246;
+    reference models/models.py:183-267): NLL of the target's logits, and
+    with ``allsup`` that of the all-frame head, plus (unless ``fix``) the
+    deep supervision's, scaled.  ``batch["labels"]``: [T+1, B, H, W],
+    target last, 255 = ignore."""
+    labels = batch["labels"]
+    label = labels[-1]
+    loss = upsampled_logprob_loss_projected(outs["pred"], label)
+    if allsup:
+        all_label = labels.flatten(0, 1)
+        loss_a = upsampled_logprob_loss_projected(outs["allsup"], all_label)
+        if deep_sup_scale is not None and not fix:
+            loss_d = upsampled_logprob_loss_projected(outs["deepsup"],
+                                                      all_label)
+            loss = loss + (loss_a + loss_d * deep_sup_scale) * allsup_scale
+        else:
+            loss = loss + loss_a * allsup_scale
+    return loss, pixel_accuracy(outs["pred"], label)
 
 
 def _int_list(v):
@@ -153,4 +192,4 @@ def build_clip_warp(cfg, num_class: int, args) -> ClipWarpNet:
         linear_combine=getattr(args, "linear_combine", False),
         distsoftmax=getattr(args, "distsoftmax", False),
         distnearest=getattr(args, "distnearest", False),
-        temp=getattr(args, "temp", 3.0))
+        temp=getattr(args, "temp", 3.0), fix=getattr(args, "fix", False))

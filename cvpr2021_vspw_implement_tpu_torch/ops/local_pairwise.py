@@ -31,7 +31,8 @@ def valid_region(t: torch.Tensor, valid_hw) -> torch.Tensor:
 
 def local_pairwise_dist(x: torch.Tensor, y: torch.Tensor, r: int,
                         valid_hw=None) -> torch.Tensor:
-    """x, y [B, C, H, W] → dist [B, k, k, H, W] (float32).
+    """x, y [B, C, H, W] → dist [B, k, k, H, W] (float32; float64 for
+    float64 inputs, the backward's second witness on the card).
 
     ``valid_hw``: the true (rows, cols) of the maps inside a width-bucketed
     buffer.  Positions of y at or beyond it get y = 0 and |y|^2 = 1e20, as
@@ -40,7 +41,8 @@ def local_pairwise_dist(x: torch.Tensor, y: torch.Tensor, r: int,
     ``distnearest`` relies on included)."""
     b, _, h, w = x.shape
     k = 2 * r + 1
-    xf, yf = x.float(), y.float()
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, yf = x.to(ct), y.to(ct)
     if valid_hw is not None:
         inside = valid_region(y, valid_hw)
         yf = torch.where(inside, yf, 0.0)

@@ -1,11 +1,11 @@
 """Temporal-method trainer (JAX counterpart: train_clip.py;
 reference train_clip2.py).
 
-``--method`` dispatches over the registry in methods.py (``clip_psp`` and
-``ETC`` so far; ``our_warp``, ``propnet`` and ``our_warp_merge`` are
-eval-only and refused here); the collate functions put the target frame
-last in the stacked [T, B, ...] clip; a step is forward, loss, backward and
-the clip-recipe SGD with 0.1x encoder LR (parallel/).  Weights are a seeded
+``--method`` dispatches over the registry in methods.py (``clip_psp``,
+``ETC``, ``our_warp``, ``propnet`` and ``our_warp_merge``); the collate
+functions put the target frame last in the stacked [T, B, ...] clip; a step
+is forward, loss, backward and the clip-recipe SGD with 0.1x encoder LR and
+1x for every head, the window methods' warp heads included (parallel/).  Weights are a seeded
 random init (``--pre_enc/--pre_dec`` are not ported); checkpoints are
 ``torch.save`` files, every 20 epochs and at the end, and ``--resume_epoch N``
 continues from ``./resume/model_epoch_N.pth`` as the reference does.
@@ -27,10 +27,8 @@ from .config import check_compute_dtype
 from .config import cfg as default_cfg
 from .config.args import build_train_clip_parser, postprocess_args
 from .data import ClipDataset, ClipLoader, LongClipDataset
-from .methods import (EVAL_ONLY_METHODS, LONGCLIP_METHODS, build_method,
-                      get_collate)
+from .methods import LONGCLIP_METHODS, build_method, get_collate
 from .models.layers import init_weights, set_dropout_generator
-from .models.warp_our import training_not_ported
 from .parallel import create_clip_optimizer, to_device, train_step
 from .utils import AverageMeter, resolve_device, setup_logger
 from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -39,8 +37,6 @@ from .utils.checkpoint import load_checkpoint, save_checkpoint
 def train_clip(cfg, args, logger=None, max_steps: int | None = None):
     """Train ``args.method``; stops after ``max_steps`` steps when given.
     Returns the model (on ``args.device``, in training mode)."""
-    if args.method in EVAL_ONLY_METHODS:
-        raise NotImplementedError(training_not_ported(args.method))
     logger = logger or setup_logger()
     device = resolve_device(getattr(args, "device", "cuda"))
     seed = getattr(args, "seed", None)

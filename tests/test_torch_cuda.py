@@ -589,3 +589,122 @@ def test_graph_capture_counts_and_timing_restores(cuda_device):
         clock(lambda: lookup_corr_pyramid(levels, coords),
               counted=(lookup_corr_pyramid,))
     assert (band_zero.launches, lookup_corr_pyramid.launches) == counts
+
+
+# B5's backward (kernels/csrc/local_agg_bwd.cu): within 1e-4 of the largest
+# gradient of a float64 run of the plain backward on near-match inputs, and
+# of the f32 plain backward up to that one's own distance from float64 (both
+# sum up to 441 window terms of 128-256 channel products in other orders;
+# softmax's G carries s^2, up to 1e3 here, times the rounding of distances
+# of 0.01-0.1 taken from norms near 0.3: the f32 plain's dx was 1.5e-4 of
+# its largest element from the kernel, which the float64 run holds within
+# 1e-4); nearest equal off near-ties, through the forward kernel's own index
+
+def _backward_case(device, seed, b, h, w, cd=128, cv=256):
+    x, yd, yv = _local_agg_case(device, seed, b, h, w, cd, cv)
+    g = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal(
+        (b, cv, h, w)).astype(np.float32)).to(device)
+    return x, yd, yv, g
+
+
+def _check_backward(mode, x, yd, yv, g, r):
+    kw = {"temp": 3.0} if mode == "softmax" else {}
+    fn = getattr(local_agg, f"local_{mode}_aggregate_backward")
+    plain = getattr(local_agg, f"local_{mode}_aggregate_backward_plain")
+    before = fn.launches
+    got = fn(x, yd, yv, g, r, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x, yd, yv, g, r, **kw)
+    exact = plain(*(t.double() for t in (x, yd, yv, g)), r, **kw)
+    for name, a, b, e in zip(("x", "y_dist", "y_val"), got, want, exact):
+        scale = e.abs().max().item()
+        if mode == "softmax" and r == 0 and name != "y_val":
+            # a one-position window weighs 1 whatever the distance
+            assert scale == 0 and not a.any(), name
+            continue
+        assert scale > 0, name
+        err = (a.double() - e).abs().max().item()
+        assert err <= 1e-4 * scale, (name, err, scale)
+        own = (b.double() - e).abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * scale + own, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,r,cd", [
+    (2, 60, 60, 10, 128),     # our_warp's training shape
+    (2, 60, 60, 10, 256),     # our_warp_merge's
+    (1, 37, 53, 0, 128),      # one key
+    (1, 37, 53, 15, 128),     # the largest window
+    (2, 6, 41, 15, 64),       # 6 rows: every window leaves the image
+    (1, 21, 45, 6, 200)])     # a partial channel chunk
+@pytest.mark.parametrize("mode", ["sigmoid", "softmax"])
+def test_local_agg_backward_kernel_matches_plain(cuda_device, mode, b, h, w,
+                                                 r, cd):
+    _check_backward(mode, *_backward_case(cuda_device, 30 + r, b, h, w, cd),
+                    r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sigmoid", "softmax"])
+def test_local_agg_backward_kernel_matches_float64(cuda_device, mode):
+    """At our_warp_merge's shape, another seed."""
+    _check_backward(mode, *_backward_case(cuda_device, 41, 2, 60, 60, 256),
+                    10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,r,cd", [
+    (2, 60, 60, 10, 128), (2, 60, 60, 10, 256), (1, 37, 53, 0, 128),
+    (1, 37, 53, 15, 128), (2, 6, 41, 15, 64)])
+def test_nearest_backward_kernel_matches_plain(cuda_device, b, h, w, r, cd):
+    """The forward's index is the plain argmax off near-ties, the output is
+    bitwise the forward without an index, and the backward through the
+    shared index equals the plain one bitwise (the same additions in the
+    same order)."""
+    x, yd, yv, g = _backward_case(cuda_device, 50 + r, b, h, w, cd)
+    out, idx = local_agg.local_nearest_aggregate_index(x, yd, yv, r)
+    torch.cuda.synchronize()
+    assert torch.equal(out, local_agg.local_nearest_aggregate(x, yd, yv, r))
+    keep = ~_near_ties(x, yd, r)
+    want_idx = local_agg.local_nearest_index_plain(x, yd, r)
+    assert torch.equal(idx.long()[keep], want_idx[keep])
+    fn = local_agg.local_nearest_aggregate_backward
+    before = fn.launches
+    got = fn(idx, g, r)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = local_agg.local_nearest_aggregate_backward_plain(idx.long(), g, r)
+    assert torch.equal(got, want)
+    if r < 15:
+        assert got.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sigmoid", "softmax", "nearest"])
+def test_local_agg_autograd_on_the_card(cuda_device, mode):
+    """``.backward()`` through the public function launches the forward and
+    the backward kernels once each and gives the plain backward's
+    gradients (nearest: through the forward kernel's index)."""
+    x, yd, yv, g = _backward_case(cuda_device, 60, 2, 30, 40)
+    ts = [t.clone().requires_grad_() for t in (x, yd, yv)]
+    fwd = getattr(local_agg, f"local_{mode}_aggregate")
+    bwd = getattr(local_agg, f"local_{mode}_aggregate_backward")
+    counts = fwd.launches, bwd.launches
+    out = fwd(*ts, 5)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    if mode == "nearest":
+        _, idx = local_agg.local_nearest_aggregate_index(x, yd, yv, 5)
+        assert ts[0].grad is None and ts[1].grad is None
+        assert torch.equal(ts[2].grad, local_agg.
+                           local_nearest_aggregate_backward_plain(
+                               idx.long(), g, 5))
+        return
+    want = getattr(local_agg, f"local_{mode}_aggregate_backward_plain")(
+        x, yd, yv, g, 5)
+    for t, b in zip(ts, want):
+        assert (t.grad - b).abs().max() <= 1e-4 * b.abs().max()
+    with pytest.raises(ValueError, match="eval only"):
+        fwd(*ts, 5, valid_hw=(20, 30))

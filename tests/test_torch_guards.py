@@ -47,6 +47,7 @@ def _port_sources():
     yield os.path.join(PORT, os.pardir, "tools", "torch_bucket_profile.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_mma_split_bench.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_launch_bench.py")
+    yield os.path.join(PORT, os.pardir, "tools", "torch_nearest_picks.py")
     for d, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):

@@ -17,10 +17,9 @@ valid 6x9).
 * ``test_clip --method propnet`` / ``our_warp_merge`` with the default
   ``--width_bucket 64`` against the JAX CLI: identical PNGs, equal mIoU
   and VC;
-* the trainer refuses both.
+* both train (outputs, loss and gradients), but not width-bucketed.
 """
 
-import argparse
 import os
 
 import jax
@@ -34,7 +33,7 @@ from cvpr2021_vspw_implement_tpu.models import propnet as jax_propnet
 from cvpr2021_vspw_implement_tpu.models.import_torch import (
     import_propnet_state_dict, import_warp_merge_state_dict)
 from cvpr2021_vspw_implement_tpu.test_clip import evaluate_clip
-from cvpr2021_vspw_implement_tpu_torch import test_clip, train_clip
+from cvpr2021_vspw_implement_tpu_torch import test_clip
 from cvpr2021_vspw_implement_tpu_torch.methods import build_method
 from cvpr2021_vspw_implement_tpu_torch.models import propnet
 from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
@@ -182,8 +181,29 @@ def test_cli_bucketed_matches_jax(root, tmp_path, method):  # noqa: F811
 
 @pytest.mark.parametrize("method", list(IMPORTERS))
 def test_training_is_refused(method):
-    with pytest.raises(NotImplementedError, match="B5's backward"):
-        train_clip.train_clip(None, argparse.Namespace(method=method))
-    port = _models(method)[-1]
-    with pytest.raises(NotImplementedError, match="B5's backward"):
-        port.train()(torch.zeros(4, 1, 3, H, W))
+    """Training runs now (propnet through its plain distances,
+    our_warp_merge through B5's explicit backward); what is still refused
+    is training width-bucketed, with a valid size, as in JAX.  The
+    training outputs' shapes and the registered loss's gradients reaching
+    the method's head and the encoder."""
+    _, args, _, _, port = _models(method)
+    port.train()
+    imgs = torch.from_numpy(_window(5, 4).transpose(0, 1, 4, 2, 3).copy())
+    outs = port(imgs)
+    h, w = H // 8, W // 8
+    assert outs["pred_s"].shape == outs["deepsup"].shape == (4, K, h, w)
+    assert [p.shape for p in outs["preds_c"]] == (
+        [(1, K, h, w)] * (3 if method == "propnet" else 1))
+    _, loss_fn = build_method(method, _cfgs()[1], args)
+    labels = torch.from_numpy(np.random.default_rng(6).integers(
+        0, K, (4, 1, H, W)))
+    loss, _ = loss_fn(outs, {"labels": labels})
+    loss.backward()
+    assert torch.isfinite(loss)
+    head = {"propnet": "segblock.conv1.conv1.weight",
+            "our_warp_merge": "prop_clip.last_layer2.1.weight"}[method]
+    grads = dict(port.named_parameters())
+    assert grads[head].grad.abs().max() > 0
+    assert grads["encoder.conv1.weight"].grad.abs().max() > 0
+    with pytest.raises(ValueError):
+        port(torch.zeros(4, 1, 3, *PAD), valid_hw=(H, W))

@@ -219,7 +219,8 @@ def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     from cvpr2021_vspw_implement_tpu_torch import kernels
     assert set(kernels.SIGNATURES) == {"corr_lookup", "sep_gru",
                                        "motion_encoder", "gru_flowhead",
-                                       "local_agg", "band_zero"}
+                                       "local_agg", "local_agg_bwd",
+                                       "band_zero"}
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", str(csrc))

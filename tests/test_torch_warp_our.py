@@ -16,7 +16,8 @@ ClipWarpNet eval forward) against the JAX package.
   tests/test_warp_our.py and with two scales, within 1e-4 of the logits'
   range, with perturbed BatchNorm statistics;
 * the ``state_dict`` round trip through ``import_clip_warp_state_dict``
-  (exact), and the trainer's refusal of our_warp.
+  (exact); training in each mode (its outputs, its loss's gradients, the
+  method's loss registered), and the refusal of training with a valid size.
 """
 
 import argparse
@@ -36,10 +37,12 @@ from cvpr2021_vspw_implement_tpu.models.warp_our import \
     warp_one_scale as jax_warp_one_scale
 from cvpr2021_vspw_implement_tpu.ops import local_pairwise as jlp
 from cvpr2021_vspw_implement_tpu.ops.pallas import local_agg as jpallas
-from cvpr2021_vspw_implement_tpu_torch import train_clip
+from cvpr2021_vspw_implement_tpu_torch import methods
+from cvpr2021_vspw_implement_tpu_torch.config import cfg as port_default_cfg
 from cvpr2021_vspw_implement_tpu_torch.convert import load_jax_variables
 from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
-from cvpr2021_vspw_implement_tpu_torch.models.warp_our import ClipWarpNet
+from cvpr2021_vspw_implement_tpu_torch.models.warp_our import (
+    ClipWarpNet, clip_warp_loss)
 from cvpr2021_vspw_implement_tpu_torch.ops import local_agg, local_pairwise
 from torch_port_util import (assert_trees_equal, local_agg_inputs,
                              perturb_batchnorm, to_nchw, to_nhwc)
@@ -167,6 +170,13 @@ def _args(**kw):
     return ns
 
 
+def _pcfg():
+    cfg = port_default_cfg.clone()
+    cfg.MODEL.arch_encoder = "resnet18dilated"
+    cfg.MODEL.fc_dim = 512
+    return cfg
+
+
 def _models(mode):
     args = _args(**MODEL_MODES[mode])
     jmodel = JaxClipWarpNet(encoder=ModelBuilder.build_encoder(
@@ -215,8 +225,36 @@ def test_clip_warp_state_dict_round_trip():
 
 
 def test_our_warp_training_is_refused():
-    with pytest.raises(NotImplementedError, match="B5's backward"):
-        train_clip.train_clip(None, argparse.Namespace(method="our_warp"))
-    _, _, port = _models("sigmoid")
-    with pytest.raises(NotImplementedError, match="B5's backward"):
-        port.train()(torch.zeros(T, 1, 3, H, W))
+    """Training runs now (B5's explicit backward), in each mode; what is
+    still refused is training width-bucketed, with a valid size: the masked
+    paths are eval only, as in JAX.  The training outputs' shapes, and the
+    loss's gradient reaching both embeddings and the encoder."""
+    for mode in ("sigmoid", "softmax", "nearest"):
+        _check_training(mode)
+    assert methods.build_method("our_warp", _pcfg(), _args(
+        num_class=K, clip_num=T))[1] is not None
+
+
+def _check_training(mode):
+    _, _, port = _models(mode)
+    port.train()
+    imgs = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(T, 2, 3, H, W)).astype(np.float32))
+    outs = port(imgs)
+    assert set(outs) == {"pred", "deepsup", "allsup"}
+    assert outs["pred"].shape == (2, K, H // 8, W // 8)
+    assert outs["deepsup"].shape == outs["allsup"].shape == (
+        2 * T, K, H // 8, W // 8)
+    labels = torch.from_numpy(np.random.default_rng(4).integers(
+        0, K, (T, 2, H, W)))
+    loss, acc = clip_warp_loss(outs, {"labels": labels}, allsup=True)
+    loss.backward()
+    assert torch.isfinite(loss) and 0 <= acc <= 1
+    grads = {n: p.grad for n, p in port.named_parameters()}
+    assert grads["prop_clip.emb.0.weight"].abs().max() > 0
+    assert grads["encoder.conv1.weight"].abs().max() > 0
+    # emb_2 also feeds the all-frame head: the warp's own part is checked
+    # in tests/test_torch_local_agg_grad.py
+    assert grads["prop_clip.emb_2.0.weight"].abs().max() > 0
+    with pytest.raises(ValueError):
+        port(torch.zeros(T, 1, 3, H + 8, W + 8), valid_hw=(H, W))

@@ -1,6 +1,7 @@
 """Where a train step of the PyTorch port spends its time on the GPU.
 
-    python3 tools/torch_step_profile.py [--method ETC|clip_psp] [--out DIR]
+    python3 tools/torch_step_profile.py [--method ETC|clip_psp|our_warp|propnet]
+        [--out DIR]
 
 Runs the trainer itself (``train_clip.main``: its parser, data loader and
 ``train_step``) with the R101 preset at the recipe's shape (crop 479, batch
@@ -36,7 +37,11 @@ PRESET = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
                       "presets", "vsp-resnet101dilated-ppm_deepsup_clip.yaml")
 FLAGS = {"ETC": ["--clip_num", "2", "--dilation_num", "0", "--st_weight",
                  "0.1"],
-         "clip_psp": ["--clip_num", "4", "--dilation2", "3,6,9"]}
+         "clip_psp": ["--clip_num", "4", "--dilation2", "3,6,9"],
+         # the bench's our_warp_train row, and PropNet at the same r
+         "our_warp": ["--clip_num", "4", "--max_distances", "10",
+                      "--allsup", "true"],
+         "propnet": ["--clip_num", "4", "--max_distances", "10"]}
 
 
 def main(argv=None) -> int:
