@@ -16,8 +16,9 @@
    zero); sigmoid at our_warp_merge's 256-d distances, exact and bucketed;
    B5's backward, ``local_agg_bwd.cu``, at the training shape 2x60x60, r =
    10: sigmoid, softmax and nearest at Cd 128, sigmoid at Cd 256, against
-   the plain backward, timed beside ``.backward()`` through the unfold
-   formulation;
+   the plain backward in float64, timed beside ``.backward()`` through the
+   unfold formulation, the smooth modes' query-side and key-side kernels
+   apart with their tensor-core route;
    the band re-zero: R101 features
    and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
    and a no-band case, bitwise)
@@ -433,7 +434,8 @@ def ptxas_lines(log):
             name = line.split("'")[1] if "'" in line else line
         elif name and any(k in name for k in (
                 "tap_mma_kernel", "local_agg_kernel", "corr_lookup_kernel",
-                "band_zero_kernel")) and (
+                "band_zero_kernel", "query_kernel", "key_kernel",
+                "nearest_kernel")) and (
                 "registers" in line or "spill" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -786,6 +788,14 @@ LOCAL_AGG_BACKWARD_CASES = (
     ("merge 2x60x60, Cd 256, Cv 256, r 10", 256, ("sigmoid",)))
 
 
+#: how local_agg_bwd.cu computes each smooth mode's window products
+BACKWARD_ROUTES = {
+    "sigmoid": "tensor cores, 3xTF32 mma.sync m16n8k8, every window product "
+               "(D, A, dx; dy_dist, dy_val)",
+    "softmax": "tensor cores, 3xTF32 mma.sync m16n8k8 (A, dx; dy_dist, "
+               "dy_val); the distances D on the CUDA cores in f32"}
+
+
 #: the seed of the generator that makes LOCAL_AGG_BACKWARD_CASES' inputs
 BACKWARD_SEED = 8
 
@@ -907,7 +917,8 @@ def check_local_agg_backward(torch):
                         if f"{side}_kernel" in k) or None
                 print(f"{name} at {label}: query-side kernel "
                       f"{row['query_kernel_ms']} ms, key-side kernel "
-                      f"{row['key_kernel_ms']} ms (profiler device time)")
+                      f"{row['key_kernel_ms']} ms (profiler device time); "
+                      f"route: {BACKWARD_ROUTES[mode]}")
             row["plain_ms"] = cuda_ms(lambda: plain_fn(*plain_args), n=3,
                                       warm=1)
             torch.backends.cuda.matmul.allow_tf32 = True

@@ -3,8 +3,12 @@ config/args.py ``build_train_clip_parser`` and ``postprocess_args``;
 reference train_clip2.py:404-489), plus ``--device`` and ``--seed``.
 
 Flag names and defaults are the reference's, so its shell entry points
-translate 1:1.  Flags of methods that are not ported yet stay parsed and
-unused.
+translate 1:1.  Every flag that the JAX clip trainer reads, the port's
+reads (``--pre_enc`` / ``--pre_dec``: pretrained.py).  Flags that neither
+clip trainer reads (the reference's multi-GPU and per-frame flags, and
+those of methods that are not ported: ``--gpus``, ``--trainfps``,
+``--clip_up``, ``--othergt``, ``--use_memory`` ...) stay parsed for the
+reference's shell entry points.
 """
 
 import argparse

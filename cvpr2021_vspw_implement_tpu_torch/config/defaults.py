@@ -15,6 +15,10 @@ _C.MODEL = CN()
 _C.MODEL.arch_encoder = "resnet50dilated"
 _C.MODEL.arch_decoder = "ppm_deepsup"
 _C.MODEL.fc_dim = 2048
+# reference torch checkpoints for the pretrained init (pretrained.py); the
+# train_clip flags --pre_enc / --pre_dec take precedence
+_C.MODEL.weights_encoder = ""
+_C.MODEL.weights_decoder = ""
 
 _C.TRAIN = CN()
 _C.TRAIN.batch_size_per_gpu = 2

@@ -166,6 +166,17 @@ def check_inputs(what: str, tensors) -> None:
                              f"{dev}")
 
 
+def check_no_grad(what: str, tensors) -> None:
+    """Raise, before any launch, when autograd would record the call: the
+    kernel has no backward, so its output would carry no graph.  Only the
+    operands handed to the kernel count, and only while grad is enabled:
+    parameters that keep ``requires_grad`` under ``no_grad`` or inference
+    mode (tc_cal's RAFT) pass."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"the {what} kernel has no backward: it takes no "
+                         "tensor that requires grad")
+
+
 def check_aligned(what: str, tensors) -> None:
     """Raise unless every tensor starts on a 16-byte boundary: the
     tensor-core kernels copy weights 16 bytes at a time."""

@@ -45,9 +45,13 @@ def gru_flowhead(net, x, weights):
     """The layout of :func:`gru_flowhead_plain`.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``kernels/csrc/gru_flowhead.cu``
     (six launches behind one C entry point; the GRU and the flow head's
-    first conv on the tensor cores at f32 accuracy: 3xTF32)."""
+    first conv on the tensor cores at f32 accuracy: 3xTF32).  The kernel has
+    no backward: while grad is enabled it refuses an operand that requires
+    grad before any launch; the plain version stays differentiable."""
     if net.device.type == "cpu":
         return gru_flowhead_plain(net, x, weights)
+    kernels.check_no_grad("GRU + flow-head", (
+        net, x, *(t for pair in weights.values() for t in pair)))
     if net.device.type != "cuda":
         raise RuntimeError(f"no GRU + flow head for device {net.device}")
     b, hd, hh, ww = net.shape

@@ -50,7 +50,7 @@ from .local_pairwise import (local_pairwise_dist, local_weighted_aggregate,
                              local_window_gather, valid_region)
 
 #: limits of the kernels' shared-memory staging and register tiles
-#: (local_agg.cu)
+#: (local_agg.cu, local_agg_bwd.cu)
 MAX_RADIUS = 15
 MAX_DIST_CHANNELS = 256
 
@@ -244,14 +244,16 @@ def local_aggregate_backward_flops(mode: str, b: int, h: int, w: int,
 
 def _backward_launch(fn, mode: str, x, y_dist, y_val, g, r: int, *extra):
     """(dx, dy_dist, dy_val) from the query-side and key-side kernels of
-    local_agg_bwd.cu; one count on ``fn`` for the pair."""
+    local_agg_bwd.cu (their window products on the tensor cores in 3xTF32,
+    softmax's distances on the CUDA cores in f32); one count on ``fn`` for
+    the pair.  The [B, k*k, H, W] scratch of w and G is the wrapper's."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no {fn.__name__} for device {x.device}")
     b, cd, h, w = x.shape
     cv = y_val.shape[1]
-    if not 0 <= r <= MAX_RADIUS:
+    if not 0 <= r <= MAX_RADIUS or not 1 <= cd <= MAX_DIST_CHANNELS:
         raise ValueError(f"{fn.__name__}: the kernel takes 0 <= r <= "
-                         f"{MAX_RADIUS}")
+                         f"{MAX_RADIUS} and 1 <= Cd <= {MAX_DIST_CHANNELS}")
     kernels.check_inputs(fn.__name__, (x, y_dist, y_val, g))
     kk = (2 * r + 1) ** 2
     wbuf = torch.empty(b, kk, h, w, device=x.device)

@@ -95,9 +95,13 @@ def motion_encoder(corr, flow, weights):
     """The layout of :func:`motion_encoder_plain`.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``kernels/csrc/motion_encoder.cu``
     (five launches behind one C entry point; convc1, convc2, convf2 and conv
-    on the tensor cores at f32 accuracy: 3xTF32)."""
+    on the tensor cores at f32 accuracy: 3xTF32).  The kernel has no
+    backward: while grad is enabled it refuses an operand that requires grad
+    before any launch; the plain version stays differentiable."""
     if corr.device.type == "cpu":
         return motion_encoder_plain(corr, flow, weights)
+    kernels.check_no_grad("motion-encoder", (
+        corr, flow, *(t for pair in weights.values() for t in pair)))
     if corr.device.type != "cuda":
         raise RuntimeError(f"no motion encoder for device {corr.device}")
     b, ck, hh, ww = corr.shape

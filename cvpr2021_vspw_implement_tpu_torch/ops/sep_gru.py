@@ -45,9 +45,12 @@ def sep_conv_gru_pass(h, x, wzr, bzr, wq, bq, axis: int):
     """One pass, the layout of :func:`sep_conv_gru_pass_plain`.  A CPU
     tensor takes the plain version; a CUDA tensor launches
     ``kernels/csrc/sep_gru.cu`` (gate, then q and blend, on the tensor cores
-    at f32 accuracy: 3xTF32)."""
+    at f32 accuracy: 3xTF32).  The kernel has no backward: while grad is
+    enabled it refuses an operand that requires grad before any launch; the
+    plain version stays differentiable."""
     if h.device.type == "cpu":
         return sep_conv_gru_pass_plain(h, x, wzr, bzr, wq, bq, axis)
+    kernels.check_no_grad("GRU", (h, x, wzr, bzr, wq, bq))
     if h.device.type != "cuda":
         raise RuntimeError(f"no GRU pass for device {h.device}")
     b, hd, hh, ww = h.shape

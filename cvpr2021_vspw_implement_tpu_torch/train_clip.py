@@ -6,7 +6,9 @@ reference train_clip2.py).
 functions put the target frame last in the stacked [T, B, ...] clip; a step
 is forward, loss, backward and the clip-recipe SGD with 0.1x encoder LR and
 1x for every head, the window methods' warp heads included (parallel/).  Weights are a seeded
-random init (``--pre_enc/--pre_dec`` are not ported); checkpoints are
+random init, then ``--pre_enc/--pre_dec`` (or ``MODEL.weights_encoder/
+decoder``) load reference per-frame checkpoints over the encoder and the
+decoder (pretrained.py), as the paper's recipe starts; checkpoints are
 ``torch.save`` files, every 20 epochs and at the end, and ``--resume_epoch N``
 continues from ``./resume/model_epoch_N.pth`` as the reference does.
 
@@ -30,6 +32,7 @@ from .data import ClipDataset, ClipLoader, LongClipDataset
 from .methods import LONGCLIP_METHODS, build_method, get_collate
 from .models.layers import init_weights, set_dropout_generator
 from .parallel import create_clip_optimizer, to_device, train_step
+from .pretrained import apply_pretrained_init
 from .utils import AverageMeter, resolve_device, setup_logger
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -43,6 +46,7 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
     seed = cfg.TRAIN.seed if seed is None else seed
     model, loss_fn = build_method(args.method, cfg, args)
     init_weights(model, torch.Generator().manual_seed(seed))
+    apply_pretrained_init(model, cfg, args, logger)
     model.to(device).train()
     set_dropout_generator(
         model, torch.Generator(device=device).manual_seed(seed))

@@ -215,6 +215,46 @@ def test_sep_gru_kernel_matches_float64(cuda_device, axis):
     assert err <= 1e-5, err
 
 
+def _update_cases(device):
+    """(wrapper, its arguments, the tensors that may require grad) of B2,
+    B3 and B4 at a small shape on ``device``."""
+    rng = np.random.default_rng(13)
+    gru = [t.to(device)
+           for t in port_gru_args(*gru_inputs(rng, 1, 8, 12, 128, 64, 0))]
+    corr, flow, enc = _motion_case(device, 14, 1, 8, 12)
+    net, x, p = gru_flowhead_inputs(rng, 1, 8, 12)
+    net, x = to_nchw(net).to(device), to_nchw(x).to(device)
+    fh = weights_to(port_gru_flowhead_weights(p), device)
+    return {"sep_gru": (sep_conv_gru_pass, (*gru, 0), gru[2]),
+            "motion_encoder": (motion_encoder, (corr, flow, enc),
+                               enc["convc1"][0]),
+            "gru_flowhead": (gru_flowhead, (net, x, fh), fh["zr1"][0])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sep_gru", "motion_encoder",
+                                  "gru_flowhead"])
+def test_update_kernels_refuse_grad(cuda_device, name):
+    """B2-B4 have no backward: under grad, an activation or a weight that
+    requires grad is refused before any launch; under no_grad, weights that
+    keep requires_grad (tc_cal's RAFT) launch as before."""
+    fn, args, weight = _update_cases(cuda_device)[name]
+    before = fn.launches
+    weight.requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        fn(*args)
+    weight.requires_grad_(False)
+    act = args[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        fn(act, *args[1:])
+    assert fn.launches == before
+    weight.requires_grad_()
+    with torch.no_grad():
+        fn(act, *args[1:])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [36, 100])
 def test_gru_kernels_refuse_hd_not_multiple_of_32(cuda_device, hd):
@@ -651,6 +691,47 @@ def test_local_agg_backward_kernel_matches_float64(cuda_device, mode):
     """At our_warp_merge's shape, another seed."""
     _check_backward(mode, *_backward_case(cuda_device, 41, 2, 60, 60, 256),
                     10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,r,cd,cv", [
+    (1, 33, 65, 10, 128, 256),    # 65 columns: a third block of one column
+    (1, 17, 129, 10, 256, 256),   # 129 columns, 17 rows, our_warp_merge's Cd
+    (1, 17, 129, 13, 256, 256),   # six key tiles: y_val in two stages
+    (1, 21, 45, 6, 128, 320),     # three dy_val chunks of 128, the last 64
+    (1, 21, 45, 10, 100, 40)])    # partial 32-channel K steps of both
+@pytest.mark.parametrize("mode", ["sigmoid", "softmax"])
+def test_local_agg_backward_kernel_tiles(cuda_device, mode, b, h, w, r, cd,
+                                         cv):
+    """The tensor-core kernels' tiles at ragged edges: widths and heights
+    that are not multiples of the 32-column blocks or the 16-position
+    m-tiles, Cv past one key-side chunk, channels past a K step."""
+    _check_backward(mode, *_backward_case(cuda_device, 70 + r, b, h, w, cd,
+                                          cv), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sigmoid", "softmax"])
+def test_local_agg_backward_kernel_is_deterministic(cuda_device, mode):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    x, yd, yv, g = _backward_case(cuda_device, 80, 2, 60, 60)
+    fn = getattr(local_agg, f"local_{mode}_aggregate_backward")
+    first = fn(x, yd, yv, g, 10)
+    second = fn(x, yd, yv, g, 10)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_local_agg_backward_kernel_refuses_wide_cd(cuda_device):
+    """Cd > 256, as the forward kernel: refused before any launch."""
+    x, yd, yv, g = _backward_case(cuda_device, 81, 1, 8, 12, 264, 16)
+    fn = local_agg.local_sigmoid_aggregate_backward
+    before = fn.launches
+    with pytest.raises(ValueError, match="Cd <= 256"):
+        fn(x, yd, yv, g, 2)
+    assert fn.launches == before
 
 
 @pytest.mark.cuda

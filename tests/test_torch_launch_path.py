@@ -22,7 +22,7 @@ from cvpr2021_vspw_implement_tpu_torch.ops.gru_flowhead import gru_flowhead
 from cvpr2021_vspw_implement_tpu_torch.ops.motion_encoder import \
     motion_encoder
 from cvpr2021_vspw_implement_tpu_torch.ops.sep_gru import sep_conv_gru_pass
-from torch_port_util import pyramid, query_coords
+from torch_port_util import gru_inputs, port_gru_args, pyramid, query_coords
 
 
 def _port(levels, coords_nhwc):
@@ -105,3 +105,31 @@ def test_wrapper_refuses_other_device_before_launch(name):
     with pytest.raises(RuntimeError, match="for device meta"):
         fn(*args())
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("name", ["sep_gru", "motion_encoder",
+                                  "gru_flowhead"])
+def test_update_wrappers_refuse_grad_before_launch(name):
+    """B2-B4 have no backward: off the CPU, while grad is enabled, an
+    operand that requires grad is refused before the device's path and no
+    launch is counted; under ``no_grad`` the same operands go on to the
+    launch path (here: the meta device's refusal)."""
+    fn, make = OTHER_WRAPPERS[name]
+    args = make()
+    args = (args[0].requires_grad_(), *args[1:])
+    before = fn.launches
+    with pytest.raises(ValueError, match="requires grad"):
+        fn(*args)
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="for device meta"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_update_wrappers_stay_differentiable_on_the_cpu():
+    """The plain versions that the CPU takes keep their autograd graph."""
+    args = port_gru_args(*gru_inputs(np.random.default_rng(1), 1, 6, 8, 32,
+                                     16, 0))
+    args[0].requires_grad_()
+    sep_conv_gru_pass(*args, 0).sum().backward()
+    assert args[0].grad is not None and args[0].grad.abs().sum() > 0
