@@ -15,17 +15,20 @@
    the valid size 60x107 (also against the launch on the crop, and its band
    zero); sigmoid at our_warp_merge's 256-d distances, exact and bucketed;
    B5's backward, ``local_agg_bwd.cu``, at the training shape 2x60x60, r =
-   10: sigmoid, softmax and nearest at Cd 128, sigmoid at Cd 256, against
-   the plain backward in float64, timed beside ``.backward()`` through the
-   unfold formulation, the smooth modes' query-side and key-side kernels
-   apart with their tensor-core route;
+   10: sigmoid and softmax at Cd 128, sigmoid at Cd 256, against the plain
+   backward in float64, timed beside ``.backward()`` through the unfold
+   formulation, their query-side and key-side kernels apart with their
+   tensor-core route; nearest bitwise the plain backward at Cd 128 and at a
+   crowded index (one key picked 441 times an image), beside one
+   ``scatter_add_``;
    the band re-zero: R101 features
    and C5 in the 480x896 bucket, a correlation-pyramid level, a rows-only
    and a no-band case, bitwise)
    with TF32 off, and times kernel, plain version, bound and the PyTorch
-   yardstick (CUDA events over back-to-back calls); the corr lookup (B1)
-   and the band re-zero (B6), whose launches are shorter than their host
-   enqueue, on three clocks instead (kernels/timing.py): device time a
+   yardstick (CUDA events over back-to-back calls); the corr lookup (B1),
+   the band re-zero (B6) and nearest's backward, whose launches are
+   shorter than their host enqueue, on three clocks instead
+   (kernels/timing.py): device time a
    launch from a replayed CUDA graph (their ``ms``), the profiler's device
    time, and the host's enqueue a call, for the kernel and its yardsticks,
    beside the bound and the 32-byte sectors the call must touch; then
@@ -281,8 +284,9 @@ def check_corr_lookup(torch, shape, pyr, coords):
 
 def three_clocks(kernel, plain, yardsticks, wrapper):
     """The clocks of a kernel whose device time may be shorter than its
-    host enqueue (B1, B6): ``ms``, ``plain_ms`` and ``<name>_ms`` of each
-    yardstick (``library`` first) are device times a call, from a CUDA graph
+    host enqueue (B1, B6, nearest's backward): ``ms``, ``plain_ms`` and
+    ``<name>_ms`` of each yardstick (``library`` first) are device times a
+    call, from a CUDA graph
     of the calls replayed between events (kernels/timing.py::device_ms);
     ``profiler_ms`` and ``<name>_profiler_ms`` the profiler's device time a
     call; ``enqueue_ms`` and ``<name>_enqueue_ms`` the host's time a call.
@@ -845,22 +849,114 @@ def nearest_index_check(torch, x, yd, yv, r):
     return idx, torch.where(differ & tie, idx.long(), plain_idx)
 
 
+def crowded_y_dist(torch, yd, r):
+    """``yd`` scaled by 100 at the keys whose row and column are both r mod
+    2r + 1: every window that lies inside the image holds exactly one of
+    them, and the nearest mode's argmax picks it, so one key takes (2r +
+    1)^2 picks an image (a key with an outlier norm in trained
+    embeddings)."""
+    k = 2 * r + 1
+    h, w = yd.shape[-2:]
+    on = ((torch.arange(h, device=yd.device) % k == r)[:, None]
+          & (torch.arange(w, device=yd.device) % k == r))
+    return torch.where(on, 100.0 * yd, yd)
+
+
+def nearest_picks(torch, idx, r):
+    """[B, H * W]: how many queries of each image picked each key inside it,
+    from the window offsets ``idx`` [B, H, W] (o = dy * k + dx from (row -
+    r, col - r)); a pick outside the image takes nothing."""
+    b, h, w = idx.shape
+    k = 2 * r + 1
+    idx = idx.long()
+    rows = torch.arange(h, device=idx.device)[:, None] + idx // k - r
+    cols = torch.arange(w, device=idx.device) + idx % k - r
+    inside = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    key = (torch.arange(b, device=idx.device)[:, None, None] * h * w
+           + rows * w + cols)[inside]
+    return torch.bincount(key, minlength=b * h * w).view(b, h * w)
+
+
+def nearest_scatter_add(torch, idx, g, r):
+    """The one PyTorch call that computes the nearest backward, the
+    yardstick of its kernel (never called by the port): ``scatter_add_`` of
+    g [B, Cv, H, W] into a zero [B, Cv, (H + 2r)(W + 2r)] buffer at each
+    query's padded key index, expanded over Cv.  The index and the buffer
+    are made here, outside the call.  Returns (the call, the buffer cropped
+    to [B, Cv, H, W])."""
+    b, cv, h, w = g.shape
+    k, wp = 2 * r + 1, w + 2 * r
+    idx = idx.long()
+    at = ((torch.arange(h, device=g.device)[:, None] + idx // k) * wp
+          + torch.arange(w, device=g.device) + idx % k)
+    at = at.view(b, 1, h * w).expand(b, cv, h * w)
+    buf = g.new_zeros(b, cv, (h + 2 * r) * wp)
+    src = g.view(b, cv, h * w)
+    return (lambda: buf.scatter_add_(2, at, src),
+            buf.view(b, cv, h + 2 * r, wp)[..., r:r + h, r:r + w])
+
+
+def check_nearest_backward(torch, label, x, yd, yv, up, r):
+    """The nearest backward kernel, gathering through the forward kernel's
+    index (held by :func:`nearest_index_check`), against the plain backward
+    through the plain argmax: equal (the same additions in the same order).
+    ``scatter_add_`` (:func:`nearest_scatter_add`) within 1e-5 of the
+    largest element (its atomics add in another order).  The kernel and
+    ``scatter_add_`` timed by graph replay, the profiler and the host, the
+    plain backward by graph replay (:func:`three_clocks`).  Bound: the
+    bytes this index needs, the index read once, dy_val written once and g
+    read at the picks inside the image (all of g read: ``bound_all_g_ms``).
+    Returns the row."""
+    from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
+
+    fn = local_agg.local_nearest_aggregate_backward
+    plain_fn = local_agg.local_nearest_aggregate_backward_plain
+    idx, plain_idx = nearest_index_check(torch, x, yd, yv, r)
+    b, cv, h, w = up.shape
+    got = fn(idx, up, r)
+    want = plain_fn(plain_idx, up, r)
+    library, crop = nearest_scatter_add(torch, idx, up, r)
+    library()
+    inside = int(nearest_picks(torch, idx, r).sum().item())
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    scale = want.abs().max().item()
+    lib_err = (crop - want).abs().max().item() / scale
+    print(f"local_nearest_aggregate_backward at {label}: kernel equal to the "
+          f"plain backward {equal} (limit equal); scatter_add_ max |library "
+          f"- plain| / max |plain| {lib_err:.3e} (limit 1e-5)")
+    if not equal or not lib_err <= 1e-5:
+        raise SystemExit("local_nearest_aggregate_backward kernel or its "
+                         f"scatter_add_ yardstick disagrees at {label}")
+    row = {"shape": label, "max_abs_err": (got - want).abs().max().item(),
+           **three_clocks(lambda: fn(idx, up, r),
+                          lambda: plain_fn(plain_idx, up, r),
+                          {"library": library}, fn),
+           "bound_ms": 1e3 * 4 * (b * h * w + b * cv * h * w + inside * cv)
+           / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "bound_all_g_ms": 1e3 * 4 * (b * h * w + 2 * b * cv * h * w)
+           / HBM_BYTES_PER_S}
+    print(f"local_nearest_aggregate_backward at {label}: {clocks_text(row)} "
+          f"(library: scatter_add_); bound {row['bound_ms']:.5f} ms (bytes, "
+          f"g read at the {inside} picks inside the image; all of g "
+          f"{row['bound_all_g_ms']:.5f})")
+    return row
+
+
 def check_local_agg_backward(torch):
     """B5's backward kernels (local_agg_bwd.cu) against their plain
     backward at the training shapes, on near-match inputs and an upstream
     gradient N(0, 1): each of dx, dy_dist and dy_val within 1e-4 of the
     largest element of a float64 run of the plain backward (the f32 plain
     backward's own distance from it is printed beside: softmax's G carries
-    s^2 times the rounding of near-match distances); nearest: the kernel
-    gathers through the forward kernel's index (held by
-    :func:`nearest_index_check`), the plain backward through the plain
-    argmax, and the two are equal.
+    s^2 times the rounding of near-match distances); nearest by
+    :func:`check_nearest_backward`, on these inputs and on the crowded
+    ones of :func:`crowded_y_dist`.
     Times (CUDA events) the kernel, the plain backward and the unfold
     yardstick's forward and backward (TF32 allowed), and the query-side and
-    key-side kernels of a smooth mode apart (the profiler's device time);
-    the bound counts the window products at the 3xTF32 rate (the nearest
-    gather: its bytes).  Returns the kernels' rows, our_warp's shape
-    first."""
+    key-side kernels apart (the profiler's device time); the bound counts
+    the window products at the 3xTF32 rate.  Returns the kernels' rows,
+    our_warp's shape first."""
     from cvpr2021_vspw_implement_tpu_torch.kernels import timing
     from cvpr2021_vspw_implement_tpu_torch.ops import local_agg
 
@@ -870,57 +966,50 @@ def check_local_agg_backward(torch):
     for label, cd, modes in LOCAL_AGG_BACKWARD_CASES:
         x, yd, yv, up = local_agg_backward_case(torch, g, cd)
         for mode in modes:
+            if mode == "nearest":
+                rows[mode] = [
+                    check_nearest_backward(torch, label, x, yd, yv, up, r),
+                    check_nearest_backward(torch, f"crowded {label}", x,
+                                           crowded_y_dist(torch, yd, r), yv,
+                                           up, r)]
+                continue
             name = f"local_{mode}_aggregate_backward"
             fn = getattr(local_agg, name)
             plain_fn = getattr(local_agg, f"{name}_plain")
             flops = local_agg.local_aggregate_backward_flops(
                 mode, b, h, w, cd, cv, r)
-            if mode == "nearest":
-                idx, plain_idx = nearest_index_check(torch, x, yd, yv, r)
-                args, plain_args = (idx, up, r), (plain_idx, up, r)
-                got = [fn(*args)]
-                want = [plain_fn(*plain_args)]
-                nbytes = 4 * (2 * b * cv * h * w + b * h * w)
-            else:
-                args = plain_args = (x, yd, yv, up, r)
-                got = fn(*args)
-                f32 = plain_fn(*args)
-                want = plain_fn(*(t.double() for t in args[:4]), r)
-                nbytes = 4 * b * h * w * (4 * cd + 3 * cv)
+            args = (x, yd, yv, up, r)
+            got = fn(*args)
+            f32 = plain_fn(*args)
+            want = plain_fn(*(t.double() for t in args[:4]), r)
+            nbytes = 4 * b * h * w * (4 * cd + 3 * cv)
             torch.cuda.synchronize()
             errs = [((a - e).abs().max() / e.abs().max()).item()
                     for a, e in zip(got, want)]
             err = max((a - e).abs().max().item() for a, e in zip(got, want))
-            ok = (all(torch.equal(a, e) for a, e in zip(got, want))
-                  if mode == "nearest" else max(errs) <= 1e-4)
-            own = "" if mode == "nearest" else (
-                "; the f32 plain backward's own: " + str([
-                    "%.3e" % ((a - e).abs().max() / e.abs().max()).item()
-                    for a, e in zip(f32, want)]))
+            own = str(["%.3e" % ((a - e).abs().max() / e.abs().max()).item()
+                       for a, e in zip(f32, want)])
             print(f"{name} at {label}: max |kernel - plain| / max |plain| "
-                  f"per gradient (dx, dy_dist, dy_val; plain in "
-                  f"{'f32' if mode == 'nearest' else 'float64'}) "
-                  f"{['%.3e' % e for e in errs]} (limit "
-                  f"{'equal' if mode == 'nearest' else '1e-4'}){own}")
-            if not ok:
+                  f"per gradient (dx, dy_dist, dy_val; plain in float64) "
+                  f"{['%.3e' % e for e in errs]} (limit 1e-4); the f32 plain "
+                  f"backward's own: {own}")
+            if max(errs) > 1e-4:
                 raise SystemExit(f"{name} kernel disagrees with its plain "
                                  f"backward at {label}")
             row = {"shape": label, "max_abs_err": err, "rel_err": max(errs)}
             row["ms"] = cuda_ms(lambda: fn(*args))
-            if mode != "nearest":
-                # the wrapper's one count covers both kernels: time each
-                by_kernel = timing.profiler_kernels_ms(lambda: fn(*args),
-                                                       counted=(fn,))
-                for side in ("query", "key"):
-                    row[f"{side}_kernel_ms"] = sum(
-                        v for k, v in by_kernel.items()
-                        if f"{side}_kernel" in k) or None
-                print(f"{name} at {label}: query-side kernel "
-                      f"{row['query_kernel_ms']} ms, key-side kernel "
-                      f"{row['key_kernel_ms']} ms (profiler device time); "
-                      f"route: {BACKWARD_ROUTES[mode]}")
-            row["plain_ms"] = cuda_ms(lambda: plain_fn(*plain_args), n=3,
-                                      warm=1)
+            # the wrapper's one count covers both kernels: time each
+            by_kernel = timing.profiler_kernels_ms(lambda: fn(*args),
+                                                   counted=(fn,))
+            for side in ("query", "key"):
+                row[f"{side}_kernel_ms"] = sum(
+                    v for k, v in by_kernel.items()
+                    if f"{side}_kernel" in k) or None
+            print(f"{name} at {label}: query-side kernel "
+                  f"{row['query_kernel_ms']} ms, key-side kernel "
+                  f"{row['key_kernel_ms']} ms (profiler device time); "
+                  f"route: {BACKWARD_ROUTES[mode]}")
+            row["plain_ms"] = cuda_ms(lambda: plain_fn(*args), n=3, warm=1)
             torch.backends.cuda.matmul.allow_tf32 = True
             try:
                 row["library_ms"] = cuda_ms(lambda: unfold_local_agg_backward(
@@ -928,9 +1017,6 @@ def check_local_agg_backward(torch):
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
             tensor_core_bound(row, flops, nbytes)
-            if mode == "nearest":
-                row["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
-                row["bound_by"] = "bytes"
             rows.setdefault(mode, []).append(row)
     return [{"name": f"local_{mode}_aggregate_backward", "route": "cuda",
              "source": "cvpr2021_vspw_implement_tpu_torch/kernels/csrc/"
@@ -2239,8 +2325,11 @@ def main() -> int:
     for row in rows:
         backward = row["name"].endswith("_backward")
         for a in row.get("also_at", ()) if backward else ():
-            # our_warp_merge's Cd 256: its train path
-            a["launches"] = train_counts["train_our_warp_merge"][row["name"]]
+            # our_warp_merge's Cd 256, or nearest's crowded inputs at the
+            # shape of its train path
+            a["launches"] = train_counts[
+                "train_our_warp_merge" if a["shape"].startswith("merge")
+                else "train_our_warp_nearest"][row["name"]]
         for a in row.get("also_at", ()) if row["name"].startswith(
                 "local_") and not backward else ():
             merge, bucket = a["shape"].startswith("merge"), "valid" in a[

@@ -76,9 +76,21 @@
 //     band tile [query column][key].  dy += G^T . x (or w^T . g): warp (i, c)
 //     owns key m-tile i and 32 channels, a fresh tile a query row.  No
 //     atomics: each output is one lane's fixed-order sum.
-// (c) nearest: the key side's gather of g through the index, the matching
-//     offsets of a key found once as a bit mask, summed in ascending offset
-//     order (the plain version's order, so the two are equal).
+// (c) nearest: the key side's gather of g through the index, summed in
+//     ascending offset order (the plain version's order, so the two are
+//     equal).  Bound: bytes, the index and the g of the picks inside the
+//     image read once, dy_val written once (0.0032 ms at 2x60x60, Cv 256,
+//     on the smoke's index).  The argmax quirk crowds the picks: a key with
+//     a large |y|^2 is picked by every query whose window holds it, up to
+//     (2r + 1)^2, and g's NCHW planes put a pick's channels 14 KB apart, so
+//     each (pick, channel) is a sector of its own unless neighbouring
+//     queries are picked.  So a block of 8 x 32 keys and 32 channels reads
+//     its halo's index once, coalesced, gives each picking query a slot in
+//     position order and lists each key's picks in offset order (bit masks,
+//     ballots and scans); it stages g by slot, the lanes along neighbouring
+//     picked queries, by cp.async two stages deep; a warp adds up a key's
+//     picks in order, a lane a channel, many loads before their adds; the
+//     sums leave through a [channel][key] tile as coalesced rows.
 //
 // Rows in shared memory are padded (8 or 24 mod 32 floats for the staged
 // segments and resident tiles, 4 mod 32 for the band tiles), so no fragment
@@ -712,48 +724,271 @@ __global__ void __launch_bounds__(kKeyThreads, 2)
     }
 }
 
-// (c) nearest: bit o of a key's mask says that the query at offset o chose
-// it; one thread a key and every 8th channel
-constexpr int kNearGroups = 8;
-constexpr int kNearThreads = kTileW * kNearGroups;
+// (c) nearest, one block kNearKR rows of 32 keys and 32 channels (the
+// channels split over blocks, so that a crowded key's work runs on several
+// SMs).  A key's picks in ascending offset order are its picking queries in
+// descending position (query = key - (dy - r, dx - r)), so:
+// (1) each query of the halo that can pick one of the keys (rows hk0 - r ..
+// hk0 + kNearKR - 1 + r, columns w0 - r .. w0 + 31 + r: a warp a row, a lane
+// a column) is read once, coalesced, sets bit o of its key's mask (an OR:
+// no order) and, if it picked one, takes a slot: its rank among the picking
+// queries in position order (ballots, and a scan of their counts).
+// (2) Warp i counts the picks of key row i a mask word and scans them over
+// the keys, so each picking query writes its slot to its place in a list
+// that holds every key's picks in ascending offset order, that is, in
+// descending slot order.  (3) g is staged kNearE slots at a time, highest
+// slots first, by cp.async into kNearBufs buffers (the next stage's copies
+// fly while this one is added up), a warp a channel, the lanes along the
+// slots: neighbouring slots are neighbouring picked queries, so the loads
+// coalesce as far as the picks are dense.  (4) A warp a key with picks, a
+// lane a channel, adds the staged values from 0.0f in list order (the plain
+// version's order, so the two are equal), 8 or 32 slots at a time, their
+// loads before their adds, resuming where the last stage left it: a running
+// sum in a [channel][key] tile.  (5) The tile leaves as rows over 32 keys
+// (zeros for a key without picks).
+constexpr int kNearThreads = 512;
+constexpr int kNearWarps = kNearThreads / 32;
+constexpr int kNearKR = 8;                       // key rows a block
+constexpr int kNearKeys = kNearKR * kTileW;      // keys a block
+constexpr int kNearRows =                        // halo rows a warp
+    (kNearKR + 2 * kMaxR + kNearWarps - 1) / kNearWarps;
+constexpr int kNearCols = (kTileW + 2 * kMaxR + 31) / 32;  // columns a lane
+constexpr int kNearGroups = kNearRows * kNearWarps * kNearCols;  // ballots
+constexpr int kNearWords = ((2 * kMaxR + 1) * (2 * kMaxR + 1) + 31) / 32;
+constexpr int kNearCh = 32;                // channels a block: a lane each
+constexpr int kNearE = 128;                // slots a stage
+constexpr int kNearBufs = 2;               // stages in flight, this one too
+constexpr int kNearLD = kNearE + 1;        // stage row: odd, no bank conflict
+constexpr int kNearTLD = kNearKeys + 1;    // tile row
+static_assert(kNearKR < kNearWarps && kNearKeys <= 1 << 15 &&
+                  kNearGroups <= 4 * 32,
+              "a warp scans a key row and one more the ballots' counts; a "
+              "pick packs its key in 15 bits");
+
+__host__ __device__ constexpr int near_list_len(int r) {
+  return (kNearKR + 2 * r) * (kTileW + 2 * r);
+}
+
+// acc plus the staged values at the first n of the slots that lanes 0..N-1
+// hold in ``at``, in lane order: all N loads before the adds (a key with a
+// few picks takes the short batch)
+template <int N>
+__device__ __forceinline__ float add_slots(float acc, const float* row,
+                                           int at, int n) {
+  float v[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) v[u] = row[__shfl_sync(kFull, at, u)];
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+    if (u < n) acc += v[u];
+  return acc;
+}
 
 __global__ void __launch_bounds__(kNearThreads)
     nearest_kernel(const int* __restrict__ idx, const float* __restrict__ g,
                    float* __restrict__ dyv, const Shape s) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ int n_keys, row_picks[kNearKR], row_keys[kNearKR];
+  __shared__ int group_at[kNearGroups];  // the first slot of each ballot
   const int Cv = s.Cv, H = s.H, W = s.W, r = s.r;
   const int k = 2 * r + 1, kk = k * k, nw = (kk + 31) / 32;
-  const int w0 = blockIdx.x * kTileW, hk = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % kTileW, j = threadIdx.x / kTileW;
+  const float inv_k = 1.0f / (float)k;
+  const int groups = (Cv + kNearCh - 1) / kNearCh;
+  const int w0 = blockIdx.x * kTileW, hk0 = blockIdx.y * kNearKR;
+  const int n_kr = min(kNearKR, H - hk0);
+  const int b = blockIdx.z / groups, c0 = blockIdx.z % groups * kNearCh;
+  const int n_ch = min(kNearCh, Cv - c0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
   const int64_t plane = (int64_t)H * W;
-  const int wk = w0 + tx;
-  const bool k_ok = wk < W;
-  unsigned* const mask = reinterpret_cast<unsigned*>(smem);  // [nw][32]
+  float* const tile = smem;                        // [kNearCh][kNearTLD]
+  // [kNearBufs][kNearCh][kNearLD]
+  float* const stage = tile + kNearCh * kNearTLD;
+  // [nw][kNearKeys]: bit o of a key's mask says the query at offset o
+  // picked it
+  unsigned* const mask =
+      reinterpret_cast<unsigned*>(stage + kNearBufs * kNearCh * kNearLD);
+  // [nw][kNearKeys]: a key's picks in the mask words before this one
+  int* const before = reinterpret_cast<int*>(mask + nw * kNearKeys);
+  int* const keys = before + nw * kNearKeys;  // the keys with picks
+  int* const start = keys + kNearKeys;  // key kt's list: start[kt..kt+1)
+  int* const next = start + kNearKeys + 1;  // its first entry not yet added
+  int* const list = next + kNearKeys;       // [near_list_len(r)]: slots
+  int* const where = list + near_list_len(s.r);  // a slot's plane offset
 
-  for (int e = threadIdx.x; e < nw * kTileW; e += kNearThreads) mask[e] = 0u;
-  __syncthreads();
-  if (k_ok)
-    for (int o = j; o < kk; o += kNearGroups) {
-      const int ph = hk - o / k + r, pw = wk - o % k + r;
-      if (ph >= 0 && ph < H && pw >= 0 && pw < W &&
-          idx[(int64_t)b * plane + (int64_t)ph * W + pw] == o)
-        atomicOr(&mask[(o / 32) * kTileW + tx], 1u << (o % 32));
+  // (1) the halo's picks of this block's keys, and their slots
+  for (int e = threadIdx.x; e < nw * kNearKeys; e += kNearThreads)
+    mask[e] = 0u;
+  const int q_h0 = max(hk0 - r, 0), q_h1 = min(hk0 + n_kr - 1 + r, H - 1);
+  const int q_w0 = max(w0 - r, 0), q_w1 = min(w0 + kTileW - 1 + r, W - 1);
+  const int* const idx_b = idx + (int64_t)b * plane;
+  int pick[kNearRows][kNearCols];  // (key << 16) | offset, or -1: none here
+  int slot[kNearRows][kNearCols];  // rank within its ballot, then its slot
+#pragma unroll
+  for (int i = 0; i < kNearRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kNearCols; ++j) {
+      const int qh = q_h0 + warp + kNearWarps * i, qw = q_w0 + lane + 32 * j;
+      pick[i][j] = qh <= q_h1 && qw <= q_w1 ? idx_b[(int64_t)qh * W + qw] : -1;
+    }
+  __syncthreads();  // the masks are zero
+#pragma unroll
+  for (int i = 0; i < kNearRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kNearCols; ++j) {
+      const int qh = q_h0 + warp + kNearWarps * i, qw = q_w0 + lane + 32 * j;
+      const int o = pick[i][j];
+      // o / k exactly: (o + 0.5) / k lies at least 0.5 / k from an integer
+      const int dy = __float2int_rz(((float)o + 0.5f) * inv_k);
+      const int kr = qh + dy - r - hk0, t = qw + o - dy * k - r - w0;
+      const bool mine = o >= 0 && o < kk && kr >= 0 && kr < n_kr && t >= 0 &&
+                        t < kTileW && w0 + t < W;
+      const unsigned ballot = __ballot_sync(kFull, mine);
+      if (lane == 0)
+        group_at[(i * kNearWarps + warp) * kNearCols + j] = __popc(ballot);
+      slot[i][j] = __popc(ballot & below);
+      pick[i][j] = -1;
+      if (!mine) continue;
+      const int kt = kr * kTileW + t;
+      pick[i][j] = (kt << 16) | o;
+      atomicOr(&mask[(o / 32) * kNearKeys + kt], 1u << (o % 32));
     }
   __syncthreads();
-  if (!k_ok) return;
-  for (int c = j; c < Cv; c += kNearGroups) {
-    const float* const gc = g + ((int64_t)b * Cv + c) * plane;
-    float acc = 0.0f;
-    for (int word = 0; word < nw; ++word) {
-      unsigned bits = mask[word * kTileW + tx];
-      while (bits) {
-        const int o = word * 32 + __ffs(bits) - 1;
-        bits &= bits - 1;
-        acc += gc[(int64_t)(hk - o / k + r) * W + (wk - o % k + r)];
+
+  // (2) each key's place in the list and the keys with picks (warp i: key
+  // row i), and the first slot of each ballot (warp kNearKR)
+  int n = 0, upto = 0;
+  unsigned has = 0u;
+  if (warp < kNearKR) {
+    const int kt = warp * kTileW + lane;
+#pragma unroll
+    for (int word = 0; word < kNearWords; ++word)
+      if (word < nw) {
+        before[word * kNearKeys + kt] = n;
+        n += __popc(mask[word * kNearKeys + kt]);
       }
+    upto = n;  // inclusive scan over the row's keys
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(kFull, upto, d);
+      if (lane >= d) upto += v;
     }
-    dyv[((int64_t)b * Cv + c) * plane + (int64_t)hk * W + wk] = acc;
+    has = __ballot_sync(kFull, n > 0);
+    if (lane == 31) {
+      row_picks[warp] = upto;
+      row_keys[warp] = __popc(has);
+    }
+  } else if (warp == kNearKR) {
+    int c[4], sum = 0;  // a lane's 4 ballots, in position order
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      c[e] = 4 * lane + e < kNearGroups ? group_at[4 * lane + e] : 0;
+      sum += c[e];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += v;
+    }
+    int at = incl - sum;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * lane + e < kNearGroups) {
+        group_at[4 * lane + e] = at;
+        at += c[e];
+      }
   }
+  __syncthreads();
+  if (warp < kNearKR) {
+    const int kt = warp * kTileW + lane;
+    int picks_before = 0, keys_before = 0;
+    for (int w = 0; w < warp; ++w) {
+      picks_before += row_picks[w];
+      keys_before += row_keys[w];
+    }
+    start[kt] = next[kt] = picks_before + upto - n;
+    if (n > 0) keys[keys_before + __popc(has & below)] = kt;
+    if (kt == kNearKeys - 1) {
+      start[kNearKeys] = picks_before + upto;
+      n_keys = keys_before + __popc(has);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kNearRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kNearCols; ++j) {
+      if (pick[i][j] < 0) continue;
+      const int kt = pick[i][j] >> 16, o = pick[i][j] & 0xffff;
+      const int at = (o / 32) * kNearKeys + kt;
+      const int sl =
+          group_at[(i * kNearWarps + warp) * kNearCols + j] + slot[i][j];
+      // ascending offsets, descending slots: the later offsets first
+      list[start[kt] + before[at] +
+           __popc(mask[at] & ((1u << (o % 32)) - 1u))] = sl;
+      where[sl] = (q_h0 + warp + kNearWarps * i) * W + q_w0 + lane + 32 * j;
+    }
+  __syncthreads();
+
+  // (3) stage g, highest slots first, by cp.async into kNearBufs buffers:
+  // the next stages' copies fly while this one is added up; (4) add it up
+  // in list order
+  const float* const g_b = g + ((int64_t)b * Cv + c0) * plane;
+  const int n_slots = start[kNearKeys];
+  // the stage of slots [hi - kNearE, hi) into its buffer (none: an empty
+  // group, so that every stage counts one)
+  auto fetch = [&](int hi, int q) {
+    float* const buf = stage + q % kNearBufs * kNearCh * kNearLD;
+    const int lo = max(hi - kNearE, 0);
+    for (int c = warp; c < n_ch && hi > 0; c += kNearWarps)
+      for (int e = lane; e < hi - lo; e += 32)
+        cp_async4(smem_addr(buf + c * kNearLD + e),
+                  g_b + c * plane + where[lo + e], true);
+    cp_async_commit();
+  };
+  for (int q = 0; q < kNearBufs - 1; ++q) fetch(n_slots - q * kNearE, q);
+  for (int hi = n_slots, q = 0; hi > 0; hi -= kNearE, ++q) {
+    const int lo = max(hi - kNearE, 0);
+    fetch(hi - (kNearBufs - 1) * kNearE, q + kNearBufs - 1);
+    cp_async_wait<kNearBufs - 1>();
+    __syncthreads();
+    const float* const row =
+        stage + q % kNearBufs * kNearCh * kNearLD + lane * kNearLD - lo;
+    for (int item = warp; item < n_keys; item += kNearWarps) {
+      const int kt = keys[item], top = start[kt + 1];
+      int e = next[kt];
+      if (e == top) continue;
+      float acc = e == start[kt] ? 0.0f : tile[lane * kNearTLD + kt];
+      // batches of 32 slots, one a lane, handed round by shuffles; a key's
+      // slots descend, so this stage's are a prefix of what is left
+      int mine = e + lane < top ? list[e + lane] : -1;
+      for (;;) {
+        const int n_e = __popc(__ballot_sync(kFull, mine >= lo));
+        const int later =
+            n_e == 32 && e + 32 + lane < top ? list[e + 32 + lane] : -1;
+        const int at = max(mine, lo);
+        acc = n_e <= 8 ? add_slots<8>(acc, row, at, n_e)
+                       : add_slots<32>(acc, row, at, n_e);
+        e += n_e;
+        if (n_e < 32) break;
+        mine = later;
+      }
+      tile[lane * kNearTLD + kt] = acc;
+      if (lane == 0) next[kt] = e;
+    }
+    __syncthreads();  // this buffer is free for a later stage
+  }
+
+  // (5) the rows of dy_val
+  if (w0 + lane < W)
+    for (int kr = 0; kr < n_kr; ++kr) {
+      const int kt = kr * kTileW + lane;
+      const bool picked = start[kt + 1] > start[kt];
+      for (int c = warp; c < n_ch; c += kNearWarps)
+        dyv[((int64_t)b * Cv + c0 + c) * plane + (int64_t)(hk0 + kr) * W +
+            w0 + lane] = picked ? tile[c * kNearTLD + kt] : 0.0f;
+    }
 }
 
 bool bad_shape(int B, int Cd, int Cv, int H, int W, int r) {
@@ -883,11 +1118,17 @@ extern "C" int local_nearest_agg_bwd_f32(const void* idx, const void* g,
                                          int W, int r, void* stream) {
   if (bad_shape(B, 1, Cv, H, W, r)) return (int)cudaErrorInvalidValue;
   const Shape s{1, Cv, H, W, r, 0, 0, 0, 0, 0, 0, 0.0f};
-  const int kk = (2 * r + 1) * (2 * r + 1);
-  const size_t bytes = sizeof(unsigned) * (size_t)((kk + 31) / 32) * kTileW;
+  const int nw = ((2 * r + 1) * (2 * r + 1) + 31) / 32;
+  // the tile and the stage; the masks and their counts; the keys, their
+  // starts and where they resume; the list and the slots' offsets
+  const size_t bytes =
+      sizeof(float) * kNearCh * (kNearTLD + kNearBufs * kNearLD) +
+      sizeof(int) *
+          (size_t)((2 * nw + 3) * kNearKeys + 1 + 2 * near_list_len(r));
   const cudaError_t err = prepare(nearest_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kTileW - 1) / kTileW, H, B);
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kNearKR - 1) / kNearKR,
+                  B * ((Cv + kNearCh - 1) / kNearCh));
   nearest_kernel<<<grid, kNearThreads, bytes,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(g),

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(__file__))
+import chip_smoke  # noqa: E402
 from torch_port_util import (gru_flowhead_inputs, gru_inputs,  # noqa: E402
                              local_agg_inputs, motion_inputs, port_gru_args,
                              port_gru_flowhead_weights, port_motion_weights,
@@ -759,6 +760,64 @@ def test_nearest_backward_kernel_matches_plain(cuda_device, b, h, w, r, cd):
     assert torch.equal(got, want)
     if r < 15:
         assert got.abs().max() > 0
+
+
+def _nearest_index(kind, x, yd, yv, r, rng):
+    """The index the nearest backward gathers through: ``crowded`` the
+    forward kernel's on the smoke's crowded y_dist (each key at rows and
+    columns r mod 2r + 1 inside the border picked by every query of its
+    window); ``outside`` built so that every query picks a window row above
+    the image (needs H <= r); ``same`` every query the same offset (at most
+    one pick a key); ``random`` uniform offsets."""
+    b, _, h, w = x.shape
+    k = 2 * r + 1
+    if kind == "crowded":
+        _, idx = local_agg.local_nearest_aggregate_index(
+            x, chip_smoke.crowded_y_dist(torch, yd, r), yv, r)
+        return idx
+    if kind == "outside":
+        assert h <= r
+        offsets = rng.integers(0, k, (b, h, w))            # dy = 0
+    elif kind == "same":
+        offsets = np.full((b, h, w), (k * k) // 2 + 1)
+    else:
+        offsets = rng.integers(0, k * k, (b, h, w))
+    return torch.from_numpy(offsets.astype(np.int32)).to(x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,h,w,r,cv", [
+    ("crowded", 2, 60, 60, 10, 256),   # 441 picks on a key, as in the smoke
+    ("crowded", 1, 77, 77, 15, 200),   # 961 on one, ragged Cv and W
+    ("outside", 2, 6, 41, 10, 256),    # every pick outside: all zeros
+    ("same", 1, 37, 53, 10, 256),      # at most one pick a key
+    ("random", 2, 60, 60, 10, 256),
+    ("random", 1, 30, 53, 10, 200),    # Cv not a multiple of 32
+    ("random", 1, 30, 41, 10, 512),    # two 256-channel tiles
+    ("random", 1, 37, 53, 0, 256),     # a window of one position
+    ("random", 1, 37, 41, 15, 256)])   # the largest window
+def test_nearest_backward_kernel_at_any_index(cuda_device, kind, b, h, w, r,
+                                              cv):
+    """The nearest backward kernel bitwise the plain backward through the
+    same index, however the picks crowd or scatter."""
+    rng = np.random.default_rng(90 + r)
+    x, yd, yv, g = _backward_case(cuda_device, 90 + r, b, h, w, 128, cv)
+    idx = _nearest_index(kind, x, yd, yv, r, rng)
+    picks = chip_smoke.nearest_picks(torch, idx, r)
+    if kind == "crowded":
+        assert picks.max() == (2 * r + 1) ** 2
+    elif kind == "outside":
+        assert not picks.any()
+    elif kind == "same":
+        assert picks.max() == 1
+    fn = local_agg.local_nearest_aggregate_backward
+    before = fn.launches
+    got = fn(idx, g, r)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = local_agg.local_nearest_aggregate_backward_plain(idx.long(), g, r)
+    assert torch.equal(got, want)
+    assert got.abs().max() > 0 if picks.any() else not got.any()
 
 
 @pytest.mark.cuda

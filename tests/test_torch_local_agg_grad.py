@@ -32,6 +32,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+import chip_smoke
 from cvpr2021_vspw_implement_tpu.models.warp_our import \
     warp_one_scale as jax_warp_one_scale
 from cvpr2021_vspw_implement_tpu.ops import local_pairwise as jlp
@@ -169,3 +170,34 @@ def test_backward_wrappers_take_the_plain_version_on_the_cpu():
     with pytest.raises(RuntimeError, match="for device meta"):
         local_agg.local_sigmoid_aggregate_backward(
             *(t.to("meta") for t in (x, yd, yv, g)), 2)
+
+
+def test_nearest_backward_at_a_crowded_key():
+    """y_dist scaled by 100 at the keys whose row and column are both r mod
+    2r + 1: every window inside the image holds one of them and picks it,
+    so the key at (10, 10) takes all (2r + 1)^2 = 49 picks (the crowded
+    case of the card's nearest backward).  The plain backward, through the
+    explicit backward of the public function, against autograd of the
+    plain forward and ``jax.grad`` of ``warp_one_scale``'s nearest branch."""
+    b, h, w, cd, cv, r = 1, 24, 24, 8, 16, 3
+    k = 2 * r + 1
+    rng = np.random.default_rng(47)
+    x, yd, yv = local_agg_inputs(rng, b, h, w, cd, cv)
+    on = (np.arange(h)[:, None] % k == r) & (np.arange(w) % k == r)
+    yd = np.where(on[None, :, :, None], 100.0 * yd, yd).astype(np.float32)
+    g = rng.standard_normal((b, h, w, cv)).astype(np.float32)
+    idx = local_agg.local_nearest_index_plain(to_nchw(x), to_nchw(yd), r)
+    picks = chip_smoke.nearest_picks(torch, idx, r)[0]
+    assert picks.max() == k * k == picks[10 * w + 10]
+    out, got = _port(local_agg.local_nearest_aggregate, "nearest", x, yd, yv,
+                     g, r)
+    assert type(out.grad_fn).__name__.startswith("_Nearest")
+    _, auto = _port(local_agg.local_nearest_aggregate_plain, "nearest", x, yd,
+                    yv, g, r)
+    jax_g = _jax_grads("nearest", x, yd, yv, g, r)
+    scale = np.abs(jax_g[2]).max()
+    assert scale > 1.0
+    for ref in (auto[2], jax_g[2]):
+        assert np.abs(got[2] - ref).max() <= 1e-5 * scale
+    for name, mine, a, j in zip(("x", "y_dist"), got, auto, jax_g):
+        assert not mine.any() and not a.any() and not j.any(), name

@@ -5,12 +5,14 @@ picked it).
 
     python3 tools/torch_nearest_picks.py
 
-On the inputs that ``chip_smoke.py`` checks the nearest backward on (its
-``local_agg_backward_case`` at Cd 128: B = 2, 60x60, Cv 256, r = 10), runs
-the nearest forward kernel with its index buffer, as training does, and
-prints the card's name and power limit, then one JSON line: the picks that
-lie outside the image (they take nothing), the keys picked, and the most
-picks of one key.  Needs a CUDA device; builds the kernels of this checkout.
+On the two inputs that ``chip_smoke.py`` checks the nearest backward on
+(its ``local_agg_backward_case`` at Cd 128: B = 2, 60x60, Cv 256, r = 10;
+and the same with ``crowded_y_dist``, where one key takes (2r + 1)^2 = 441
+picks an image), runs the nearest forward kernel with its index buffer, as
+training does, and prints the card's name and power limit, then one JSON
+line a case: the picks that lie outside the image (they take nothing), the
+keys picked, and the most picks of one key.  Needs a CUDA device; builds
+the kernels of this checkout.
 """
 
 from __future__ import annotations
@@ -45,21 +47,16 @@ def main() -> int:
     x, yd, yv, _ = smoke.local_agg_backward_case(torch, g, 128)
     b, _, h, w = x.shape
     r = 10
-    k = 2 * r + 1
-    _, idx = local_agg.local_nearest_aggregate_index(x, yd, yv, r)
-    idx = idx.long()
-    # the key a query picked: offset o = dy * k + dx from (row - r, col - r)
-    rows = torch.arange(h, device="cuda")[:, None] + idx // k - r
-    cols = torch.arange(w, device="cuda") + idx % k - r
-    inside = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
-    key = ((torch.arange(b, device="cuda")[:, None, None] * h + rows) * w
-           + cols)[inside]
-    picks = torch.bincount(key, minlength=b * h * w)
-    print(json.dumps({
-        "shape": f"{b}x{h}x{w}, Cd 128, Cv 256, r {r}",
-        "picks": b * h * w, "picks_outside_image": int((~inside).sum()),
-        "keys_picked": int((picks > 0).sum()),
-        "most_picks_of_a_key": int(picks.max())}))
+    for case, y_dist in (("smoke", yd),
+                         ("crowded", smoke.crowded_y_dist(torch, yd, r))):
+        _, idx = local_agg.local_nearest_aggregate_index(x, y_dist, yv, r)
+        picks = smoke.nearest_picks(torch, idx, r)
+        print(json.dumps({
+            "case": case, "shape": f"{b}x{h}x{w}, Cd 128, Cv 256, r {r}",
+            "picks": b * h * w,
+            "picks_outside_image": b * h * w - int(picks.sum()),
+            "keys_picked": int((picks > 0).sum()),
+            "most_picks_of_a_key": int(picks.max())}))
     return 0
 
 
