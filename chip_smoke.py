@@ -5,7 +5,10 @@
 1. prints the card (name, and name and power limit from nvidia-smi);
 2. builds the CUDA kernels from ``kernels/csrc`` with nvcc (in parallel)
    and prints ptxas's registers, spills and shared memory of the
-   tensor-core kernels (B2-B5);
+   tensor-core kernels (B2-B5); builds the native host ops (``native``,
+   g++) and prints which path they took, and their time beside numpy's on
+   the fixture's frames (it fails if g++ is present and ``hostops`` did
+   not build, or if they are not bitwise numpy's);
 3. holds each kernel against its plain PyTorch version at the main paths'
    shapes (corr lookup: TC at VSPW-480p, 60x107 RAFT features; GRU pass:
    60x107 and the 60x112 bucket;
@@ -69,6 +72,16 @@
       from the models); each bucketed run against its exact run (logits
       within 1e-3 of the largest, PNGs equal off near-ties), host-clock ms
       a window printed;
+   f. the per-frame eval CLI (``test``, seeded random R101 ``ppm_deepsup``,
+      fc_dim 2048, 124 classes) over the 10-frame video, exact
+      (``--width_bucket 0``) and then bucketed in 480x896 (B6 at a count
+      derived from the model), PNGs compared as the clip phases compare
+      them, a frame's forward timed on CUDA events;
+   g. the per-frame trainer (``train``, the same preset, batch 8, crop 479,
+      ``--multi_scale True``, 4 steps), then the clip trainer's loop for
+      clip_psp and propnet with its batches made serially against the
+      prefetch loader (tools/torch_loader_bench.py); every train phase
+      prints its data wait;
    e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
@@ -1522,7 +1535,8 @@ BENCH_KEYS = (
     "our_warp_bucketed_windows_per_sec", "propnet_windows_per_sec",
     "propnet_mfu", "our_warp_merge_windows_per_sec", "our_warp_merge_mfu",
     "tc_ms_per_pair", "tc_bucketed_ms_per_pair", "tc_mfu",
-    "host_decode_frames_per_sec", "spreads_pct", "device", "power_limit_w",
+    "host_decode_frames_per_sec", "host_decode_path",
+    "host_cores_to_saturate_chip", "spreads_pct", "device", "power_limit_w",
     "peak_tflops_f32", "dtype", "not_ported")
 #: the bench's times and rates, each finite and positive
 BENCH_TIMES = (
@@ -1534,7 +1548,7 @@ BENCH_TIMES = (
     "our_warp_windows_per_sec", "our_warp_bucketed_windows_per_sec",
     "propnet_windows_per_sec", "our_warp_merge_windows_per_sec",
     "tc_ms_per_pair", "tc_bucketed_ms_per_pair",
-    "host_decode_frames_per_sec")
+    "host_decode_frames_per_sec", "host_cores_to_saturate_chip")
 BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu",
               "our_warp_train_mfu", "etc_mfu", "our_warp_mfu", "propnet_mfu",
               "our_warp_merge_mfu", "tc_mfu")
@@ -1867,7 +1881,7 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
     embedding starts at DIST_BN_SCALE."""
     from cvpr2021_vspw_implement_tpu_torch import train_clip
 
-    records, before, b5_grads = [], {}, []
+    records, spans, before, b5_grads = [], [], {}, []
     step = train_clip.train_step
 
     def watched(model):
@@ -1889,7 +1903,9 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
         t0 = time.perf_counter()
         metrics = step(model, *args)
         torch.cuda.synchronize()
-        records.append((time.perf_counter() - t0, float(metrics["loss"])))
+        t1 = time.perf_counter()
+        records.append((t1 - t0, float(metrics["loss"])))
+        spans.append((t0, t1))
         return metrics
 
     torch.cuda.reset_peak_memory_stats()
@@ -1941,12 +1957,300 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
                   f"; {b5_only} (reached only through B5{none}) has a "
                   f"gradient of norm {grad.norm().item():.4g}"
                   if b5_only else ""))
+    waits = data_waits_ms(spans, 2)
     print(f"train {name or method} (R101, crop 479, batch 2, f32): first step "
           f"{1e3 * times[0]:.1f} ms, then "
           f"{1e3 * sum(times[1:]) / (steps - 1):.1f} ms/step over "
-          f"{steps - 1} steps; losses {[round(v, 4) for v in losses]}; "
-          f"peak memory {peak / 2 ** 30:.2f} GiB")
+          f"{steps - 1} steps; data wait inside an epoch "
+          f"{[round(w, 1) for w in waits]} ms; losses "
+          f"{[round(v, 4) for v in losses]}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
     return model
+
+
+def native_host_ops(root):
+    """Which path the native host ops took (``native.status``), and their
+    host time a 480x853 frame beside their numpy path's on the fixture's
+    frames (best of ``HOSTOPS_TRIALS`` over the frames).  Fails if ``g++``
+    is present and ``hostops`` did not build, or if an array differs from
+    numpy's."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from cvpr2021_vspw_implement_tpu_torch import native
+
+    status = native.status()
+    frames, masks = [], []
+    for video in sorted(os.listdir(os.path.join(root, "data"))):
+        vdir = os.path.join(root, "data", video)
+        for name in sorted(os.listdir(os.path.join(vdir, "origin"))):
+            frames.append(np.asarray(Image.open(
+                os.path.join(vdir, "origin", name)).convert("RGB")))
+            masks.append(np.asarray(Image.open(os.path.join(
+                vdir, "mask", os.path.splitext(name)[0] + ".png"))))
+    same = all(np.array_equal(native.normalize_u8(f),
+                              native.normalize_numpy(f)) for f in frames) \
+        and all(np.array_equal(native.remap_label_u8(m),
+                               native.remap_numpy(m)) for m in masks)
+
+    def best_ms(fn, arrays):
+        best = float("inf")
+        for _ in range(HOSTOPS_TRIALS):
+            t0 = time.perf_counter()
+            for a in arrays:
+                fn(a)
+            best = min(best, time.perf_counter() - t0)
+        return 1e3 * best / len(arrays)
+
+    ms = {"normalize_ms": best_ms(native.normalize_u8, frames),
+          "normalize_numpy_ms": best_ms(native.normalize_numpy, frames),
+          "remap_ms": best_ms(native.remap_label_u8, masks),
+          "remap_numpy_ms": best_ms(native.remap_numpy, masks)}
+    print(f"native host ops: hostops {status}; bitwise numpy's on "
+          f"{len(frames)} frames and masks: {same}; host ms a 480x853 frame "
+          f"(best of {HOSTOPS_TRIALS}): normalize {ms['normalize_ms']:.3f} "
+          f"(numpy {ms['normalize_numpy_ms']:.3f}), label remap "
+          f"{ms['remap_ms']:.3f} (numpy {ms['remap_numpy_ms']:.3f}); "
+          f"host cores {os.cpu_count()}")
+    if shutil.which("g++") and status != "native":
+        raise SystemExit(f"g++ is present and hostops did not build: "
+                         f"{status}")
+    if not same:
+        raise SystemExit("the native host ops differ from their numpy path")
+    return {"hostops": status, "bitwise_numpy": same, **ms}
+
+
+#: passes over the fixture's frames when the host ops are timed
+HOSTOPS_TRIALS = 5
+
+
+def step_timer(module, records):
+    """``module.train_step`` wrapped to append (start, end, loss) on the
+    host clock, synchronised, to ``records``; returns the original."""
+    import torch
+
+    step = module.train_step
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(*args)
+        torch.cuda.synchronize()
+        records.append((t0, time.perf_counter(), float(metrics["loss"])))
+        return metrics
+
+    module.train_step = timed
+    return step
+
+
+def data_waits_ms(records, per_epoch):
+    """The host time from one step's end to the next one's start inside an
+    epoch (the wait for a batch on the card; the first step of an epoch
+    also waits for the loader's start, and the epoch's end for its
+    checkpoint, so they are left out)."""
+    return [1e3 * (records[i][0] - records[i - 1][1])
+            for i in range(1, len(records)) if i % per_epoch]
+
+
+#: the per-frame baseline's preset (PSPNet: ResNet-101-dilated + ppm_deepsup)
+FRAME_PRESET = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch",
+                            "config", "presets",
+                            "vsp-resnet101dilated-ppm_deepsup.yaml")
+
+
+def frame_band_launches(torch, arch="resnet101dilated"):
+    """B6's launches a frame of the per-frame ``ppm_deepsup`` model's
+    bucketed eval where every level has a band, from the model: the input
+    of every spatial conv of the trunk (ops/masked.py::masked_trunk), the
+    stem max pool, the four levels (models/segmentation.py) and C5 again
+    in the pyramid (PPMPyramid)."""
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+               for m in build_encoder(arch).modules()) + 6
+
+
+def frame_eval_phase(torch, root, work, k, n_frames, reset, counts):
+    """f. The per-frame eval CLI (``test``) over the 10-frame video with a
+    seeded random R101 ``ppm_deepsup`` model, exact (``--width_bucket 0``)
+    then at its default, bucketed in 480x896: PNGs and finite mIoU, no
+    kernel exact and B6 at the model's count bucketed, the bucketed logits
+    held against the exact ones as the clip phases hold them (within 1e-3
+    of the largest, PNGs equal off near-ties), and a frame's forward and
+    argmax timed on CUDA events.  Returns (launches by path, checks)."""
+    import numpy as np
+    from PIL import Image
+
+    from cvpr2021_vspw_implement_tpu_torch import test as frame_test
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.data import TestFrameDataset
+    from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
+        resize_bilinear
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import \
+        resize_bilinear_rt
+
+    per_frame = frame_band_launches(torch)
+    captured = []
+    saved = frame_test.inference_pred, frame_test.inference_pred_rt
+
+    def exact_pred(outs, size):
+        captured.append(resize_bilinear(outs[0].float(), size)[0])
+        return saved[0](outs, size)
+
+    def bucket_pred(logits, pad, fv, hw):
+        captured.append(resize_bilinear_rt(logits.float(), pad, fv, hw)[
+            0, :, :hw[0], :hw[1]])
+        return saved[1](logits, pad, fv, hw)
+
+    launches, runs = {}, {}
+    frame_test.inference_pred, frame_test.inference_pred_rt = (exact_pred,
+                                                               bucket_pred)
+    try:
+        for bucket in (0, 64):
+            name = "frame_eval" + ("_bucketed" if bucket else "")
+            out = os.path.join(work, "preds_" + name)
+            reset()
+            t0 = time.perf_counter()
+            m, _ = frame_test.main([
+                "--cfg", FRAME_PRESET, "--dataroot", root, "--num_class",
+                str(k), "--width_bucket", str(bucket), "--is_save",
+                "--saveroot", out, "--seed", "0"])
+            secs = time.perf_counter() - t0
+            launches[name] = c = counts()
+            d = os.path.join(out, "video_000")
+            pngs = [np.asarray(Image.open(os.path.join(d, n)))
+                    for n in sorted(os.listdir(d))]
+            print(f"{name}: per-frame eval (R101 ppm_deepsup, 480x853"
+                  + (f", buckets {m['buckets']}" if bucket else "")
+                  + f", {n_frames} frames), host clock {1e3 * secs / n_frames:.1f}"
+                  f" ms/frame with model set-up; per frame (decode, forward, "
+                  f"argmax) {m['first_frame_ms']:.1f} ms for the first, then "
+                  f"{m['frame_ms']:.1f}; mIoU {m['mIoU']:.6f}; kernel "
+                  f"launches {c}")
+            want = {"band_zero": per_frame * n_frames} if bucket else {}
+            for kname, n in c.items():
+                if n != want.get(kname, 0):
+                    raise SystemExit(f"{kname}: {n} launches on the {name} "
+                                     f"path, expected {want.get(kname, 0)}")
+            if bucket and m["buckets"] != [(480, 896)]:
+                raise SystemExit(f"{name} touched {m['buckets']}")
+            if len(pngs) != n_frames or not np.isfinite(m["mIoU"]) or any(
+                    p.shape != (480, 853) or p.max() >= k for p in pngs):
+                raise SystemExit(f"{name}: bad predictions or mIoU "
+                                 f"{m['mIoU']}")
+            runs[bucket] = (captured[:], pngs, m)
+            captured.clear()
+    finally:
+        frame_test.inference_pred, frame_test.inference_pred_rt = saved
+    exact, bucketed = runs[0][0], runs[64][0]
+    err = max((b - e).abs().max().item() for e, b in zip(exact, bucketed))
+    tol = 1e-3 * max(e.abs().max().item() for e in exact)
+    diff = excused = 0
+    for e, pe, pb in zip(exact, runs[0][1], runs[64][1]):
+        top = e.topk(2, dim=0).values
+        near = (top[0] - top[1] < tol).cpu().numpy()
+        differ = pe != pb
+        diff += int(differ.sum())
+        excused += int((differ & near).sum())
+    del exact, bucketed, runs[0], runs[64]
+
+    args = frame_test.build_eval_parser().parse_args(
+        ["--cfg", FRAME_PRESET, "--num_class", str(k), "--seed", "0"])
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(FRAME_PRESET)
+    model = frame_test.build_model(cfg, args, "cuda")
+    img = TestFrameDataset(root, "video_000", args)[0][0]
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1))[None])
+    x = x.cuda()
+    reset()
+    ms = {"exact_ms": cuda_ms(lambda: frame_test.frame_pred(model, x),
+                              n=10, warm=3),
+          "bucketed_ms": cuda_ms(lambda: frame_test.frame_pred(model, x, 64),
+                                 n=10, warm=3)}
+    reset()
+    print(f"per-frame eval, bucketed vs exact: logits on the valid region "
+          f"max |diff| {err:.3e} (limit {tol:.3e}); PNGs differ at {diff} of "
+          f"{n_frames * 480 * 853} pixels, {excused} of them with an exact "
+          f"top-2 margin below the limit; a frame's forward, upsample and "
+          f"argmax (CUDA events, 10 calls): exact {ms['exact_ms']:.2f} ms, "
+          f"bucketed in 480x896 {ms['bucketed_ms']:.2f} ms; B6 "
+          f"{per_frame} a frame (derived)")
+    if not (err <= tol and diff == excused):
+        raise SystemExit("the per-frame bucketed eval disagrees with exact")
+    return launches, {"logit_err": err, "logit_tol": tol,
+                      "pixels_differ": diff, "pixels_excused": excused,
+                      "band_zero_per_frame": per_frame, **ms}
+
+
+def frame_train_phase(torch, train_root, work, k, reset, counts):
+    """g. The per-frame trainer (``train``) with the R101 ``ppm_deepsup``
+    preset: batch 8, crop 479, ``--multi_scale True``, 4 steps (every third
+    frame of the 4 videos: 16 frames, two steps an epoch).  Losses finite,
+    an encoder and a head parameter moved, no kernel launched; prints the
+    steps' host time and the data wait.  Returns (launches, numbers)."""
+    from cvpr2021_vspw_implement_tpu_torch import train as frame_train
+
+    records, before = [], {}
+    watch = ("encoder.conv1.weight", "decoder.conv_last_.4.weight")
+    step = frame_train.train_step
+
+    def first_step(model, *args):
+        if not before:
+            named = dict(model.named_parameters())
+            before.update({n: named[n].detach().clone() for n in watch})
+        return step(model, *args)
+
+    frame_train.train_step = first_step
+    step_timer(frame_train, records)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model = frame_train.main([
+            "--cfg", FRAME_PRESET, "--dataroot", train_root, "--num_class",
+            str(k), "--batchsize", "8", "--cropsize", "479",
+            "--multi_scale", "True", "--trainfps", "5", "--lr", "0.002",
+            "--totalepoch", "2", "--validation", "False", "--saveroot",
+            os.path.join(work, "ckpt_frame"), "--seed", "0",
+            "DIR", os.path.join(work, "cfg_frame")])
+    finally:
+        frame_train.train_step = step
+    c = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r[2] for r in records]
+    times = [1e3 * (r[1] - r[0]) for r in records]
+    waits = data_waits_ms(records, 2)
+    named = dict(model.named_parameters())
+    if len(records) != 4 or not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"per-frame train: {len(records)} steps, losses "
+                         f"{losses}")
+    for n in watch:
+        if torch.equal(named[n].detach(), before[n]):
+            raise SystemExit(f"per-frame train: {n} did not move")
+    if any(c.values()):
+        raise SystemExit(f"per-frame train launched a kernel: {c}")
+    print(f"train frame (R101 ppm_deepsup, batch 8, crop 479, multi_scale, "
+          f"f32): first step {times[0]:.1f} ms, then "
+          f"{sum(times[1:]) / 3:.1f} ms/step over 3 steps (host clock, "
+          f"synchronised); data wait inside an epoch "
+          f"{[round(w, 1) for w in waits]} ms; losses "
+          f"{[round(v, 4) for v in losses]}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; kernel launches {c}")
+    return c, {"step_ms": times, "data_wait_ms": waits, "losses": losses}
+
+
+def loader_comparison():
+    """``tools/torch_loader_bench.py``: clip_psp's and propnet's steps with
+    the serial walk and with the prefetch loader, 6 steps a run."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_loader_bench
+
+    result = torch_loader_bench.run(("clip_psp", "propnet"), steps=6)
+    out = torch_loader_bench.summary(result)
+    print(f"loader, serial vs prefetched (mean ms over 2 runs x 5 steps): "
+          f"{json.dumps(out)}")
+    return out
 
 
 def main() -> int:
@@ -2004,6 +2308,7 @@ def main() -> int:
     root, preds = os.path.join(work, "vspw"), os.path.join(work, "preds")
     n_frames, hw, k = 10, (480, 853), 124
     make_synthetic_vspw(root, 1, n_frames, hw, k, seed=0)
+    host_ops = native_host_ops(root)
     preset = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
                           "presets",
                           "vsp-resnet101dilated-ppm_deepsup_clip.yaml")
@@ -2297,6 +2602,14 @@ def main() -> int:
             "exact": runs[0][2]["frame_ms"], "bucketed": runs[64][2]["frame_ms"]}
         del runs
 
+    # f, g: the per-frame path, eval (exact, then bucketed) and training;
+    # then the clip trainer's loop, serial walk against the prefetch loader
+    frame_counts, frame_check = frame_eval_phase(torch, root, work, k,
+                                                 n_frames, reset, counts)
+    frame_counts["frame_train"], frame_train = frame_train_phase(
+        torch, train_root, work, k, reset, counts)
+    loader = loader_comparison()
+
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
     reset()
@@ -2310,7 +2623,7 @@ def main() -> int:
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
                "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
-               **window_counts, "bench": bench_counts}
+               **window_counts, **frame_counts, "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -2384,7 +2697,9 @@ def main() -> int:
           f"{rows[0]['plain_ms']:.4f}); clocks {clocks_last}")
     print(json.dumps({"bucket_tax": tax, "bucketed_vs_exact": bucket_check,
                       "window_bucketed_vs_exact": window_checks,
-                      "tc_check": tc_check,
+                      "tc_check": tc_check, "native_host_ops": host_ops,
+                      "frame_bucketed_vs_exact": frame_check,
+                      "frame_train": frame_train, "loader": loader,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,
                       "f32_simt_bounds": simt, "sector_floors": floors}))

@@ -46,8 +46,13 @@ made on the device before the clock starts.  The rows:
   P pairs, RAFT at 20 refinements with the flow head scaled by 0.1 (a
   trained-like step, as chip_smoke.py's TC), exact (B1, B4) and bucketed
   (B1, B4, B6);
-* ``host_decode_frames_per_sec``: ``load_frame`` + ``normalize_image`` on
-  one thread over JPEG frames that ``make_synthetic_vspw`` wrote.
+* ``host_decode_frames_per_sec``: 32 frames of the configuration's size,
+  JPEGs that ``make_synthetic_vspw`` wrote, decoded by PIL and normalized
+  by ``native.normalize_u8`` on one thread (host clock, best of 3), the
+  work of the trainers' loader worker; ``host_decode_path`` names it.  The
+  JAX bench (bench.py:1015-1050) decodes on a libjpeg thread pool over
+  every core, which the port does not have.  ``host_cores_to_saturate_chip``:
+  the streaming rate (``value``) over this one-thread rate, rounded up.
 
 Each device row is timed by CUDA events around its whole loop, after a
 warm-up step (the first call of a shape builds the kernels and picks
@@ -71,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import tempfile
@@ -79,11 +85,12 @@ from functools import partial
 
 import numpy as np
 import torch
+from PIL import Image
 from torch.utils.flop_counter import FlopCounterMode
 
-from . import tc_cal, test_clip
+from . import native, tc_cal, test_clip
 from .config import cfg as default_cfg
-from .data import load_frame, make_synthetic_vspw, normalize_image
+from .data import make_synthetic_vspw
 from .models.clip_psp import ClipPSP, clip_psp_loss
 from .models.etc import ETC, etc_loss
 from .models.propnet import PropNet
@@ -136,7 +143,7 @@ NOT_PORTED = [
     "nonlocal3d_windows_per_sec", "nonlocal3d_mfu",
     "eval_policy_exact_mix_fps", "eval_policy_bucketed_mix_fps",
     "train_b4_ms_per_2_samples",
-    "ocr_head_ms", "host_cores_to_saturate_chip",
+    "ocr_head_ms",
 ]
 
 
@@ -341,25 +348,33 @@ def tc_rows(conf, counts, device, gen):
     return rows
 
 
-def host_decode_row(conf, counts) -> dict:
-    """Frames/s of ``load_frame`` + ``normalize_image`` on one thread over
-    N JPEG frames (host clock, best of 3)."""
-    n = counts["frames"]
+#: JPEG frames the host rows decode (the JAX bench's 32)
+HOST_FRAMES = 32
+
+
+def host_decode_row(conf) -> dict:
+    """Frames/s of PIL decode + ``native.normalize_u8`` over HOST_FRAMES
+    JPEGs on one thread (host clock, best of 3)."""
     with tempfile.TemporaryDirectory() as root:
-        make_synthetic_vspw(root, 1, n, conf["hw"], conf["num_class"],
-                            seed=0, splits=("val",))
-        names = sorted(os.listdir(os.path.join(root, "data", "video_000",
-                                               "origin")))
+        make_synthetic_vspw(root, 1, HOST_FRAMES, conf["hw"],
+                            conf["num_class"], seed=0, splits=("val",))
+        vdir = os.path.join(root, "data", "video_000", "origin")
+        paths = [os.path.join(vdir, n) for n in sorted(os.listdir(vdir))]
+
+        def decode():
+            for p in paths:
+                native.normalize_u8(np.asarray(Image.open(p).convert("RGB")))
+
+        decode()                               # warm the file cache
         times = []
         for _ in range(TRIALS):
             t0 = time.perf_counter()
-            for name in names:
-                img, _ = load_frame(root, "video_000", name)
-                normalize_image(np.asarray(img))
+            decode()
             times.append(time.perf_counter() - t0)
     return {"seconds": min(times),
             "spread_pct": 100.0 * (max(times) / min(times) - 1.0),
-            "per_second": n / min(times)}
+            "per_second": HOST_FRAMES / min(times),
+            "path": f"PIL decode, normalize {native.status()}, one thread"}
 
 
 def card(device):
@@ -447,7 +462,7 @@ def run(args) -> dict:
         free()
     rows.update(tc_rows(conf, counts, device, gen))
     free()
-    host = host_decode_row(conf, counts)
+    host = host_decode_row(conf)
     # last, so that the rows before it run as before it was added: run
     # ahead of propnet's host-bound row, that row read 6.9% slower than
     # without it (H100, the two alternated); with this row last, 0.75%,
@@ -520,6 +535,9 @@ def run(args) -> dict:
             1e3 * rows["tc_bucketed"]["seconds"] / counts["pairs"],
         "tc_mfu": mfu(rows["tc"]),
         "host_decode_frames_per_sec": host["per_second"],
+        "host_decode_path": host["path"],
+        "host_cores_to_saturate_chip": math.ceil(stream
+                                                 / host["per_second"]),
         "spreads_pct": {**{n: r["spread_pct"] for n, r in rows.items()},
                         "host_decode": host["spread_pct"]},
         "device": name,

@@ -1,6 +1,8 @@
-"""argparse surface of the clip trainer (a copy of the JAX package's
-config/args.py ``build_train_clip_parser`` and ``postprocess_args``;
-reference train_clip2.py:404-489), plus ``--device`` and ``--seed``.
+"""argparse surface of the trainers and the per-frame eval (copies of the
+JAX package's config/args.py ``build_train_parser``,
+``build_train_clip_parser`` and ``postprocess_args``, and of test.py's
+``build_eval_parser``; reference train.py:347-398, train_clip2.py:404-489),
+plus ``--device`` and ``--seed``.
 
 Flag names and defaults are the reference's, so its shell entry points
 translate 1:1.  Every flag that the JAX clip trainer reads, the port's
@@ -8,7 +10,9 @@ reads (``--pre_enc`` / ``--pre_dec``: pretrained.py).  Flags that neither
 clip trainer reads (the reference's multi-GPU and per-frame flags, and
 those of methods that are not ported: ``--gpus``, ``--trainfps``,
 ``--clip_up``, ``--othergt``, ``--use_memory`` ...) stay parsed for the
-reference's shell entry points.
+reference's shell entry points.  The per-frame entry points refuse the
+flags whose feature the port does not have yet (:func:`refuse_unported`),
+naming the ROADMAP item that ports it: none is accepted and ignored.
 """
 
 import argparse
@@ -58,6 +62,89 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "the dropout masks (default: TRAIN.seed)")
     parser.add_argument("opts", help="KEY VALUE config overrides",
                         default=None, nargs=argparse.REMAINDER)
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    """Per-frame trainer flags (reference: train.py:347-398)."""
+    parser = argparse.ArgumentParser(
+        description="Semantic segmentation training (PyTorch port)")
+    add_common_args(parser)
+    parser.add_argument("--multi_scale", type=str2bool, default=True)
+    parser.add_argument("--refrng", type=str2bool, default=False,
+                        help="not ported yet (raises)")
+    parser.add_argument("--train_filter", type=str2bool, default=False,
+                        help="crop 480x720 instead of --cropsize")
+    parser.add_argument("--use_clipdataset", type=str2bool, default=False,
+                        help="long clips (--clip_num, --dilation2) folded "
+                             "into the batch")
+    parser.add_argument("--dilation2", type=str, default="2,5,9")
+    parser.add_argument("--clip_num", type=int, default=4)
+    parser.add_argument("--dilation_num", type=int, default=0)
+    parser.add_argument("--use_float16", type=str2bool, default=False,
+                        help="not ported yet (raises)")
+    parser.add_argument("--resume", type=str2bool, default=False,
+                        help="not ported yet (raises)")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="not ported yet (raises)")
+    return parser
+
+
+def build_eval_parser() -> argparse.ArgumentParser:
+    """Per-frame eval flags (the JAX package's test.py)."""
+    p = argparse.ArgumentParser(
+        description="Semantic segmentation eval (PyTorch port)")
+    p.add_argument("--cfg", type=str, required=True)
+    p.add_argument("--dataroot", type=str, default="")
+    p.add_argument("--split", type=str, default="val")
+    p.add_argument("--num_class", type=int, default=124)
+    p.add_argument("--load", type=str, default="",
+                   help="port checkpoint: torch.save of the state_dict, or "
+                        "a checkpoint of train")
+    p.add_argument("--torch_enc", "--load_en", dest="torch_enc", type=str,
+                   default="", help="reference torch encoder .pth "
+                                    "(encoder_epoch_N), loaded strict")
+    p.add_argument("--torch_dec", "--load_de", dest="torch_dec", type=str,
+                   default="", help="reference torch decoder .pth "
+                                    "(decoder_epoch_N), loaded strict")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random init under the loaded weights")
+    p.add_argument("--saveroot", type=str, default="")
+    p.add_argument("--is_save", action="store_true")
+    p.add_argument("--lesslabel", action="store_true")
+    p.add_argument("--use_720p", action="store_true",
+                   help="resize frames and masks to 1080x720")
+    p.add_argument("--max_videos", type=int, default=0)
+    p.add_argument("--width_bucket", type=int, default=64,
+                   help="pad eval frame widths to multiples of this "
+                        "(heights to the stride, 32) and run the masked "
+                        "model at the true size (ops/masked.py); 0 = exact "
+                        "shapes")
+    p.add_argument("--serve_dtype", choices=("bf16", "int8"), default="bf16",
+                   help="the JAX CLI's name of its default path; the port "
+                        "computes in float32, and 'int8' is not ported yet "
+                        "(raises)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (raises without a card) or cpu")
+    p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return p
+
+
+#: flag → (the value that means "off", the ROADMAP Queue A item porting it)
+UNPORTED_FLAGS = {
+    "usetwodata": (False, 7), "resume": (False, 7), "use_float16": (False, 7),
+    "refrng": (False, 5), "serve_dtype": ("bf16", 9), "profile_dir": ("", 8),
+}
+
+
+def refuse_unported(args) -> None:
+    """Raise NotImplementedError for a flag of ``UNPORTED_FLAGS`` that is
+    set, naming the ROADMAP item that ports it."""
+    for flag, (off, item) in UNPORTED_FLAGS.items():
+        value = getattr(args, flag, off)
+        if value != off:
+            raise NotImplementedError(
+                f"--{flag} {value} is not ported yet (ROADMAP Queue A item "
+                f"{item})")
 
 
 def build_train_clip_parser() -> argparse.ArgumentParser:

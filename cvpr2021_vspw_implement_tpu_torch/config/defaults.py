@@ -38,8 +38,11 @@ _C.TRAIN.disp_iter = 20
 _C.TRAIN.seed = 304
 
 # the section keeps the JAX package's name so that its KEY VALUE overrides
-# carry over; the port reads two keys of it
+# carry over; the port reads three keys of it
 _C.TPU = CN()
+# batches the trainers' loader collates ahead, and copies to the card ahead
+# (data/loader.py, parallel/train_state.py::device_prefetch)
+_C.TPU.prefetch = 2
 # RAFT refinements of the frozen-flow methods (the reference hard-codes 20)
 _C.TPU.raft_iters = 20
 # the JAX CLIs default to bfloat16; the port computes in float32 only, and

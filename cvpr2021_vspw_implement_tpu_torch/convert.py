@@ -2,8 +2,10 @@
 
 ``load_jax_variables(model, variables)`` takes a Flax ``{"params",
 "batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP``, a
-``RAFT``, an ``ETC`` or a ``ClipWarpNet`` one, training heads included) and
-fills the port module: conv kernels HWIO → OIHW, BN
+``RAFT``, an ``ETC``, a ``ClipWarpNet`` or a ``SegmentationModule`` one,
+training heads included) and
+fills the port module (a per-frame ``SegmentationModule`` with any encoder
+and decoder of ``models.builder``, too): conv kernels HWIO → OIHW, BN
 scale/bias/mean/var → weight/bias/running_mean/running_var, free parameters
 (our_warp's ``w{i}``) as they are.  It is the
 inverse of the JAX package's ``models/import_torch.py`` importers, which
@@ -23,6 +25,7 @@ from torch import nn
 from .models.clip_psp import ClipPSP
 from .models.etc import ETC
 from .models.raft import RAFT
+from .models.segmentation import SegmentationModule
 from .models.warp_our import ClipWarpNet
 
 # (port module name pattern, Flax path template) — BN paths name the node
@@ -69,6 +72,20 @@ _ENCODER_DECODER = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
     (r"decoder\.cbr_deepsup\.1", "decoder/cbr_deepsup/1"),
     (r"decoder\.conv_last_deepsup_", "decoder/conv_last_deepsup_/conv"),
 ]
+# the per-frame decoders: C1 (cbr, conv_last_1), C1DeepSup (cbr,
+# conv_last_, cbr_deepsup, conv_last_deepsup_), PPM (ppm, conv_last) and
+# PPMDeepsup (ppm, conv_last_, cbr_deepsup, conv_last_deepsup_)
+_SEGMENTATION = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
+    (r"decoder\.ppm\.(\d+)\.1", r"decoder/ppm/ppm_\1_conv/conv"),
+    (r"decoder\.ppm\.(\d+)\.2", r"decoder/ppm/ppm_\1_bn"),
+    (r"decoder\.(conv_last_?)\.0", r"decoder/\1/0/conv"),
+    (r"decoder\.(conv_last_?)\.1", r"decoder/\1/1"),
+    (r"decoder\.(conv_last_?)\.4", r"decoder/\1/cls/conv"),
+    (r"decoder\.(cbr|cbr_deepsup)\.0", r"decoder/\1/0/conv"),
+    (r"decoder\.(cbr|cbr_deepsup)\.1", r"decoder/\1/1"),
+    (r"decoder\.(conv_last_|conv_last_1|conv_last_deepsup_)",
+     r"decoder/\1/conv"),
+]
 _ETC = [(r"raft\." + p, "raft/" + t) for p, t in _RAFT] + _ENCODER_DECODER + [
     (r"conv_last_\.0", "conv_last_0/conv"),
     (r"conv_last_\.1", "conv_last_1"),
@@ -81,13 +98,15 @@ _CLIP_WARP = _ENCODER_DECODER + [
     (r"prop_clip\.last_layer\.1", "prop_clip/last_conv/conv"),
     (r"last_layer\.1", "last_layer/conv"),
 ]
-_RULES = {ClipPSP: _CLIP_PSP, RAFT: _RAFT, ETC: _ETC, ClipWarpNet: _CLIP_WARP}
+_RULES = {ClipPSP: _CLIP_PSP, RAFT: _RAFT, ETC: _ETC, ClipWarpNet: _CLIP_WARP,
+          SegmentationModule: _SEGMENTATION}
 
 
 def _flax_path(name: str, rules) -> list[str]:
     for pat, tmpl in rules:
-        if re.fullmatch(pat, name):
-            return re.sub(pat, tmpl, name).split("/")
+        m = re.fullmatch(pat, name)
+        if m:
+            return m.expand(tmpl).split("/")
     raise KeyError(f"no Flax path for port module {name!r}")
 
 
@@ -108,7 +127,8 @@ def _copy(dst: torch.Tensor, src) -> None:
 
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Fill ``model`` (ClipPSP, RAFT, ETC or ClipWarpNet) from a Flax
+    """Fill ``model`` (ClipPSP, RAFT, ETC, ClipWarpNet or
+    SegmentationModule) from a Flax
     variable tree; returns the model."""
     rules = _RULES.get(type(model))
     if rules is None:

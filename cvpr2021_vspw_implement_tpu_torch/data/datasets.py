@@ -1,7 +1,7 @@
-"""VSPW-480p data: layout, normalization, label remap, clip sampling and
-augmentation (copies of the JAX package's data/datasets.py primitives,
-``ClipDataset``, ``LongClipDataset``, ``TestFrameDataset`` and
-``TestClipDataset``).
+"""VSPW-480p data: layout, normalization, label remap, frame and clip
+sampling and augmentation (copies of the JAX package's data/datasets.py
+primitives, ``FrameDataset``, ``ClipDataset``, ``LongClipDataset``,
+``TestFrameDataset`` and ``TestClipDataset``).
 
 Layout ``<root>/data/<video>/{origin,mask}/*`` with ``<root>/<split>.txt``
 video lists; ImageNet mean/std normalization; label remap 0→255 (ignore),
@@ -11,10 +11,12 @@ image, nearest mask), one pad-to-cropsize (image 0, label 255) and one
 random crop shared by the clip (dataset2.py:806-845).  Clip sampling: a
 contiguous run from a random dilated sublist (dataset2.py:780-849), or an
 anchor plus offsets with p=0.5 temporal reversal (dataset2.py:984-1048).
-Frames decode with PIL.  The draws come from ``random.Random(seed)`` and
-``np.random.default_rng(seed)`` in the JAX package's order, so one seed gives
-both packages the same batches.  Outputs are HWC numpy: images float32
-normalized, labels int32.
+Frames decode with PIL; uint8 normalization and the label remap take the
+native one-pass ops (``native``).  The clip datasets draw from ``random.Random(seed)`` and
+``np.random.default_rng(seed)`` in the JAX package's order, and
+``FrameDataset`` from generators keyed by (seed, epoch, index), so one seed
+gives both packages the same batches.  Outputs are HWC numpy: images
+float32 normalized, labels int32.
 """
 
 from __future__ import annotations
@@ -26,23 +28,24 @@ from typing import Sequence
 import numpy as np
 from PIL import Image
 
+from .. import native
+
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
-# the JAX package normalizes uint8 frames as p * scale + shift in float32
-# (native/hostops.cpp); the same two roundings give the same floats
-_SCALE = np.float32(1.0 / 255.0) / STD
-_SHIFT = -MEAN / STD
 
 
 def normalize_image(img: np.ndarray) -> np.ndarray:
-    """[H, W, 3] → ImageNet-normalized float32."""
+    """[H, W, 3] → ImageNet-normalized float32; uint8 takes the one-pass
+    native op (``native.normalize_u8``)."""
     if img.dtype == np.uint8:
-        return img.astype(np.float32) * _SCALE + _SHIFT
+        return native.normalize_u8(img)
     return (img - MEAN) / STD
 
 
 def remap_label(segm: np.ndarray) -> np.ndarray:
     """Mask remap (reference: dataset2.py:602-609): 0→255, v→v-1, 254→255."""
+    if segm.dtype == np.uint8:
+        return native.remap_label_u8(segm)
     segm = segm.astype(np.int32)
     out = segm - 1
     out[segm == 0] = 255
@@ -84,6 +87,14 @@ def _rng_handles(seed):
     return random.Random(seed), np.random.default_rng(seed)
 
 
+def _item_rng_handles(seed, epoch: int, idx: int):
+    """Generators of one item's draws, keyed by (seed, epoch, index): random
+    across epochs, and the same whatever was drawn before (JAX
+    ``_item_rng_handles``)."""
+    mix = (seed or 0) * 1_000_003 + epoch * 65_537 + idx
+    return random.Random(mix), np.random.default_rng(mix)
+
+
 def _augment_frame(img: Image.Image, mask: Image.Image, flip: bool,
                    scale: float):
     if flip:
@@ -119,6 +130,53 @@ def _pad_crop_clip(imgs: list[np.ndarray], labels: list[np.ndarray],
         out_i.append(img[y:y + ch, x:x + cw])
         out_l.append(lab[y:y + ch, x:x + cw])
     return out_i, out_l
+
+
+class FrameDataset:
+    """Single-frame train dataset (reference BaseDataset,
+    dataset2.py:494-654): every ``int(15 / trainfps)``-th frame of each
+    video, a flip and (``--multi_scale``) a scale, then pad and a random crop
+    of ``cropsize`` (480x720 with ``--train_filter``), each item's draws from
+    :func:`_item_rng_handles` at the epoch that :meth:`set_epoch` gave."""
+
+    def __init__(self, args, split: str = "train", seed: int | None = None):
+        self.args = args
+        self.split = split
+        self.dataroot = args.dataroot
+        self.cropsize = (480, 720) if getattr(args, "train_filter", False) \
+            else (args.cropsize, args.cropsize)
+        trainfps = 1 if split == "val" else args.trainfps
+        self.seed = seed or 0
+        self.epoch = 0
+        num = int(15.0 / trainfps)
+        self.imglist: list[tuple[str, str]] = []
+        for video in list_videos(self.dataroot, split):
+            frames = list_frames(self.dataroot, video)
+            self.imglist.extend((video, f) for k, f in enumerate(frames)
+                                if k % num == 0)
+
+    def __len__(self):
+        return len(self.imglist)
+
+    def set_epoch(self, epoch: int):
+        """Key the items' draws by ``epoch`` (the loader calls it)."""
+        self.epoch = int(epoch)
+
+    def __getitem__(self, idx):
+        video, name = self.imglist[idx]
+        img, mask = load_frame(self.dataroot, video, name,
+                               getattr(self.args, "lesslabel", False))
+        rng, nprng = _item_rng_handles(self.seed, self.epoch, int(idx))
+        if self.split == "train":
+            flip = bool(nprng.choice([0, 1]))
+            scale = float(nprng.choice(SCALES)) \
+                if getattr(self.args, "multi_scale", False) else 1.0
+            img, mask = _augment_frame(img, mask, flip, scale)
+        arr = np.asarray(img)             # uint8 until after the crop
+        lab = remap_label(np.asarray(mask))
+        if self.split == "train":
+            [arr], [lab] = _pad_crop_clip([arr], [lab], self.cropsize, rng)
+        return normalize_image(arr), lab
 
 
 class ClipDataset:
@@ -208,7 +266,10 @@ class LongClipDataset(ClipDataset):
 
 
 class TestFrameDataset:
-    """Sequential per-video eval frames (TestDataset, dataset2.py:34-141)."""
+    """Sequential per-video eval frames (TestDataset, dataset2.py:34-141).
+    ``--use_720p`` resizes frame and mask to 1080x720 in the per-frame eval
+    only: the reference's clip eval datasets take the flag and ignore it
+    (dataset2.py:130-133), and so do the subclasses here."""
 
     __test__ = False  # not a pytest class
 
@@ -225,6 +286,10 @@ class TestFrameDataset:
         name = self.imglist[idx]
         img, mask = load_frame(self.dataroot, self.video, name,
                                getattr(self.args, "lesslabel", False))
+        if getattr(self.args, "use_720p", False) \
+                and type(self) is TestFrameDataset:
+            img = img.resize((1080, 720), Image.BILINEAR)
+            mask = mask.resize((1080, 720), Image.NEAREST)
         arr = normalize_image(np.asarray(img))
         lab = remap_label(np.asarray(mask))
         return arr, lab, os.path.splitext(name)[0] + ".png"

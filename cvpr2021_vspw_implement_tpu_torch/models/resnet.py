@@ -114,9 +114,11 @@ class ResNetFeatures(nn.Module):
 
 
 def build_encoder(arch: str) -> ResNetFeatures:
-    """The encoders of the ported presets, by the reference arch name."""
+    """The dilated ResNet trunks, by the reference arch name (the other
+    encoders raise in ``models.builder.ModelBuilder.build_encoder``)."""
     archs = {
         "resnet18dilated": (BasicBlock, (2, 2, 2, 2)),
+        "resnet50dilated": (Bottleneck, (3, 4, 6, 3)),
         "resnet101dilated": (Bottleneck, (3, 4, 23, 3)),
     }
     if arch.lower() not in archs:

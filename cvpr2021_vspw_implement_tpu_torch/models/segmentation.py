@@ -1,19 +1,45 @@
-"""Training losses and inference heads (JAX counterpart:
-models/segmentation.py).
+"""The per-frame model, training losses and inference heads (JAX
+counterpart: models/segmentation.py).
 
-The reference's training-loss order is log_softmax at FEATURE resolution,
-bilinear upsample of the log-probabilities to the label size, then NLL with
-ignore index 255 (models/models.py:954-957, 96-104).
+``SegmentationModule`` is encoder + decoder (reference models/models.py:
+74-111), returning the decoder's logits.  The reference's training-loss
+order is log_softmax at FEATURE resolution, bilinear upsample of the
+log-probabilities to the label size, then NLL with ignore index 255
+(models/models.py:954-957, 96-104).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..ops.interpolate import linear_weights, resize_bilinear
-from ..ops.masked import resize_bilinear_rt
+from ..ops.masked import masked_encode, resize_bilinear_rt
 from ..utils.metrics import pixel_acc
 from .layers import log_softmax
+
+
+class SegmentationModule(nn.Module):
+    """Encoder + decoder: [N, 3, H, W] normalized → the decoder's tuple of
+    logits, (main,) in eval and (main, deep supervision) in training for
+    the ``*deepsup`` heads.
+
+    ``valid_hw``: the true (rows, cols) of the image inside a zero-padded
+    width bucket (eval only, under inference mode; ops/masked.py): the
+    trunk runs under the spatial-conv-input mask, every level's band is
+    re-zeroed in place (B6) and the decoder gets C5's valid size, so the
+    logits' valid region is the unpadded run's."""
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+    def forward(self, img, valid_hw=None):
+        conv_out, fv = masked_encode(self.encoder, img, valid_hw)
+        if fv is None:
+            return self.decoder(conv_out)
+        return self.decoder(conv_out, valid_hw=fv)
 
 
 def nll_from_logprobs(logp: torch.Tensor, label: torch.Tensor,
@@ -64,6 +90,20 @@ def pixel_accuracy(logits: torch.Tensor, label: torch.Tensor):
     JAX losses take, is the same)."""
     up = resize_bilinear(logits.detach().float(), label.shape[1:3])
     return pixel_acc(up, torch.where(label == 255, -1, label))
+
+
+def segmentation_loss(outputs, label: torch.Tensor,
+                      deep_sup_scale: float | None = 0.4):
+    """(loss, acc) of the per-frame model (reference models/models.py:
+    82-108): the projected NLL of the main logits plus ``deep_sup_scale``
+    times that of the deep-supervision logits when there are some; the
+    accuracy of the main logits upsampled to ``label`` [N, H, W] (255
+    ignored)."""
+    loss = upsampled_logprob_loss_projected(outputs[0], label)
+    if deep_sup_scale is not None and len(outputs) > 1:
+        loss = loss + deep_sup_scale * upsampled_logprob_loss_projected(
+            outputs[1], label)
+    return loss, pixel_accuracy(outputs[0], label)
 
 
 def inference_pred(outputs, seg_size, align_corners: bool = False):

@@ -1,8 +1,14 @@
-"""Optimizer and LR schedule of the clip trainer (JAX counterpart:
-parallel/optim.py ``poly_schedule`` and ``create_clip_optimizer``; reference
-train_clip2.py:215-252).
+"""Optimizers and LR schedule of the trainers (JAX counterpart:
+parallel/optim.py ``poly_schedule``, ``create_frame_optimizer`` and
+``create_clip_optimizer``).
 
-One ``torch.optim.SGD`` over four parameter groups: the encoder at 0.1x LR
+Per-frame recipe (reference train.py:191-238): one SGD, one poly schedule
+for every parameter, weight decay on conv and linear kernels only (the
+reference's ``group_weight``: biases and BatchNorm parameters are not
+decayed).
+
+Clip recipe (reference train_clip2.py:215-252): one SGD over four parameter
+groups: the encoder at 0.1x LR
 and the heads at 1x, each split into decayed parameters and biases, which
 are not decayed (BatchNorm scales *do* decay in this recipe).  ``--fix``
 freezes the encoder, and the frozen RAFT flow net never reaches the
@@ -21,6 +27,28 @@ def poly_schedule(base_lr: float, max_iters: int, power: float = 0.9):
     def schedule(count: int) -> float:
         return base_lr * max(1.0 - count / max_iters, 0.0) ** power
     return schedule
+
+
+def _scheduled(optimizer, max_iters: int, lr_pow: float):
+    factor = poly_schedule(1.0, max_iters, lr_pow)
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+
+
+def create_frame_optimizer(model: nn.Module, lr: float, max_iters: int,
+                           momentum: float = 0.9, weight_decay: float = 1e-4,
+                           lr_pow: float = 0.9):
+    """→ (optimizer, scheduler) of the per-frame recipe: the kernels of
+    ``nn.Conv2d`` and ``nn.Linear`` decay (JAX ``make_masks(...,
+    "kernels")``), nothing else does; one LR for all."""
+    kernels = {id(m.weight) for m in model.modules()
+               if isinstance(m, (nn.Conv2d, nn.Linear))}
+    decay, rest = [], []
+    for p in model.parameters():
+        (decay if id(p) in kernels else rest).append(p)
+    optimizer = torch.optim.SGD(
+        [{"params": decay, "weight_decay": weight_decay},
+         {"params": rest, "weight_decay": 0.0}], lr=lr, momentum=momentum)
+    return _scheduled(optimizer, max_iters, lr_pow)
 
 
 def create_clip_optimizer(model: nn.Module, lr: float, max_iters: int,
@@ -44,6 +72,4 @@ def create_clip_optimizer(model: nn.Module, lr: float, max_iters: int,
         [{"params": ps, "lr": lr * mult, "weight_decay": wd}
          for (mult, wd), ps in groups.items()],
         lr=lr, momentum=momentum)
-    factor = poly_schedule(1.0, max_iters, lr_pow)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
-    return optimizer, scheduler
+    return _scheduled(optimizer, max_iters, lr_pow)

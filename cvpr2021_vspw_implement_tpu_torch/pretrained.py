@@ -1,6 +1,7 @@
-"""Pretrained init of the temporal trainer (JAX counterpart:
-models/import_torch.py::apply_pretrained_init; reference train_clip2.py:
-511-512, ``ModelBuilder(weights=)``).
+"""Reference torch checkpoints loaded into the port's encoders and decoders
+(JAX counterpart: models/import_torch.py::apply_pretrained_init and the
+per-frame eval's ``--torch_enc`` / ``--torch_dec``; reference
+train_clip2.py:511-512, ``ModelBuilder(weights=)``).
 
 The paper's recipe starts temporal training from per-frame-pretrained
 weights: ``--pre_enc`` (or ``cfg.MODEL.weights_encoder``) is a reference
@@ -48,28 +49,42 @@ def _decoder_heads(arch_decoder: str) -> dict:
             "conv_last_deepsup": "conv_last_deepsup_"}
 
 
+def load_reference_weights(model, cfg, encoder: str = "", decoder: str = "",
+                           strict: bool = True, logger=None):
+    """Load the reference checkpoints ``encoder`` / ``decoder`` (paths, ""
+    for none) into ``model.encoder`` / ``model.decoder``, renamed as above.
+    ``strict``: every parameter and buffer of the module must come from the
+    checkpoint and every entry of it must land (``num_batches_tracked``
+    aside); otherwise a missing one keeps its init and an extra one is
+    dropped.  Returns ``model``."""
+    for part, path in (("encoder", encoder), ("decoder", decoder)):
+        if not path:
+            continue
+        module = getattr(model, part, None)
+        if module is None:
+            if logger:
+                logger.info(f"reference {part} {path} ignored — this "
+                            f"model has no {part}")
+            continue
+        heads = _decoder_heads(cfg.MODEL.arch_decoder) \
+            if part == "decoder" else None
+        missing, unexpected = module.load_state_dict(
+            _renamed(torch.load(path, map_location="cpu"), heads),
+            strict=False)
+        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+        if strict and (missing or unexpected):
+            raise KeyError(f"{part} checkpoint {path}: missing {missing}, "
+                           f"unexpected {unexpected}")
+        if logger:
+            logger.info(f"reference {part} loaded from {path}")
+    return model
+
+
 def apply_pretrained_init(model, cfg, args, logger=None):
     """Load ``--pre_enc`` / ``--pre_dec`` (or ``cfg.MODEL.weights_encoder``
     / ``weights_decoder``) into ``model`` in place, after its init and
     before the optimizer is built; returns ``model``."""
-    pre_enc = getattr(args, "pre_enc", "") or cfg.MODEL.weights_encoder
-    pre_dec = getattr(args, "pre_dec", "") or cfg.MODEL.weights_decoder
-    if pre_enc:
-        model.encoder.load_state_dict(
-            _renamed(torch.load(pre_enc, map_location="cpu")), strict=False)
-        if logger:
-            logger.info(f"pretrained init: encoder from {pre_enc}")
-    if pre_dec:
-        decoder = getattr(model, "decoder", None)
-        if decoder is None:
-            if logger:
-                logger.info("pretrained init: --pre_dec ignored — this "
-                            "method has no decoder")
-        else:
-            decoder.load_state_dict(
-                _renamed(torch.load(pre_dec, map_location="cpu"),
-                         _decoder_heads(cfg.MODEL.arch_decoder)),
-                strict=False)
-            if logger:
-                logger.info(f"pretrained init: decoder from {pre_dec}")
-    return model
+    return load_reference_weights(
+        model, cfg, getattr(args, "pre_enc", "") or cfg.MODEL.weights_encoder,
+        getattr(args, "pre_dec", "") or cfg.MODEL.weights_decoder,
+        strict=False, logger=logger)

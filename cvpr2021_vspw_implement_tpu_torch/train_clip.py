@@ -3,10 +3,12 @@ reference train_clip2.py).
 
 ``--method`` dispatches over the registry in methods.py (``clip_psp``,
 ``ETC``, ``our_warp``, ``propnet`` and ``our_warp_merge``); the collate
-functions put the target frame last in the stacked [T, B, ...] clip; a step
-is forward, loss, backward and the clip-recipe SGD with 0.1x encoder LR and
-1x for every head, the window methods' warp heads included (parallel/).  Weights are a seeded
-random init, then ``--pre_enc/--pre_dec`` (or ``MODEL.weights_encoder/
+functions put the target frame last in the stacked [T, B, ...] clip.
+``PrefetchLoader`` collates on its worker thread into pinned memory and
+``device_prefetch`` copies each batch to the card ahead of its step (depth
+``TPU.prefetch``).  A step is forward, loss, backward and the clip-recipe
+SGD with 0.1x encoder LR and 1x for every head, the window methods' warp
+heads included (parallel/).  Weights are a seeded random init, then ``--pre_enc/--pre_dec`` (or ``MODEL.weights_encoder/
 decoder``) load reference per-frame checkpoints over the encoder and the
 decoder (pretrained.py), as the paper's recipe starts; checkpoints are
 ``torch.save`` files, every 20 epochs and at the end, and ``--resume_epoch N``
@@ -28,10 +30,11 @@ import torch
 from .config import check_compute_dtype
 from .config import cfg as default_cfg
 from .config.args import build_train_clip_parser, postprocess_args
-from .data import ClipDataset, ClipLoader, LongClipDataset
+from .data import ClipDataset, LongClipDataset, PrefetchLoader
 from .methods import LONGCLIP_METHODS, build_method, get_collate
 from .models.layers import init_weights, set_dropout_generator
-from .parallel import create_clip_optimizer, to_device, train_step
+from .parallel import (create_clip_optimizer, device_prefetch,
+                       pinned_collate, train_step)
 from .pretrained import apply_pretrained_init
 from .utils import AverageMeter, resolve_device, setup_logger
 from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -53,8 +56,10 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
 
     ds_cls = LongClipDataset if args.method in LONGCLIP_METHODS else ClipDataset
     dataset = ds_cls(args, "train", seed=seed)
-    loader = ClipLoader(dataset, args.batchsize,
-                        get_collate(args.method, args.clip_num), seed=seed)
+    loader = PrefetchLoader(
+        dataset, args.batchsize,
+        pinned_collate(get_collate(args.method, args.clip_num), device),
+        seed=seed, prefetch=cfg.TPU.prefetch)
 
     max_iters = len(loader) * args.totalepoch
     optimizer, scheduler = create_clip_optimizer(
@@ -74,8 +79,10 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
     steps_run = 0
     for epoch in range(start_epoch, args.totalepoch):
         tic = time.time()
-        for i, batch in enumerate(loader):
-            batch = to_device(batch, device)
+        # data_time: the wait for a batch on the card, collated on the
+        # loader's thread and copied ahead on a side stream
+        for i, batch in enumerate(device_prefetch(loader, device,
+                                                  cfg.TPU.prefetch)):
             data_time.update(time.time() - tic)
             metrics = train_step(model, optimizer, scheduler, batch, loss_fn)
             loss, acc = float(metrics["loss"]), float(metrics["acc"])

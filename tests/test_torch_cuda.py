@@ -848,3 +848,92 @@ def test_local_agg_autograd_on_the_card(cuda_device, mode):
         assert (t.grad - b).abs().max() <= 1e-4 * b.abs().max()
     with pytest.raises(ValueError, match="eval only"):
         fwd(*ts, 5, valid_hw=(20, 30))
+
+
+class _RandomClips:
+    """Clip items [4 x (479, 479, 3) float32], [4 x (479, 479) int32],
+    fixed by the index."""
+
+    def __len__(self):
+        return 128
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(idx)
+        imgs = [rng.standard_normal((479, 479, 3), np.float32)
+                for _ in range(4)]
+        labs = [rng.integers(0, 124, (479, 479)).astype(np.int32)
+                for _ in range(4)]
+        return imgs, labs
+
+
+@pytest.mark.cuda
+def test_device_prefetch_matches_blocking_copies(cuda_device):
+    """64 batches of the clip shape (4 x 2 x 479, pinned by the loader's
+    worker, copied on the side stream two ahead) equal, tensor by tensor,
+    blocking copies of the same host batches, with a train step on the
+    compute stream between them that reads each batch."""
+    from cvpr2021_vspw_implement_tpu_torch.data import (
+        PrefetchLoader, make_collate_target_last)
+    from cvpr2021_vspw_implement_tpu_torch.parallel import (
+        device_prefetch, pinned_collate, to_device)
+
+    dataset, collate = _RandomClips(), make_collate_target_last(0)
+    loader = PrefetchLoader(dataset, 2, pinned_collate(collate, "cuda"),
+                            seed=3, prefetch=2)
+    order = list(PrefetchLoader(dataset, 2, collate, seed=3)
+                 ._index_batches())
+    conv = torch.nn.Conv2d(3, 64, 3, padding=1).cuda()
+    opt = torch.optim.SGD(conv.parameters(), lr=1e-3)
+    n = 0
+    for idxs, batch in zip(order, device_prefetch(loader, "cuda", 2)):
+        loss = conv(batch["img"].flatten(0, 1)).square().mean() \
+            + 1e-6 * batch["labels"].float().mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        want = to_device(collate([dataset[int(i)] for i in idxs]), "cuda")
+        assert sorted(batch) == sorted(want)
+        for key in want:
+            assert batch[key].dtype == want[key].dtype, key
+            assert torch.equal(batch[key], want[key]), (n, key)
+        n += 1
+    assert n == 64
+
+
+@pytest.mark.cuda
+def test_frame_eval_launches_band_zero_as_the_model_implies(cuda_device,
+                                                            tmp_path):
+    """The per-frame eval of a seeded R18 ``ppm_deepsup`` model in the 64x64
+    bucket (48x56 frames: every level has a band) launches B6 the trunk's
+    spatial convs + 6 times a frame and nothing else; its PNGs differ from
+    the exact eval's at no more than 0.1% of the pixels (cuDNN picks its
+    algorithms per width, so a near-tie pixel may flip; the smoke holds
+    the R101 model's logits)."""
+    from cvpr2021_vspw_implement_tpu_torch import bench, test
+    from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
+    from PIL import Image
+
+    root = str(tmp_path / "vspw")
+    make_synthetic_vspw(root, 2, 3, (48, 56), 5, seed=4)
+    preset = os.path.join(os.path.dirname(test.__file__), "config",
+                          "presets", "vsp-resnet18dilated-ppm_deepsup.yaml")
+    preds = {}
+    for bucket in (0, 64):
+        for fn in bench.WRAPPERS.values():
+            fn.launches = 0
+        out = str(tmp_path / f"preds_{bucket}")
+        metrics, _ = test.main(["--cfg", preset, "--dataroot", root,
+                                "--num_class", "5", "--width_bucket",
+                                str(bucket), "--is_save", "--saveroot", out])
+        got = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
+        per_frame = chip_smoke.frame_band_launches(torch, "resnet18dilated")
+        want = {"band_zero": 6 * per_frame} if bucket else {}
+        assert got == {n: want.get(n, 0) for n in got}
+        assert np.isfinite(metrics["mIoU"])
+        preds[bucket] = [np.asarray(Image.open(os.path.join(d, f)))
+                         for d in sorted(os.path.join(out, v) for v in
+                                         os.listdir(out) if v != "vmiou.pkl")
+                         for f in sorted(os.listdir(d))]
+    assert len(preds[0]) == 6
+    differ = sum(int((a != b).sum()) for a, b in zip(preds[0], preds[64]))
+    assert differ <= 1e-3 * 6 * 48 * 56

@@ -48,6 +48,7 @@ def _port_sources():
     yield os.path.join(PORT, os.pardir, "tools", "torch_mma_split_bench.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_launch_bench.py")
     yield os.path.join(PORT, os.pardir, "tools", "torch_nearest_picks.py")
+    yield os.path.join(PORT, os.pardir, "tools", "torch_loader_bench.py")
     for d, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
@@ -78,6 +79,8 @@ def test_port_imports_no_jax():
             "ops/local_agg.py", "models/warp_our.py", "models/propnet.py",
             "models/warp_our_merge.py", "ops/masked.py",
             "ops/band_zero.py", "serving.py", "bench.py", "../chip_smoke.py",
+            "native/__init__.py", "test.py", "train.py", "models/builder.py",
+            "models/segmentation.py", "../tools/torch_loader_bench.py",
             "../tools/torch_step_profile.py",
             "../tools/torch_bucket_profile.py",
             "../tools/torch_mma_split_bench.py"} <= set(seen)

@@ -301,8 +301,8 @@ def test_train_datasets_identical(vspw_root, cls, multi_scale):
 def test_loader_and_collate_identical(vspw_root):
     args = _data_args(vspw_root, clip_num=4, dilation2="1,2,3")
     collate = pdata.make_collate_target_last(0)
-    mine = pdata.ClipLoader(pdata.LongClipDataset(args, "train", seed=5), 2,
-                            collate, seed=5)
+    mine = pdata.PrefetchLoader(pdata.LongClipDataset(args, "train", seed=5),
+                                2, collate, seed=5)
     ref = jloader.PrefetchLoader(jdata.LongClipDataset(args, "train", seed=5),
                                  2, jloader.make_collate_target_last(0),
                                  seed=5)
