@@ -82,6 +82,21 @@
       clip_psp and propnet with its batches made serially against the
       prefetch loader (tools/torch_loader_bench.py); every train phase
       prints its data wait;
+   h. the TCB-OCR and NetWarp eval CLIs over the 10-frame video, seeded
+      random R101 models (TCB-OCR on the OCR preset), each exact and then
+      bucketed in 480x896: ``test_clip --method clip_ocr`` streaming, then
+      ``--use_memory True`` (the run script's eval: the window path with
+      the ring of contexts), ``--method netwarp`` and ``netwarp_ocr``
+      (pairs streamed, RAFT at 20 refinements: B1 at 20 and B4 at 40 a
+      pair); B6 at counts derived from the models; each bucketed run held
+      against its exact run as in d; then NetWarp's refined flow bucketed
+      against exact after RAFT's first refinement, and with FlowCNN
+      unmasked, a planted fault that must fail (the blend weights start at
+      0, so the predictions do not read the warp at the seeded init);
+   i. the clip trainer for ``clip_ocr`` (4 frames, offsets 3,6,9),
+      ``netwarp``, ``netwarp_ocr`` and ``etc_ocr`` (2 frames, RAFT at 20
+      refinements: B1, B2 and B3 at 20 a step), crop 479, batch 2, four
+      steps each;
    e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
@@ -1535,6 +1550,11 @@ BENCH_KEYS = (
     "our_warp_bucketed_windows_per_sec", "propnet_windows_per_sec",
     "propnet_mfu", "our_warp_merge_windows_per_sec", "our_warp_merge_mfu",
     "tc_ms_per_pair", "tc_bucketed_ms_per_pair", "tc_mfu",
+    "clipocr_frames_per_sec", "clipocr_mfu", "clipocr_stream4_frames_per_sec",
+    "clipocr_bucketed_frames_per_sec", "clipocr_bucketed_overhead_pct",
+    "netwarp_stream_frames_per_sec", "netwarp_stream_mfu",
+    "netwarp_stream_bucketed_frames_per_sec", "netwarp_train_step_ms",
+    "netwarp_train_mfu",
     "host_decode_frames_per_sec", "host_decode_path",
     "host_cores_to_saturate_chip", "spreads_pct", "device", "power_limit_w",
     "peak_tflops_f32", "dtype", "not_ported")
@@ -1548,22 +1568,27 @@ BENCH_TIMES = (
     "our_warp_windows_per_sec", "our_warp_bucketed_windows_per_sec",
     "propnet_windows_per_sec", "our_warp_merge_windows_per_sec",
     "tc_ms_per_pair", "tc_bucketed_ms_per_pair",
+    "clipocr_frames_per_sec", "clipocr_stream4_frames_per_sec",
+    "clipocr_bucketed_frames_per_sec", "netwarp_stream_frames_per_sec",
+    "netwarp_stream_bucketed_frames_per_sec", "netwarp_train_step_ms",
     "host_decode_frames_per_sec", "host_cores_to_saturate_chip")
 BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu",
               "our_warp_train_mfu", "etc_mfu", "our_warp_mfu", "propnet_mfu",
-              "our_warp_merge_mfu", "tc_mfu")
+              "our_warp_merge_mfu", "tc_mfu", "clipocr_mfu",
+              "netwarp_stream_mfu", "netwarp_train_mfu")
 
 
-def check_bench(out, per_frame, per_pair, iters, per_window):
+def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
     """The bench's result on the card: every key; every time and rate
     finite and positive; every ``mfu`` in (0, 1]; and each row's kernel
     launches in a trial as its loop implies: a bucketed frame ``per_frame``
-    B6 launches, an ETC step ``iters`` each of B1, B2 and B3, an our_warp
-    window 3 of B5 (sigmoid), an our_warp train step 3 of B5 and 3 of its
-    backward (sigmoid), an our_warp_merge window 1, a bucketed
-    window ``per_window`` (by path) of B6, a TC pair ``iters`` of B1 and
-    twice that of B4 (and bucketed ``per_pair`` of B6); no other
-    launch."""
+    B6 launches, an ETC or NetWarp step ``iters`` each of B1, B2 and B3, an
+    our_warp window 3 of B5 (sigmoid), an our_warp train step 3 of B5 and 3
+    of its backward (sigmoid), an our_warp_merge window 1, a bucketed
+    window ``per_window`` (by path) of B6, a TC pair and a NetWarp frame
+    ``iters`` of B1 and twice that of B4 (and bucketed ``per_pair`` and
+    ``per_ocr["netwarp"]`` of B6), a bucketed TCB-OCR frame
+    ``per_ocr["clip_ocr"]`` of B6; no other launch."""
     missing = [k for k in BENCH_KEYS if k not in out]
     bad = [k for k in BENCH_TIMES
            if not (math.isfinite(out[k]) and out[k] > 0)]
@@ -1584,7 +1609,17 @@ def check_bench(out, per_frame, per_pair, iters, per_window):
                 "local_sigmoid_aggregate",
                 "local_sigmoid_aggregate_backward")},
             "tc": tc,
-            "tc_bucketed": {**tc, "band_zero": per_pair * n["pairs"]}}
+            "tc_bucketed": {**tc, "band_zero": per_pair * n["pairs"]},
+            "clipocr_bucketed": {
+                "band_zero": per_ocr["clip_ocr"] * n["frames"]},
+            "netwarp_train": {k: iters * n["etc_train_steps"] for k in (
+                "corr_lookup", "motion_encoder", "gru_flowhead")},
+            "netwarp_stream": {"corr_lookup": iters * n["frames"],
+                               "sep_gru": 2 * iters * n["frames"]},
+            "netwarp_stream_bucketed": {
+                "corr_lookup": iters * n["frames"],
+                "sep_gru": 2 * iters * n["frames"],
+                "band_zero": per_ocr["netwarp"] * n["frames"]}}
     wrong = {row: got for row, got in out["launches"].items()
              if got != {k: want.get(row, {}).get(k, 0) for k in got}}
     print(f"bench check: every key present (missing {missing}); times, "
@@ -2253,6 +2288,405 @@ def loader_comparison():
     return out
 
 
+#: the presets of phases h and i: TCB-OCR's (the reference's
+#: run_temporal_ocr.sh) and, for NetWarp, the clip preset of the other
+#: clip phases
+OCR_NETWARP_PRESETS = {
+    name: os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
+                       "presets", f"vsp-resnet101dilated-{name}.yaml")
+    for name in ("ocr_deepsup", "ppm_deepsup_clip")}
+#: the TCB-OCR and NetWarp eval phases: (path, --method, flags, preset
+#: name); clip_ocr streams windows, clip_ocr_memory takes the window path
+#: with the ring of contexts (the run script's eval), netwarp and
+#: netwarp_ocr stream pairs
+OCR_NETWARP_EVAL_PATHS = (
+    ("clip_ocr", "clip_ocr", [], "ocr_deepsup"),
+    ("clip_ocr_memory", "clip_ocr", ["--use_memory", "True"], "ocr_deepsup"),
+    ("netwarp", "netwarp", ["--clip_num", "2"], "ppm_deepsup_clip"),
+    ("netwarp_ocr", "netwarp_ocr", ["--clip_num", "2"], "ocr_deepsup"),
+)
+#: the RAFT methods' eval: B1 once and B4 twice a refinement, 20 a pair
+NETWARP_RAFT_ITERS = 20
+
+
+def ocr_netwarp_band_launches(torch, raft, arch="resnet101dilated"):
+    """B6's launches in a bucketed frame (a window for clip_ocr_memory) of
+    each path of OCR_NETWARP_EVAL_PATHS, from the models, where every map
+    has a band (480x853 in 480x896).  TCB-OCR: the input of every spatial
+    conv of the trunk and of the two heads' 3x3 convs (one masked call for
+    all of a window's frames), the stem max pool and the OCR features.
+    NetWarp a frame: its encode (the trunk's, the four levels, the
+    decoder's C5 or OCR features) and its pair (the two images, ``raft``'s
+    count of a TC pair, the flow, FlowCNN's spatial convs and its output,
+    the decoder's, the blended features)."""
+    from cvpr2021_vspw_implement_tpu_torch.models.netwarp import FlowCNN
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    def spatial_convs(module):
+        return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+                   for m in module.modules())
+
+    trunk = spatial_convs(build_encoder(arch))
+    per_pair = band_zero_launches(torch, raft)[1]
+    netwarp = (trunk + 6) + (per_pair + spatial_convs(FlowCNN()) + 6)
+    return {"clip_ocr": trunk + 4, "clip_ocr_memory": trunk + 4,
+            "netwarp": netwarp, "netwarp_ocr": netwarp}
+
+
+def scale_flow_head(torch, raft, factor=0.1):
+    """Scale RAFT's flow head (its last conv) by ``factor``: at 0.1 a
+    trained-like step (the random init moves the flow ~20 px a refinement,
+    and each refinement then amplifies f32 rounding ~8x).  Returns
+    ``raft``."""
+    with torch.no_grad():
+        raft.update_block.flow_head.conv2.weight.mul_(factor)
+        raft.update_block.flow_head.conv2.bias.mul_(factor)
+    return raft
+
+
+def live_netwarp_blend(torch, model, seed=0):
+    """Set NetWarp's blend weights (w0_0, w0_1, w1_0, w1_1) to seeded values
+    in [0.3, 0.7].  At init they are (1, 0), and a prediction then does not
+    read the warped features; with these, every comparison of predictions
+    holds the feature warp too.  Returns ``model``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name in ("w0_0", "w0_1", "w1_0", "w1_1"):
+            p = getattr(model, name)
+            p.copy_(0.3 + 0.4 * torch.rand(p.shape, generator=g))
+    return model
+
+
+def capture_stream_logits(serving, captured):
+    """Wrap the streaming engines' prediction heads (``serving``'s
+    ``inference_pred`` and ``inference_pred_rt``) so that each frame's
+    logits are kept in ``captured`` as :func:`capture_window_logits` keeps
+    a window's (no near-tie positions).  Returns what
+    :func:`restore_stream_heads` puts back."""
+    saved = serving.inference_pred, serving.inference_pred_rt
+
+    def exact(logits, size, *args, **kw):
+        captured.append((logits.detach().clone(), size, None))
+        return saved[0](logits, size, *args, **kw)
+
+    def bucketed(logits, pad, fv, hw, *args, **kw):
+        captured.append((logits.detach().clone(), pad, fv, hw, None))
+        return saved[1](logits, pad, fv, hw, *args, **kw)
+
+    serving.inference_pred, serving.inference_pred_rt = exact, bucketed
+    return saved
+
+
+def restore_stream_heads(serving, saved):
+    serving.inference_pred, serving.inference_pred_rt = saved
+
+
+@contextlib.contextmanager
+def raft_iters(raft, iters):
+    saved, raft.iters = raft.iters, iters
+    try:
+        yield raft
+    finally:
+        raft.iters = saved
+
+
+def netwarp_flow_check(torch, model, frames):
+    """NetWarp's flows bucketed in 480x896 against exact on the video's
+    pairs, after RAFT's first refinement (with random weights each
+    refinement amplifies rounding, see :func:`tc_flow_check`), ``model``'s
+    RAFT with the TC phases' flow head (:func:`scale_flow_head`): RAFT's
+    flow (``NetWarp._raft_flow``, through ``bucketed_flow``) held to TC's
+    ``TC_FLOW_LIMIT_PX``, and the refined flow (``NetWarp._flow``, FlowCNN
+    under the mask) to the larger of that and 1e-4 of the largest exact
+    refined flow (the random FlowCNN scales the flow, to about 130 px, and
+    sums its 0-255 images into it).  A planted fault, FlowCNN run without
+    its mask (so its 3x3 convs read the band), must exceed the second
+    limit.  Printed, not held: the two gaps with the flow head at the
+    seeded init's scale (x10), where the first refinement's step, and with
+    it the gap of rounding, is 10x larger.  Returns the readings."""
+    from cvpr2021_vspw_implement_tpu_torch.models import netwarp as nw
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import bucket_hw, pad_to
+
+    h, w = frames[0].shape[-2:]
+    key = bucket_hw(h, w)
+
+    def gap(planted=False):
+        saved = nw.masked_trunk
+        if planted:
+            nw.masked_trunk = lambda *a, **kw: contextlib.nullcontext()
+        raft_worst, worst, scale = 0.0, 0.0, 0.0
+        try:
+            with torch.inference_mode():
+                for prev, target in zip(frames, frames[1:]):
+                    padded = pad_to(target, key), pad_to(prev, key)
+                    if not planted:
+                        exact = model._raft_flow(target, prev)[2]
+                        bucketed = model._raft_flow(*padded,
+                                                    valid_hw=(h, w))[2]
+                        raft_worst = max(raft_worst, (
+                            bucketed[..., :h, :w] - exact).abs().max().item())
+                    exact = model._flow(target, prev)
+                    bucketed = model._flow(*padded, valid_hw=(h, w))
+                    worst = max(worst, (bucketed[..., :h, :w] - exact)
+                                .abs().max().item())
+                    scale = max(scale, exact.abs().max().item())
+        finally:
+            nw.masked_trunk = saved
+        return raft_worst, worst, scale
+
+    with raft_iters(model.raft, 1):
+        (raft_gap, sound, scale), (_, planted, _) = gap(), gap(planted=True)
+        head = model.raft.update_block.flow_head.conv2
+        saved = head.weight.detach().clone(), head.bias.detach().clone()
+        scale_flow_head(torch, model.raft, 10.0)
+        try:
+            raft_gap10, sound10, _ = gap()
+        finally:
+            with torch.no_grad():
+                head.weight.copy_(saved[0])
+                head.bias.copy_(saved[1])
+    limit = max(TC_FLOW_LIMIT_PX, 1e-4 * scale)
+    print(f"NetWarp flow check, bucketed vs exact over {len(frames) - 1} "
+          f"pairs after the first refinement: RAFT's flow largest |diff| "
+          f"{raft_gap:.3e} px (limit {TC_FLOW_LIMIT_PX:g} px); the refined "
+          f"flow {sound:.3e} px, with FlowCNN unmasked (planted fault) "
+          f"{planted:.3e} px (limit {limit:.3e}: the larger of "
+          f"{TC_FLOW_LIMIT_PX:g} px and 1e-4 of the largest refined flow, "
+          f"{scale:.3e} px); not held, the flow head at the seeded init's "
+          f"scale: RAFT's flow {raft_gap10:.3e} px, the refined flow "
+          f"{sound10:.3e} px")
+    if not raft_gap <= TC_FLOW_LIMIT_PX:
+        raise SystemExit("NetWarp's bucketed RAFT flow disagrees with the "
+                         "exact flow")
+    if not (sound <= limit and scale > 0):
+        raise SystemExit("NetWarp's bucketed flow disagrees with the exact "
+                         "flow")
+    if not planted > limit:
+        raise SystemExit("the NetWarp flow check missed the planted fault")
+    return {"raft_max_abs_px": raft_gap, "max_abs_px": sound,
+            "planted_max_abs_px": planted, "limit_px": limit,
+            "largest_flow_px": scale,
+            "seeded_head_raft_max_abs_px": raft_gap10,
+            "seeded_head_max_abs_px": sound10}
+
+
+#: the refinements at which phase h holds NetWarp's bucketed predictions
+#: against exact (RAFT's 20 amplify rounding to tens of px with random
+#: weights, see :func:`tc_flow_check`); its 20-refinement runs are timed and
+#: their launches held
+NETWARP_HELD_ITERS = 1
+
+
+def live_netwarp_checkpoints(torch, test_clip, work, k):
+    """{method: path} of a ``state_dict`` of the seeded R101 ``netwarp`` and
+    ``netwarp_ocr`` (``--seed 0``) with live blend weights
+    (:func:`live_netwarp_blend`) and the TC phases' trained-like RAFT flow
+    head (:func:`scale_flow_head`), for the eval phases' ``--load``."""
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+
+    out = {}
+    for path, method, flags, preset in OCR_NETWARP_EVAL_PATHS:
+        if not method.startswith("netwarp"):
+            continue
+        args = test_clip.build_eval_clip_parser().parse_args(
+            ["--cfg", OCR_NETWARP_PRESETS[preset], "--num_class", str(k),
+             "--method", method, *flags, "--seed", "0"])
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(OCR_NETWARP_PRESETS[preset])
+        model = live_netwarp_blend(torch, test_clip.build_model(cfg, args,
+                                                                "cpu"))
+        scale_flow_head(torch, model.raft)
+        out[method] = os.path.join(work, f"{method}_live_blend.pth")
+        torch.save(model.state_dict(), out[method])
+    return out
+
+
+def ocr_netwarp_eval_phases(torch, test_clip, root, work, k, n_frames,
+                            reset, counts, raft, check_pngs, pngs):
+    """h. The TCB-OCR and NetWarp eval CLIs over the 10-frame 480x853 video
+    with seeded random R101 models (NetWarp's with live blend weights,
+    :func:`live_netwarp_checkpoints`), each path of OCR_NETWARP_EVAL_PATHS
+    at exact shapes (``--width_bucket 0``) then at the CLI's default,
+    bucketed in 480x896: B6 at its derived count a frame (a window), B1 and
+    B4 at 20 and 40 a pair on the NetWarp paths, no other launch; PNGs and
+    finite mIoU and VC; each bucketed run held against its exact run as the
+    window phases are (:func:`window_bucket_check`).  The NetWarp paths are
+    held so in a second exact and bucketed pair of runs with RAFT at
+    ``NETWARP_HELD_ITERS`` refinements (B1 and B4 held at 1 and 2 a pair),
+    and a planted fault there, the bucketed feature warps normalised by the
+    padded size instead of the true one, must fail the check; then
+    NetWarp's flow check.  Returns (launches by path, checks by path)."""
+    import numpy as np
+
+    from cvpr2021_vspw_implement_tpu_torch import serving
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.data import TestFrameDataset
+    from cvpr2021_vspw_implement_tpu_torch.models import netwarp as nw
+
+    presets = OCR_NETWARP_PRESETS
+    per_unit = ocr_netwarp_band_launches(torch, raft)
+    with raft_iters(raft, NETWARP_HELD_ITERS):
+        per_unit_held = ocr_netwarp_band_launches(torch, raft)
+    ckpts = live_netwarp_checkpoints(torch, test_clip, work, k)
+    launches, checks = {}, {}
+
+    def run(path, method, flags, preset, bucket, iters, tag=""):
+        """One CLI run → (captured logits, PNGs, metrics), its launches
+        held (kept in ``launches`` unless ``tag`` names a planted run)."""
+        name = path + tag + ("_bucketed" if bucket else "")
+        out_dir = os.path.join(work, "preds_" + name)
+        captured = []
+        saved_w = capture_window_logits(test_clip, captured)
+        saved_s = capture_stream_logits(serving, captured)
+        load = ["--load", ckpts[method]] if method in ckpts else []
+        opts = (["TPU.raft_iters", str(iters)]
+                if iters != NETWARP_RAFT_ITERS else [])
+        reset()
+        t0 = time.perf_counter()
+        try:
+            m, _ = test_clip.main([
+                "--cfg", presets[preset], "--dataroot", root,
+                "--num_class", str(k), "--method", method, *flags, *load,
+                "--width_bucket", str(bucket), "--is_save", "--saveroot",
+                out_dir, "--seed", "0", *opts])
+        finally:
+            restore_window_heads(test_clip, saved_w)
+            restore_stream_heads(serving, saved_s)
+        secs = time.perf_counter() - t0
+        c = counts()
+        if tag != "_planted":
+            launches[name] = c
+        amortized = (m["first_frame_ms"]
+                     + (n_frames - 1) * m["frame_ms"]) / n_frames
+        print(f"{name} eval (R101, 480x853"
+              + (" in the 480x896 bucket" if bucket else "")
+              + f", {n_frames} frames"
+              + (f", RAFT {iters} refinements"
+                 if method.startswith("netwarp") else "")
+              + f"), host clock: {1e3 * secs / n_frames:.1f} ms/frame with "
+              f"model set-up; evaluate_clip's frame times (decode, forward, "
+              f"argmax) {m['first_frame_ms']:.1f} ms for the first, then "
+              f"{m['frame_ms']:.1f} ms, {amortized:.1f} ms a frame over the "
+              f"video; mIoU {m['mIoU']:.6f} VC {m['VC']:.6f}; kernel "
+              f"launches {c}")
+        units = per_unit if iters == NETWARP_RAFT_ITERS else per_unit_held
+        want = {"band_zero": units[path] * n_frames if bucket else 0}
+        if method.startswith("netwarp"):
+            want.update(corr_lookup=iters * n_frames,
+                        sep_gru=2 * iters * n_frames)
+        for kname, n in c.items():
+            if n != want.get(kname, 0):
+                raise SystemExit(f"{kname}: {n} launches on the {name} "
+                                 f"path, expected {want.get(kname, 0)}")
+        check_pngs(os.path.join(out_dir, "video_000"), n_frames)
+        if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
+            raise SystemExit(f"{name}: non-finite metric")
+        return captured, pngs(out_dir), m
+
+    for path, method, flags, preset in OCR_NETWARP_EVAL_PATHS:
+        runs = {b: run(path, method, flags, preset, b, NETWARP_RAFT_ITERS)
+                for b in (0, 64)}
+        timed = {"band_zero_per_frame": per_unit[path],
+                 "ms_a_frame_host": {
+                     b: (r[2]["first_frame_ms"] + (n_frames - 1)
+                         * r[2]["frame_ms"]) / n_frames
+                     for b, r in (("exact", runs[0]), ("bucketed", runs[64]))}}
+        if not method.startswith("netwarp"):
+            checks[path] = window_bucket_check(
+                torch, path, runs[0][0], runs[64][0], runs[0][1], runs[64][1])
+            checks[path].update(timed)
+            del runs
+            continue
+        moved = sum(int((a != b).sum()) for a, b in zip(runs[0][1],
+                                                        runs[64][1]))
+        print(f"{path} at RAFT {NETWARP_RAFT_ITERS} refinements (not held): "
+              f"bucketed PNGs differ from exact at {moved} of "
+              f"{n_frames * runs[0][1][0].size} pixels")
+        del runs
+        held = {b: run(path, method, flags, preset, b, NETWARP_HELD_ITERS,
+                       tag=f"_raft{NETWARP_HELD_ITERS}") for b in (0, 64)}
+        checks[path] = window_bucket_check(
+            torch, f"{path} (RAFT {NETWARP_HELD_ITERS} refinement)",
+            held[0][0], held[64][0], held[0][1], held[64][1])
+        checks[path].update(timed, raft_iters_held=NETWARP_HELD_ITERS,
+                            pixels_differ_at_20_not_held=moved)
+        if path == "netwarp":
+            plain_warp = nw.flowwarp
+            nw.flowwarp = lambda x, flow, valid_hw=None: plain_warp(x, flow)
+            try:
+                planted = run(path, method, flags, preset, 64,
+                              NETWARP_HELD_ITERS, tag="_planted")
+            finally:
+                nw.flowwarp = plain_warp
+            try:
+                window_bucket_check(torch, f"{path} (planted fault)",
+                                    held[0][0], planted[0], held[0][1],
+                                    planted[1])
+            except SystemExit:
+                checks[path]["planted_fault_caught"] = True
+            else:
+                raise SystemExit("the NetWarp bucketed eval check missed the "
+                                 "planted fault (warps normalised by the "
+                                 "padded size)")
+            del planted
+        del held
+
+    args = test_clip.build_eval_clip_parser().parse_args(
+        ["--cfg", presets["ppm_deepsup_clip"], "--num_class", str(k),
+         "--method", "netwarp", "--clip_num", "2", "--load",
+         ckpts["netwarp"]])
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(presets["ppm_deepsup_clip"])
+    model = test_clip.build_model(cfg, args, "cuda")
+    ds = TestFrameDataset(root, "video_000", args)
+    frames = [torch.from_numpy(ds[i][0]).cuda().permute(2, 0, 1)[None]
+              .contiguous() for i in range(len(ds))]
+    reset()
+    checks["netwarp_flow"] = netwarp_flow_check(torch, model, frames)
+    reset()
+    del model, frames
+    return launches, checks
+
+
+#: the TCB-OCR and NetWarp train phases: (--method, flags, preset name)
+OCR_NETWARP_TRAIN_PATHS = (
+    ("clip_ocr", ["--clip_num", "4", "--dilation2", "3,6,9"],
+     "ocr_deepsup"),
+    ("netwarp", ["--clip_num", "2", "--dilation_num", "0"],
+     "ppm_deepsup_clip"),
+    ("netwarp_ocr", ["--clip_num", "2", "--dilation_num", "0"],
+     "ocr_deepsup"),
+    ("etc_ocr", ["--clip_num", "2", "--dilation_num", "0", "--st_weight",
+                 "0.1"], "ocr_deepsup"),
+)
+
+
+def ocr_netwarp_train_phases(torch, train_root, work, k, steps, reset,
+                             counts):
+    """i. ``train_clip`` for each of OCR_NETWARP_TRAIN_PATHS at crop 479,
+    batch 2, ``steps`` steps (:func:`train_phase`: finite losses, a head
+    and an encoder parameter moved, RAFT not): B1, B2 and B3 at 20 a step
+    on the RAFT methods (their 2x60x60 features are under B4's gate, so
+    the update block takes the fused route), nothing else.  Returns the
+    launches by path."""
+    presets = OCR_NETWARP_PRESETS
+    launches = {}
+    for method, flags, preset in OCR_NETWARP_TRAIN_PATHS:
+        reset()
+        train_phase(torch, method, flags, train_root, work, presets[preset],
+                    k, steps)
+        launches["train_" + method] = c = counts()
+        want = ({} if method == "clip_ocr" else
+                {n: NETWARP_RAFT_ITERS * steps for n in (
+                    "corr_lookup", "motion_encoder", "gru_flowhead")})
+        print(f"kernel launches in the {method} train phase {c}")
+        for kname, n in c.items():
+            if n != want.get(kname, 0):
+                raise SystemExit(f"{kname}: {n} launches on the {method} "
+                                 f"train path, expected {want.get(kname, 0)}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2335,16 +2769,12 @@ def main() -> int:
     if any(eval_counts.values()):
         raise SystemExit("the exact eval path launched a kernel")
 
-    # RAFT of both TC phases: the seeded init with the flow head scaled by
-    # 0.1, a trained-like step (the random init moves the flow ~20 px a
-    # refinement, and each refinement then amplifies f32 rounding ~8x)
+    # RAFT of both TC phases: the seeded init with a trained-like flow head
     iters, pairs = 20, n_frames - 1
-    raft = tc_cal.build_raft(tc_cal.build_parser().parse_args(
-        ["--dataroot", root, "--predroot", preds, "--allow_random_raft",
-         "--raft_iters", str(iters), "--seed", "0"]), "cpu")
-    with torch.no_grad():
-        raft.update_block.flow_head.conv2.weight.mul_(0.1)
-        raft.update_block.flow_head.conv2.bias.mul_(0.1)
+    raft = scale_flow_head(torch, tc_cal.build_raft(
+        tc_cal.build_parser().parse_args(
+            ["--dataroot", root, "--predroot", preds, "--allow_random_raft",
+             "--raft_iters", str(iters), "--seed", "0"]), "cpu"))
     raft_ckpt = os.path.join(work, "raft.pth")
     os.makedirs(work, exist_ok=True)
     torch.save(raft.state_dict(), raft_ckpt)
@@ -2610,6 +3040,13 @@ def main() -> int:
         torch, train_root, work, k, reset, counts)
     loader = loader_comparison()
 
+    # h, i: TCB-OCR and NetWarp, eval (exact, then bucketed) and training
+    ocr_counts, ocr_checks = ocr_netwarp_eval_phases(
+        torch, test_clip, root, work, k, n_frames, reset, counts, raft,
+        check_pngs, pngs)
+    ocr_counts.update(ocr_netwarp_train_phases(torch, train_root, work, k,
+                                               steps, reset, counts))
+
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
     reset()
@@ -2618,12 +3055,14 @@ def main() -> int:
     bench_counts = counts()
     print(f"bench --quick: {time.perf_counter() - t0:.1f} s; kernel launches "
           f"{bench_counts}")
-    check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS, per_window)
+    check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS, per_window,
+                ocr_netwarp_band_launches(torch, raft))
 
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
                "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
-               **window_counts, **frame_counts, "bench": bench_counts}
+               **window_counts, **frame_counts, **ocr_counts,
+               "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -2631,8 +3070,11 @@ def main() -> int:
         if row["launches"] <= 0:
             raise SystemExit(f"{row['name']} was not launched on the main "
                              "path")
-    # the lookup's two shapes: 1x60x107 on the TC path, 2x60x60 in ETC
-    rows[0]["also_at"][0]["launches"] = etc_counts["corr_lookup"]
+    # the lookup's two shapes: 1x60x107 on the TC and NetWarp eval paths,
+    # 2x60x60 in the RAFT methods' train steps
+    rows[0]["also_at"][0]["launches"] = etc_counts["corr_lookup"] + sum(
+        ocr_counts["train_" + m]["corr_lookup"]
+        for m in ("netwarp", "netwarp_ocr", "etc_ocr"))
     # B5's other shapes: their launches on the window CLI paths (the
     # bench's are in the row's total only)
     for row in rows:
@@ -2699,6 +3141,7 @@ def main() -> int:
                       "window_bucketed_vs_exact": window_checks,
                       "tc_check": tc_check, "native_host_ops": host_ops,
                       "frame_bucketed_vs_exact": frame_check,
+                      "ocr_netwarp_bucketed_vs_exact": ocr_checks,
                       "frame_train": frame_train, "loader": loader,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,

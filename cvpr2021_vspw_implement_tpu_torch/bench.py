@@ -26,10 +26,10 @@ made on the device before the clock starts.  The rows:
   ``clip_psp_loss``, 4 frames x batch 2 x crop 479, K steps back to back
   with one synchronise (the step returns detached 0-d tensors), and one
   step with its own readback; ``etc_train_*`` the same for ETC (2 frames,
-  RAFT at 20 refinements: B1, B2, B3); ``our_warp_train_*`` the same for
-  our_warp (``clip_warp_loss`` with ``allsup``, 4 frames, r = 10, sigmoid:
-  3 B5 forward and 3 B5 backward launches a step); the JAX bench has no
-  such row, the key is the port's own;
+  K' steps, RAFT at 20 refinements: B1, B2, B3); ``our_warp_train_*`` the
+  same for our_warp (``clip_warp_loss`` with ``allsup``, 4 frames, r = 10,
+  sigmoid: 3 B5 forward and 3 B5 backward launches a step); the JAX bench
+  has no such row, the key is the port's own;
 * ``etc_windows_per_sec``, ``our_warp_windows_per_sec``,
   ``propnet_windows_per_sec``, ``our_warp_merge_windows_per_sec``: the
   window forward of ``test_clip --method ETC`` / ``our_warp`` /
@@ -46,6 +46,17 @@ made on the device before the clock starts.  The rows:
   P pairs, RAFT at 20 refinements with the flow head scaled by 0.1 (a
   trained-like step, as chip_smoke.py's TC), exact (B1, B4) and bucketed
   (B1, B4, B6);
+* ``clipocr_*``: TCB-OCR (ResNet-101-dilated ``ClipOCRNet``) streaming
+  with one carried context, as the JAX bench (bench.py:604-677): a frame is
+  ``encode_frame``, the mean of its region context and the previous one's,
+  ``fuse_target``, upsample and argmax, over N frames; exact, 4 videos
+  batched, and bucketed as ``ClipOCRBucketEngine`` runs it (B6);
+* ``netwarp_stream_*``: NetWarp streaming (JAX bench.py:850-915): a frame
+  is its ``encode_frame`` and ``fuse_pair`` against the previous frame's
+  cache (RAFT at 20 refinements, B1 and B4), over N frames, exact and
+  bucketed as ``NetWarpBucketEngine`` runs it (B6 too);
+  ``netwarp_train_*`` NetWarp's train step, 2 frames x batch 2 x crop 479,
+  K' steps (B1, B2, B3);
 * ``host_decode_frames_per_sec``: 32 frames of the configuration's size,
   JPEGs that ``make_synthetic_vspw`` wrote, decoded by PIL and normalized
   by ``native.normalize_u8`` on one thread (host clock, best of 3), the
@@ -91,8 +102,10 @@ from torch.utils.flop_counter import FlopCounterMode
 from . import native, tc_cal, test_clip
 from .config import cfg as default_cfg
 from .data import make_synthetic_vspw
+from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP, clip_psp_loss
 from .models.etc import ETC, etc_loss
+from .models.netwarp import NetWarp, netwarp_loss
 from .models.propnet import PropNet
 from .models.layers import init_weights, set_dropout_generator
 from .models.raft import RAFT
@@ -119,7 +132,8 @@ CONFIGS = {
     "toy": {"preset": "vsp-resnet18dilated-ppm_deepsup_clip.yaml",
             "num_class": 5, "hw": (64, 96), "crop": 63},
 }
-#: N streaming frames, M windows, K train steps (clip_psp, ETC), P TC pairs
+#: N streaming frames, M windows, K train steps (clip_psp, our_warp), K'
+#: (ETC, NetWarp), P TC pairs
 COUNTS = {
     "full": {"frames": 64, "windows": 16, "train_steps": 8,
              "etc_train_steps": 4, "pairs": 8},
@@ -134,12 +148,8 @@ TRIALS = 3
 #: rows of the JAX bench the port cannot run yet
 NOT_PORTED = [
     "int8_stream_frames_per_sec", "int8_speedup",
-    "clipocr_frames_per_sec", "clipocr_mfu",
-    "clipocr_stream4_frames_per_sec", "clipocr_bucketed_frames_per_sec",
     "tdnet_frames_per_sec", "tdnet_mfu", "tdnet_stream4_frames_per_sec",
-    "tdnet_bucketed_frames_per_sec", "netwarp_train_step_ms",
-    "netwarp_train_mfu", "netwarp_stream_frames_per_sec",
-    "netwarp_stream_mfu", "netwarp_stream_bucketed_frames_per_sec",
+    "tdnet_bucketed_frames_per_sec",
     "nonlocal3d_windows_per_sec", "nonlocal3d_mfu",
     "eval_policy_exact_mix_fps", "eval_policy_bucketed_mix_fps",
     "train_b4_ms_per_2_samples",
@@ -233,10 +243,43 @@ def _checksum(pred):
     return pred[:, ::97, ::97].sum()
 
 
+def _stream_row(frame, state, conf, n: int, batch: int, device, gen,
+                contiguous: bool = False) -> dict:
+    """``frame(img, state) -> (state, pred)`` over n random frames of
+    ``batch`` videos, each step's state carried to the next."""
+    h, w = conf["hw"]
+    frames = torch.randn(n, batch, h, w, 3, device=device, generator=gen)
+    carry = [state]
+
+    def step(i):
+        # one frame as the exact engine views it, [H, W, 3] permuted then
+        # unsqueezed: a batch stride of 3, which PyTorch reads as NCHW.  A
+        # permuted [B, H, W, 3] slice has the strides of channels-last, and
+        # cuDNN then runs the trunk in NHWC: so the 4 batched videos (no
+        # engine batches them).  NetWarp's engine makes the frame
+        # contiguous (``contiguous``): RAFT's kernels read it
+        img = (frames[i, 0].permute(2, 0, 1)[None] if batch == 1
+               else frames[i].permute(0, 3, 1, 2))
+        carry[0], pred = frame(img.contiguous() if contiguous else img,
+                               carry[0])
+        return _checksum(pred)
+
+    row = Row(device, step, n).measure()
+    row["per_second"] = n * batch / row["seconds"]
+    return row
+
+
+def _pred(logits, key, fv, hw):
+    """Upsample and argmax as the engines do: at the frame's size, or
+    bucketed (``fv`` the logits' valid size) on the bucket grid, cropped."""
+    if fv is None:
+        return inference_pred(logits, hw)
+    return inference_pred_rt(logits, key, fv, hw)[:, :hw[0], :hw[1]]
+
+
 def stream_rows(model, fc_dim: int, conf, counts, device, gen, out):
     """TCB-PSP streaming: exact, 4 videos, bucketed."""
     h, w = conf["hw"]
-    n = counts["frames"]
     key = bucket_hw(h, w, WIDTH_BUCKET)
 
     @torch.inference_mode()
@@ -251,31 +294,77 @@ def stream_rows(model, fc_dim: int, conf, counts, device, gen, out):
             fv = None
         blended = [torch.stack([p, q]).mean(0) for p, q in zip(pooled, prev)]
         logits = model.fuse_target(c5, blended, feat_valid=fv)
-        if fv is None:
-            return pooled, inference_pred(logits, (h, w))
-        return pooled, inference_pred_rt(logits, key, fv, (h, w))[:, :h, :w]
+        return pooled, _pred(logits, key, fv, (h, w))
 
     for name, batch, bucketed in (("stream", 1, False),
                                   ("stream4", 4, False),
                                   ("stream_bucketed", 1, True)):
-        frames = torch.randn(n, batch, h, w, 3, device=device, generator=gen)
-        prev = [[torch.zeros(batch, fc_dim, s, s, device=device)
-                 for s in model.pool_scales]]
+        prev = [torch.zeros(batch, fc_dim, s, s, device=device)
+                for s in model.pool_scales]
+        out[name] = _stream_row(partial(frame, bucketed=bucketed), prev,
+                                conf, counts["frames"], batch, device, gen)
 
-        def step(i):
-            # one frame as the exact engine views it, [H, W, 3] permuted
-            # then unsqueezed: a batch stride of 3, which PyTorch reads as
-            # NCHW.  A permuted [B, H, W, 3] slice has the strides of
-            # channels-last, and cuDNN then runs the trunk in NHWC: so the
-            # 4 batched videos (no engine batches them)
-            img = (frames[i, 0].permute(2, 0, 1)[None] if batch == 1
-                   else frames[i].permute(0, 3, 1, 2))
-            prev[0], pred = frame(img, prev[0], bucketed)
-            return _checksum(pred)
 
-        out[name] = Row(device, step, n).measure()
-        out[name]["per_second"] = n * batch / out[name]["seconds"]
-        del frames, prev
+def clipocr_rows(model, conf, counts, device, gen, out):
+    """TCB-OCR streaming with one carried context (JAX bench.py:604-677):
+    a frame is ``encode_frame``, the mean of its region context and the
+    previous frame's, ``fuse_target``, upsample and argmax; exact, 4
+    videos, bucketed (``ClipOCRBucketEngine``'s masked encode)."""
+    h, w = conf["hw"]
+    key = bucket_hw(h, w, WIDTH_BUCKET)
+
+    @torch.inference_mode()
+    def frame(img, ctx_prev, bucketed):
+        if bucketed:
+            feat, ctx = model.encode_frame(pad_to(img, key), valid_hw=(h, w))
+            fv = feature_valid(*feat.shape[-2:], (h, w), key)
+        else:
+            feat, ctx = model.encode_frame(img)
+            fv = None
+        logits = model.fuse_target(feat, torch.stack([ctx, ctx_prev]).mean(0))
+        return ctx, _pred(logits, key, fv, (h, w))
+
+    for name, batch, bucketed in (("clipocr", 1, False),
+                                  ("clipocr4", 4, False),
+                                  ("clipocr_bucketed", 1, True)):
+        ctx0 = torch.zeros(batch, 512, conf["num_class"], 1, device=device)
+        out[name] = _stream_row(partial(frame, bucketed=bucketed), ctx0,
+                                conf, counts["frames"], batch, device, gen)
+
+
+def netwarp_rows(model, conf, counts, device, gen, out):
+    """NetWarp streaming (JAX bench.py:850-915): a frame is its
+    ``encode_frame`` and the pair's ``fuse_pair`` against the previous
+    frame's cache (RAFT at 20 refinements, B1 and B4), upsample and argmax;
+    exact, and bucketed as ``NetWarpBucketEngine`` runs it (the masked
+    encode and RAFT at the /8 geometry inside the bucket: B6 too)."""
+    h, w = conf["hw"]
+    key = bucket_hw(h, w, WIDTH_BUCKET)
+
+    @torch.inference_mode()
+    def frame(img, prev, bucketed):
+        kw = {}
+        if bucketed:
+            img, kw = pad_to(img, key), {"valid_hw": (h, w)}
+        cache = model.encode_frame(img, **kw)
+        c4 = cache[2] if model.ocr else None
+        logits, _ = model.fuse_pair(img, prev[0], cache[0], prev[1][0],
+                                    prev[1][1], c4, **kw)
+        fv = feature_valid(*logits.shape[-2:], (h, w), key) if kw else None
+        return (img, cache), _pred(logits, key, fv, (h, w))
+
+    for name, bucketed in (("netwarp_stream", False),
+                           ("netwarp_stream_bucketed", True)):
+        with torch.inference_mode():
+            img = torch.randn(1, 3, h, w, device=device, generator=gen)
+            if bucketed:
+                img = pad_to(img, key)
+            state = (img, model.encode_frame(
+                img, **({"valid_hw": (h, w)} if bucketed else {})))
+        out[name] = _stream_row(partial(frame, bucketed=bucketed), state,
+                                conf, counts["frames"], 1, device, gen,
+                                contiguous=True)
+        del state
 
 
 def window_row(model, t1: int, conf, counts, device, gen, bucket: int = 0):
@@ -474,6 +563,19 @@ def run(args) -> dict:
         counts["train_steps"], conf, device, gen, single=False)["chained"]
     del warp
     free()
+    # TCB-OCR and NetWarp after every earlier row, for the same reason
+    ocr = _model(ClipOCRNet, cfg, k, device).eval()
+    clipocr_rows(ocr, conf, counts, device, gen, rows)
+    del ocr
+    free()
+    netwarp = _model(NetWarp, cfg, k, device, raft_iters=RAFT_ITERS)
+    rows["netwarp_train"] = train_rows(
+        netwarp, netwarp_loss, 2, counts["etc_train_steps"], conf, device,
+        gen, single=False)["chained"]
+    free()
+    netwarp_rows(netwarp.eval(), conf, counts, device, gen, rows)
+    del netwarp
+    free()
 
     def mfu(row):
         if peak is None:
@@ -534,6 +636,21 @@ def run(args) -> dict:
         "tc_bucketed_ms_per_pair":
             1e3 * rows["tc_bucketed"]["seconds"] / counts["pairs"],
         "tc_mfu": mfu(rows["tc"]),
+        "clipocr_frames_per_sec": rows["clipocr"]["per_second"],
+        "clipocr_mfu": mfu(rows["clipocr"]),
+        "clipocr_stream4_frames_per_sec": rows["clipocr4"]["per_second"],
+        "clipocr_bucketed_frames_per_sec":
+            rows["clipocr_bucketed"]["per_second"],
+        "clipocr_bucketed_overhead_pct":
+            100.0 * (rows["clipocr"]["per_second"]
+                     / rows["clipocr_bucketed"]["per_second"] - 1.0),
+        "netwarp_stream_frames_per_sec": rows["netwarp_stream"]["per_second"],
+        "netwarp_stream_mfu": mfu(rows["netwarp_stream"]),
+        "netwarp_stream_bucketed_frames_per_sec":
+            rows["netwarp_stream_bucketed"]["per_second"],
+        "netwarp_train_step_ms": 1e3 * rows["netwarp_train"]["seconds"]
+        / counts["etc_train_steps"],
+        "netwarp_train_mfu": mfu(rows["netwarp_train"]),
         "host_decode_frames_per_sec": host["per_second"],
         "host_decode_path": host["path"],
         "host_cores_to_saturate_chip": math.ceil(stream

@@ -7,10 +7,11 @@ plus ``--device`` and ``--seed``.
 Flag names and defaults are the reference's, so its shell entry points
 translate 1:1.  Every flag that the JAX clip trainer reads, the port's
 reads (``--pre_enc`` / ``--pre_dec``: pretrained.py).  Flags that neither
-clip trainer reads (the reference's multi-GPU and per-frame flags, and
-those of methods that are not ported: ``--gpus``, ``--trainfps``,
-``--clip_up``, ``--othergt``, ``--use_memory`` ...) stay parsed for the
-reference's shell entry points.  The per-frame entry points refuse the
+clip trainer reads (the reference's multi-GPU and per-frame flags, the
+eval-only ``--use_memory`` / ``--memory_num`` that ``test_clip`` and the
+trainer's validation read, and those of methods that are not ported:
+``--gpus``, ``--trainfps``, ``--clip_up``, ``--othergt`` ...) stay parsed
+for the reference's shell entry points.  The per-frame entry points refuse the
 flags whose feature the port does not have yet (:func:`refuse_unported`),
 naming the ROADMAP item that ports it: none is accepted and ignored.
 """

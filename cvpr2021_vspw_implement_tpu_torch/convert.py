@@ -2,12 +2,13 @@
 
 ``load_jax_variables(model, variables)`` takes a Flax ``{"params",
 "batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP``, a
-``RAFT``, an ``ETC``, a ``ClipWarpNet`` or a ``SegmentationModule`` one,
-training heads included) and
+``ClipOCRNet``, a ``RAFT``, a ``NetWarp`` or an ``ETC`` with either
+decoder, a ``ClipWarpNet`` or a ``SegmentationModule`` one, training heads
+included) and
 fills the port module (a per-frame ``SegmentationModule`` with any encoder
 and decoder of ``models.builder``, too): conv kernels HWIO → OIHW, BN
 scale/bias/mean/var → weight/bias/running_mean/running_var, free parameters
-(our_warp's ``w{i}``) as they are.  It is the
+(our_warp's ``w{i}``, NetWarp's ``w0_*`` / ``w1_*``) as they are.  It is the
 inverse of the JAX package's ``models/import_torch.py`` importers, which
 read a port ``state_dict()`` back, since the port keeps the reference's
 torch parameter names.  Every parameter and buffer of the module must be
@@ -22,8 +23,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP
 from .models.etc import ETC
+from .models.netwarp import NetWarp
 from .models.raft import RAFT
 from .models.segmentation import SegmentationModule
 from .models.warp_our import ClipWarpNet
@@ -86,10 +89,59 @@ _SEGMENTATION = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
     (r"decoder\.(conv_last_|conv_last_1|conv_last_deepsup_)",
      r"decoder/\1/conv"),
 ]
-_ETC = [(r"raft\." + p, "raft/" + t) for p, t in _RAFT] + _ENCODER_DECODER + [
+# the OCR head (models/ocr.py) under the JAX package's names
+_OCB = r"spatial_ocr_head\.object_context_block\."
+_OCR_HEAD = [
+    (r"conv_3x3\.0", "conv_3x3_conv/conv"),
+    (r"conv_3x3\.1", "conv_3x3_bn"),
+    (_OCB + r"f_pixel\.0", "spatial_ocr_head/object_context_block/"
+     "f_pixel_0_conv/conv"),
+    (_OCB + r"f_pixel\.1", "spatial_ocr_head/object_context_block/"
+     "f_pixel_0_bn"),
+    (_OCB + r"f_pixel\.3", "spatial_ocr_head/object_context_block/"
+     "f_pixel_1_conv/conv"),
+    (_OCB + r"f_pixel\.4", "spatial_ocr_head/object_context_block/"
+     "f_pixel_1_bn"),
+    (_OCB + r"(f_object|f_down)\.0",
+     r"spatial_ocr_head/object_context_block/\1/conv0/conv"),
+    (_OCB + r"(f_object|f_down)\.1",
+     r"spatial_ocr_head/object_context_block/\1/bn0"),
+    (_OCB + r"f_object\.3",
+     "spatial_ocr_head/object_context_block/f_object/conv1/conv"),
+    (_OCB + r"f_object\.4", "spatial_ocr_head/object_context_block/"
+     "f_object/bn1"),
+    (_OCB + r"f_up\.0", "spatial_ocr_head/object_context_block/f_up_conv/"
+     "conv"),
+    (_OCB + r"f_up\.1", "spatial_ocr_head/object_context_block/f_up_bn"),
+    (r"spatial_ocr_head\.conv_bn_dropout\.0",
+     "spatial_ocr_head/fuse_conv/conv"),
+    (r"spatial_ocr_head\.conv_bn_dropout\.1", "spatial_ocr_head/fuse_bn"),
+]
+# SpatialOCRAsDec, the decoder of netwarp_ocr and etc_ocr
+_OCR_DECODER = [(r"decoder\." + p, "decoder/" + t) for p, t in _OCR_HEAD] + [
+    (r"decoder\.dsn_head\.0", "decoder/dsn_head_cbr/0/conv"),
+    (r"decoder\.dsn_head\.1", "decoder/dsn_head_cbr/1"),
+    (r"decoder\.dsn_head\.4", "decoder/dsn_cls/conv"),
+]
+_CLIP_OCR = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + \
+    _OCR_HEAD + [
+    (r"dsn_head\.0", "dsn_conv/conv"),
+    (r"dsn_head\.1", "dsn_bn"),
+    (r"dsn_head\.4", "dsn_cls/conv"),
+    (r"head", "head/conv"),
+]
+_ETC = [(r"raft\." + p, "raft/" + t) for p, t in _RAFT] + _ENCODER_DECODER + \
+    _OCR_DECODER + [
     (r"conv_last_\.0", "conv_last_0/conv"),
     (r"conv_last_\.1", "conv_last_1"),
     (r"conv_last_\.4", "conv_last_cls/conv"),
+    (r"conv_last_", "conv_last_cls/conv"),            # etc_ocr's classifier
+]
+_NETWARP = _ETC + [
+    (r"flowcnn\.(conv\d)\.0", r"flowcnn/\1/0/conv"),
+    (r"flowcnn\.(conv\d)\.1", r"flowcnn/\1/1"),
+    (r"head", "head/conv"),                           # netwarp_ocr's
+    (r"(w[01]_[01])", r"\1"),
 ]
 _CLIP_WARP = _ENCODER_DECODER + [
     (r"prop_clip\.(emb|emb_2)\.0", r"prop_clip/\1/0/conv"),
@@ -98,7 +150,8 @@ _CLIP_WARP = _ENCODER_DECODER + [
     (r"prop_clip\.last_layer\.1", "prop_clip/last_conv/conv"),
     (r"last_layer\.1", "last_layer/conv"),
 ]
-_RULES = {ClipPSP: _CLIP_PSP, RAFT: _RAFT, ETC: _ETC, ClipWarpNet: _CLIP_WARP,
+_RULES = {ClipPSP: _CLIP_PSP, ClipOCRNet: _CLIP_OCR, RAFT: _RAFT, ETC: _ETC,
+          NetWarp: _NETWARP, ClipWarpNet: _CLIP_WARP,
           SegmentationModule: _SEGMENTATION}
 
 
@@ -127,9 +180,8 @@ def _copy(dst: torch.Tensor, src) -> None:
 
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Fill ``model`` (ClipPSP, RAFT, ETC, ClipWarpNet or
-    SegmentationModule) from a Flax
-    variable tree; returns the model."""
+    """Fill ``model`` (ClipPSP, ClipOCRNet, RAFT, ETC, NetWarp, ClipWarpNet
+    or SegmentationModule) from a Flax variable tree; returns the model."""
     rules = _RULES.get(type(model))
     if rules is None:
         raise TypeError(f"no JAX layout known for {type(model).__name__}")

@@ -334,3 +334,31 @@ class TestClipDataset(TestFrameDataset):
             clips.append(normalize_image(np.asarray(cimg)))
             cliplabs.append(remap_label(np.asarray(cmask)))
         return arr, lab, clips, cliplabs, gtname
+
+
+class TestLongClipDataset(TestFrameDataset):
+    """Anchor + ``dilation2`` offsets per eval frame (TestDataset_longclip,
+    dataset2.py:344-490): near the video's end the offsets flip backwards,
+    and a negative index wraps as Python's list indexing does.  Items are
+    (image, label, context images, context labels, PNG name)."""
+
+    def __init__(self, dataroot: str, video: str, args):
+        super().__init__(dataroot, video, args)
+        dil = args.dilation2
+        self.dilation2 = [int(d) for d in dil.split(",")] \
+            if isinstance(dil, str) else list(dil)
+        if len(self.dilation2) + 1 != args.clip_num:
+            raise ValueError("dilation2 must hold clip_num - 1 offsets")
+
+    def __getitem__(self, idx):
+        arr, lab, gtname = super().__getitem__(idx)
+        n = len(self.imglist)
+        clips, cliplabs = [], []
+        lesslabel = getattr(self.args, "lesslabel", False)
+        for dil in self.dilation2:
+            j = idx - dil if idx + self.dilation2[-1] >= n else idx + dil
+            cimg, cmask = load_frame(self.dataroot, self.video,
+                                     self.imglist[j], lesslabel)
+            clips.append(normalize_image(np.asarray(cimg)))
+            cliplabs.append(remap_label(np.asarray(cmask)))
+        return arr, lab, clips, cliplabs, gtname

@@ -4,8 +4,9 @@ train_clip2.py:264-321).
 
 Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
 -> outputs`` convention and a loss ``(outputs, batch) -> (loss, acc)``.
-Ported so far, train and eval: ``clip_psp``, ``ETC``, ``our_warp``,
-``propnet`` and ``our_warp_merge``.
+Ported, train and eval: ``clip_psp``, ``clip_ocr``, ``netwarp``,
+``netwarp_ocr``, ``ETC``, ``etc_ocr``, ``our_warp``, ``propnet`` and
+``our_warp_merge``; ``tdnet`` and ``nonlocal3d`` raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -26,14 +27,35 @@ def _build_clip_psp(cfg, args):
                           deep_sup_scale=getattr(args, "deepsup_scale", 0.4))
 
 
-def _build_etc(cfg, args):
+def _build_clip_ocr(cfg, args):
+    from .models.clip_ocr import build_clip_ocr, clip_ocr_loss
+    clipocr_all = getattr(args, "clipocr_all", False)
+    model = build_clip_ocr(cfg, args.num_class, clipocr_all=clipocr_all)
+    return model, partial(clip_ocr_loss,
+                          deep_sup_scale=getattr(args, "deepsup_scale", 0.4),
+                          clipocr_all=clipocr_all)
+
+
+def _build_netwarp(cfg, args, ocr: bool = False):
+    from .models.netwarp import build_netwarp, netwarp_loss
+    if args.clip_num != 2:
+        raise ValueError("netwarp needs clip_num=2 (netwarp.py:91)")
+    model = build_netwarp(cfg, args.num_class, ocr=ocr,
+                          raft_iters=cfg.TPU.raft_iters)
+    return model, partial(netwarp_loss,
+                          deep_sup_scale=getattr(args, "deepsup_scale", 0.4),
+                          ocr=ocr)
+
+
+def _build_etc(cfg, args, ocr: bool = False):
     from .models.etc import build_etc, etc_loss
     if args.clip_num != 2 or args.dilation_num != 0:
         raise ValueError("ETC needs clip_num=2, dilation_num=0 (ETC.py:70)")
-    model = build_etc(cfg, args.num_class, raft_iters=cfg.TPU.raft_iters)
+    model = build_etc(cfg, args.num_class, raft_iters=cfg.TPU.raft_iters,
+                      ocr=ocr)
     return model, partial(etc_loss,
                           deep_sup_scale=getattr(args, "deepsup_scale", 0.4),
-                          st_weight=getattr(args, "st_weight", 0.1))
+                          st_weight=getattr(args, "st_weight", 0.1), ocr=ocr)
 
 
 def _build_our_warp(cfg, args):
@@ -57,15 +79,19 @@ def _build_warp_merge(cfg, args):
         warp_merge_loss, deep_sup_scale=getattr(args, "deepsup_scale", 0.4))
 
 
-METHODS = {"clip_psp": _build_clip_psp, "ETC": _build_etc,
+METHODS = {"clip_psp": _build_clip_psp, "clip_ocr": _build_clip_ocr,
+           "netwarp": _build_netwarp,
+           "netwarp_ocr": partial(_build_netwarp, ocr=True),
+           "ETC": _build_etc, "etc_ocr": partial(_build_etc, ocr=True),
            "our_warp": _build_our_warp, "propnet": _build_propnet,
            "our_warp_merge": _build_warp_merge}
 
 
 def get_collate(method: str, clip_num: int):
     """Batch collation per method (reference: train_clip2.py:50-82): long
-    clips (clip_psp) put the anchor, sample frame 0, last; contiguous clips
-    (ETC) the middle frame, for even ``clip_num`` the later middle."""
+    clips (clip_psp, clip_ocr) put the anchor, sample frame 0, last;
+    contiguous clips (ETC, netwarp) the middle frame, for even ``clip_num``
+    the later middle."""
     if method in LONGCLIP_METHODS:
         return make_collate_target_last(0)
     mid = clip_num // 2 if clip_num % 2 == 0 else (clip_num - 1) // 2

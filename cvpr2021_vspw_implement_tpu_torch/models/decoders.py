@@ -91,12 +91,17 @@ class PPMDeepsupClip(nn.Module):
 
     def forward(self, conv_out, valid_hw=None):
         """``valid_hw``: C5's valid size in width-bucketed eval."""
+        deepsup, ppm_out = self.ppm_deepsup(conv_out, valid_hw)
+        return deepsup, self.conv_last_(ppm_out), ppm_out
+
+    def ppm_deepsup(self, conv_out, valid_hw=None):
+        """(deepsup logits or None, ppm concat) without the embedding: what
+        ETC and NetWarp read."""
         ppm_out = self.ppm(conv_out[-1], valid_hw)
-        emb = self.conv_last_(ppm_out)
         if not self.training:
-            return None, emb, ppm_out
+            return None, ppm_out
         d = self.dropout_deepsup(self.cbr_deepsup(conv_out[-2]))
-        return self.conv_last_deepsup_(d), emb, ppm_out
+        return self.conv_last_deepsup_(d), ppm_out
 
 
 class PPMClip(nn.Module):

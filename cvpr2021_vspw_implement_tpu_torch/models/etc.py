@@ -10,7 +10,10 @@ flow comes from a frozen RAFT that stays in eval mode.
 
 Quirks kept: the flow stays in full-resolution pixel units; the warped image
 of the occlusion mask is the *normalized* previous frame.  The OCR variant
-(``ocr=True`` in the JAX package) is not ported yet.
+(``ocr=True``, ``--method etc_ocr``; reference ETC_ocr.py) decodes with
+``SpatialOCRAsDec`` and a 1x1 classifier, and its deep supervision pairs
+the predictions [target, prev] against the labels [prev, target]
+(ETC_ocr.py:203-210).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from ..ops.masked import masked_encode
 from ..ops.warp import flowwarp
 from ..utils.metrics import pixel_acc
 from .decoders import PPMDeepsupClip, PPMLastConv
+from .layers import Conv
+from .ocr import SpatialOCRAsDec
 from .raft import RAFT, pad_to_multiple_of_8, unpad
 from .resnet import build_encoder
 from .segmentation import upsampled_logprob_loss_projected
@@ -39,14 +44,19 @@ def denormalize_255(img: torch.Tensor) -> torch.Tensor:
 
 class ETC(nn.Module):
     def __init__(self, encoder: nn.Module, num_class: int,
-                 fc_dim: int = 2048, raft_iters: int = 20):
+                 fc_dim: int = 2048, raft_iters: int = 20, ocr: bool = False):
         super().__init__()
         self.raft = RAFT(iters=raft_iters)
         for p in self.raft.parameters():
             p.requires_grad_(False)
         self.encoder = encoder
-        self.decoder = PPMDeepsupClip(num_class, fc_dim)
-        self.conv_last_ = PPMLastConv(num_class, fc_dim + 4 * 512)
+        self.ocr = ocr
+        if ocr:
+            self.decoder = SpatialOCRAsDec(num_class, fc_dim)
+            self.conv_last_ = Conv(512, num_class, 1)
+        else:
+            self.decoder = PPMDeepsupClip(num_class, fc_dim)
+            self.conv_last_ = PPMLastConv(num_class, fc_dim + 4 * 512)
 
     def train(self, mode: bool = True):
         """RAFT is frozen: it stays in eval mode (its context encoder's
@@ -63,14 +73,13 @@ class ETC(nn.Module):
 
         ``valid_hw``: the true (rows, cols) of width-bucketed zero-padded
         ``imgs`` (eval only, under inference mode): the masked trunk, each
-        level re-zeroed, the decoder on C5's valid region; its concat is
-        zero on the band, so ``conv_last_``'s 3x3 is exact (JAX
-        models/etc.py:64-86)."""
+        level re-zeroed, the decoder on C5's valid region; the PPM concat is
+        zero on the band, so ``conv_last_``'s 3x3 is exact (the OCR decoder
+        excludes the band from its gather; JAX models/etc.py:64-86)."""
         target = imgs[-1]
         if not self.training:
             conv_out, fv = masked_encode(self.encoder, target, valid_hw)
-            _, _, ppm_out = self.decoder(conv_out, fv)
-            return (self.conv_last_(ppm_out),)
+            return (self._decode(conv_out, fv)[0],)
 
         prev = imgs[0]
         b = target.shape[0]
@@ -80,24 +89,37 @@ class ETC(nn.Module):
             flow = unpad(self.raft(pad_t, pad_p)[1], pads)
 
         conv_out = self.encoder(torch.cat([target, prev], 0))
-        deepsup, _, ppm_out = self.decoder(conv_out)
-        pred = self.conv_last_(ppm_out)
+        pred, deepsup = self._decode(conv_out)
         return {"pred_t": pred[:b], "pred_p": pred[b:], "deepsup": deepsup,
                 "flow": flow}
 
+    def _decode(self, conv_out, feat_valid=None):
+        """→ (logits, deepsup logits; None for the PPM head in eval)."""
+        if self.ocr:
+            feats, deepsup = self.decoder(conv_out, feat_valid)
+            return self.conv_last_(feats), deepsup
+        deepsup, ppm_out = self.decoder.ppm_deepsup(conv_out, feat_valid)
+        return self.conv_last_(ppm_out), deepsup
+
 
 def etc_loss(outs, batch, deep_sup_scale: float | None = 0.4,
-             st_weight: float = 0.1):
-    """Training loss → (loss, acc) (reference ETC.py:141-181)."""
+             st_weight: float = 0.1, ocr: bool = False):
+    """Training loss → (loss, acc) (reference ETC.py:141-181,
+    ETC_ocr.py:160-222)."""
     prev_img, target_img = batch["img"][0].float(), batch["img"][1].float()
-    label = batch["labels"][-1]
+    labels = batch["labels"]
+    label = labels[-1]
     size = label.shape[1:3]
     b = label.shape[0]
     pred_t, pred_p = outs["pred_t"], outs["pred_p"]
     loss = upsampled_logprob_loss_projected(pred_t, label)
     if deep_sup_scale is not None:
+        # etc_ocr: predictions [target, prev] against labels [prev, target]
+        # (the reference's quirk)
+        deepsup, dlabel = ((outs["deepsup"], labels.flatten(0, 1)) if ocr
+                           else (outs["deepsup"][:b], label))
         loss = loss + deep_sup_scale * upsampled_logprob_loss_projected(
-            outs["deepsup"][:b], label)
+            deepsup, dlabel)
 
     # temporal consistency (ETC.py:170-178)
     flow = resize_nearest(outs["flow"], size).float()
@@ -113,6 +135,7 @@ def etc_loss(outs, batch, deep_sup_scale: float | None = 0.4,
     return loss, acc
 
 
-def build_etc(cfg, num_class: int, raft_iters: int = 20) -> ETC:
+def build_etc(cfg, num_class: int, raft_iters: int = 20,
+              ocr: bool = False) -> ETC:
     return ETC(build_encoder(cfg.MODEL.arch_encoder), num_class,
-               fc_dim=cfg.MODEL.fc_dim, raft_iters=raft_iters)
+               fc_dim=cfg.MODEL.fc_dim, raft_iters=raft_iters, ocr=ocr)

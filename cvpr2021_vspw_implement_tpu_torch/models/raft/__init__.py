@@ -1,4 +1,5 @@
-from .raft import RAFT, coords_grid, pad_to_multiple_of_8, unpad, upsample_flow_convex
+from .raft import (RAFT, bucketed_flow, coords_grid, pad_to_multiple_of_8,
+                   unpad, upsample_flow_convex)
 
-__all__ = ["RAFT", "coords_grid", "pad_to_multiple_of_8", "unpad",
-           "upsample_flow_convex"]
+__all__ = ["RAFT", "bucketed_flow", "coords_grid", "pad_to_multiple_of_8",
+           "unpad", "upsample_flow_convex"]

@@ -123,3 +123,26 @@ def unpad(x: torch.Tensor, pads) -> torch.Tensor:
     t, b, l, r = pads
     h, w = x.shape[-2:]
     return x[..., t:h - b, l:w - r]
+
+
+def bucketed_flow(raft: RAFT, image1, image2, valid_hw):
+    """RAFT flow of a width-bucketed pair at the reference's /8 geometry
+    (JAX ``NetWarp._flow_masked`` and ``tc_cal.step_bucketed``).  image1 /
+    image2 [N, 3, Hp, Wp] in [0, 255], zero beyond the true size
+    ``valid_hw``.  The reference pads symmetrically to a multiple of 8
+    (``pad_to_multiple_of_8``), and stride-2 convs are not shift-covariant,
+    so the images roll to that pad's (top, left) offset inside the bucket,
+    the masked RAFT runs to the /8-aligned extent, and the flow rolls back:
+    its [N, 2, Hp, Wp] valid region equals the exact-shape run's up to the
+    order of f32 sums; beyond it the values are garbage for the caller to
+    crop or re-zero.  (-h) % 8 <= (-h) % 32, so the bucket's slack holds the
+    pad (``ops/masked.py::bucket_hw``)."""
+    h, w = valid_hw
+    pad_h = (((h // 8) + 1) * 8 - h) % 8
+    pad_w = (((w // 8) + 1) * 8 - w) % 8
+    top, left = pad_h // 2, pad_w // 2
+    _, flow = raft(torch.roll(image1, (top, left), (2, 3)),
+                   torch.roll(image2, (top, left), (2, 3)),
+                   valid_hw=(h + pad_h, w + pad_w))
+    return torch.roll(flow, (-top, -left), (2, 3))
+

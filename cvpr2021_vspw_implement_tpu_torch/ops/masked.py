@@ -141,6 +141,33 @@ def _separable(x: torch.Tensor, make, args_h: tuple, args_w: tuple):
     return torch.matmul(y, _matrix(make, args_w, x.device).t())
 
 
+def _nearest_weights_rt(in_pad: int, out_pad: int, in_valid: int,
+                        out_valid: int) -> np.ndarray:
+    """[out_pad, in_pad] torch-legacy nearest matrix of the valid sizes (JAX
+    ``_nearest_weights_rt``): row i < out_valid selects column
+    min(floor(i * in_valid / out_valid), in_valid - 1); the other rows are
+    zero."""
+    rows = np.arange(out_pad, dtype=np.int64)[:, None]
+    cols = np.arange(in_pad, dtype=np.int64)[None, :]
+    src = np.minimum((rows * in_valid) // out_valid, in_valid - 1)
+    return ((rows < out_valid) & (cols == src)).astype(np.float32)
+
+
+def resize_nearest_rt(x: torch.Tensor, out_pad_hw, in_valid_hw,
+                      out_valid_hw) -> torch.Tensor:
+    """Nearest resize of [N, C, H, W] to ``out_pad_hw`` whose valid region
+    equals the legacy-nearest resize of x's valid region to
+    ``out_valid_hw``, exactly (one-hot products); zero beyond it.  The
+    source index depends on the true sizes, which is why the padded grid
+    alone cannot give it."""
+    h, w = x.shape[-2:]
+    return _separable(
+        x, _nearest_weights_rt,
+        (h, out_pad_hw[0], int(in_valid_hw[0]), int(out_valid_hw[0])),
+        (w, out_pad_hw[1], int(in_valid_hw[1]), int(out_valid_hw[1]))).to(
+            x.dtype)
+
+
 def resize_bilinear_rt(x: torch.Tensor, out_pad_hw, in_valid_hw,
                        out_valid_hw, align_corners: bool = False):
     """Bilinear resize of [N, C, H, W] to ``out_pad_hw`` whose valid region

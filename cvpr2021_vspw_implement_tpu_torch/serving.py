@@ -1,14 +1,18 @@
-"""Streaming TCB-PSP inference: encode each frame once, reuse its pooled
-stats (JAX counterpart: serving.py ``_WindowStreamer``, ``ClipPSPStreamer``,
-``ClipPSPBucketEngine``, ``ExactShapeEngine``, ``video_shape_census``).
+"""Streaming inference: encode each frame once, reuse what later windows
+need (JAX counterpart: serving.py ``_WindowStreamer``, ``ClipPSPStreamer``,
+``ClipOCRStreamer``, ``NetWarpStreamer``, their bucket engines,
+``ExactShapeEngine``, ``video_shape_census``).
 
-The blend only consumes each frame's pooled PPM statistics (at most 6x6xC)
-and the target's C5 map, so each video frame is encoded exactly once, its
-stats cached, and windows fused as their future context arrives.
-Predictions equal the window forward (``ClipPSP.forward``).
+TCB-PSP's blend only consumes each frame's pooled PPM statistics (at most
+6x6xC) and the target's C5 map, and TCB-OCR's each frame's region context
+([K, 512]) and the target's OCR features, so each video frame is encoded
+exactly once, its stats cached, and windows fused as their future context
+arrives.  NetWarp caches each frame's C5 and decoder features (and C4 for
+the OCR decoder) and runs only the pair's own work, flow, blends and the
+target's decode, per frame.  Predictions equal the window forward.
 
-An engine decides the shapes a frame runs at: ``ClipPSPBucketEngine`` pads
-it to its width bucket and runs the masked model (ops/masked.py);
+An engine decides the shapes a frame runs at: a bucket engine pads it to
+its width bucket and runs the masked model (ops/masked.py);
 ``ExactShapeEngine`` and no engine run it at its own shape.
 """
 
@@ -86,9 +90,24 @@ class ClipPSPBucketEngine(ExactShapeEngine):
         h, w = true_hw
         key = self.pad_hw(h, w)
         fv = feature_valid(c5.shape[2], c5.shape[3], (h, w), key)
-        logits = self.model.fuse_target(c5, blended, feat_valid=fv)
+        logits = self._fuse_target(c5, blended, fv)
         pred = inference_pred_rt(logits, key, fv, (h, w))
         return pred[0, :h, :w].cpu().numpy()
+
+    def _fuse_target(self, c5, blended, fv):
+        return self.model.fuse_target(c5, blended, feat_valid=fv)
+
+
+class ClipOCRBucketEngine(ClipPSPBucketEngine):
+    """Width-bucketed ClipOCR eval (JAX ``ClipOCRBucketEngine``): the
+    masked encode (the trunk and both heads' 3x3 convs under the
+    spatial-conv-input mask, the features re-zeroed, the gather over the
+    valid region), then the fuse on the padded grid: the OCR attention and
+    fuse past the gather are per pixel, so the band never reaches the
+    valid region."""
+
+    def _fuse_target(self, feat, context, fv):
+        return self.model.fuse_target(feat, context)
 
 
 def video_shape_census(dataroot, videos):
@@ -168,3 +187,114 @@ class ClipPSPStreamer(_WindowStreamer):
         return [(torch.stack([cache[k][0][s] for k in order])
                  * w[:, :, None, None, None]).mean(0)
                 for s in range(len(cache[target][0]))]
+
+
+class ClipOCRStreamer(_WindowStreamer):
+    """TCB-OCR without memory: the cache holds each frame's region context
+    [B, 512, K, 1]; the blend is their mean."""
+
+    def _blend(self, cache, idxs):
+        return torch.stack([cache[k] for k in idxs]).mean(0)
+
+
+class NetWarpEngine(ExactShapeEngine):
+    """NetWarp / NetWarp-OCR frames at their own shape: a frame goes to the
+    card once as contiguous NCHW (RAFT's kernels read it), is encoded, and
+    is kept beside its features for the pairs that read it."""
+
+    def _image(self, frame: np.ndarray) -> torch.Tensor:
+        self._shapes.add(tuple(frame.shape[:2]))
+        return torch.from_numpy(np.ascontiguousarray(frame)).to(
+            self.device).permute(2, 0, 1)[None].contiguous()
+
+    def encode(self, frame: np.ndarray):
+        """frame [H, W, 3] normalized → (image, C5, features[, C4])."""
+        img = self._image(frame)
+        return (img, *self.model.encode_frame(img))
+
+    def fuse(self, target, prev, true_hw) -> np.ndarray:
+        """The pair (target, prev) of cache entries → the target's
+        prediction [H, W] uint8."""
+        logits, _ = self.model.fuse_pair(*self._pair(target, prev))
+        return inference_pred(logits, true_hw)[0].cpu().numpy()
+
+    @staticmethod
+    def _pair(target, prev):
+        """fuse_pair's arguments: images, C5 of both, prev's features, and
+        the target's C4 for the OCR decoder."""
+        return (target[0], prev[0], target[1], prev[1], prev[2],
+                target[3] if len(target) > 3 else None)
+
+
+class NetWarpBucketEngine(NetWarpEngine):
+    """Width-bucketed NetWarp / NetWarp-OCR eval (JAX
+    ``NetWarpBucketEngine``), shared by all videos of a run: the masked
+    encode, and a fuse whose frozen RAFT runs at the reference's symmetric
+    /8 geometry inside the bucket, with nearest flow resizes and warps at
+    the true sizes (``NetWarp.fuse_pair``)."""
+
+    def __init__(self, model, bucket: int = 64):
+        if bucket % 32:
+            raise ValueError("bucket must cover the encoder stride (32)")
+        super().__init__(model)
+        self.bucket = bucket
+
+    def _image(self, frame):
+        h, w = frame.shape[:2]
+        key = bucket_hw(h, w, self.bucket)
+        self._shapes.add(key)
+        return pad_to(torch.from_numpy(np.ascontiguousarray(frame)).to(
+            self.device).permute(2, 0, 1)[None], key)
+
+    def encode(self, frame):
+        img = self._image(frame)
+        return (img, *self.model.encode_frame(img,
+                                              valid_hw=frame.shape[:2]))
+
+    def fuse(self, target, prev, true_hw):
+        h, w = true_hw
+        key = target[0].shape[-2:]
+        logits, _ = self.model.fuse_pair(*self._pair(target, prev),
+                                         valid_hw=(h, w))
+        fv = feature_valid(*logits.shape[-2:], (h, w), key)
+        pred = inference_pred_rt(logits, key, fv, (h, w))
+        return pred[0, :h, :w].cpu().numpy()
+
+
+class NetWarpStreamer:
+    """NetWarp / NetWarp-OCR eval with each frame's features computed once
+    (``clip_num`` 2, ``dilation_num`` 0, the reference's only NetWarp
+    setting).  Frame i pairs with the frame before it, frame 0 with frame 1
+    (TestDataset_clip, dataset2.py:276-300); a frame's cache entry is
+    dropped once no later pair reads it.  Predictions equal the window
+    forward's."""
+
+    def __init__(self, model, num_frames: int, seg_size, device="cuda",
+                 engine=None):
+        self.n = num_frames
+        self.seg_size = tuple(seg_size)
+        self.engine = engine or NetWarpEngine(model, device)
+
+    def context_index(self, i: int) -> int:
+        """The previous frame; the first frame takes the next one (itself
+        in a video of one frame, as the window dataset gives it)."""
+        if i == 0:
+            return 1 if self.n > 1 else 0
+        return i - 1
+
+    @torch.inference_mode()
+    def run(self, frames):
+        """frames: [H, W, 3] normalized float32 frames, indexable; yields
+        (frame_idx, pred [H, W] uint8) in order."""
+        cache: dict[int, tuple] = {}
+
+        def get(idx):
+            if idx not in cache:
+                cache[idx] = self.engine.encode(frames[idx])
+            return cache[idx]
+
+        for i in range(self.n):
+            j = self.context_index(i)
+            yield i, self.engine.fuse(get(i), get(j), self.seg_size)
+            for k in [k for k in cache if k < i]:
+                del cache[k]

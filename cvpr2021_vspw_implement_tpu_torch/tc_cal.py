@@ -25,7 +25,7 @@ import torch
 from PIL import Image
 
 from .models.layers import init_weights
-from .models.raft import RAFT, pad_to_multiple_of_8, unpad
+from .models.raft import RAFT, bucketed_flow, pad_to_multiple_of_8, unpad
 from .ops.masked import bucket_hw, pad_to
 from .ops.warp import flowwarp
 from .utils import Evaluator, resolve_device, setup_logger
@@ -71,24 +71,18 @@ def pair_flow(model, img1, img2, width_bucket: int):
     [1, 2, H, W] from frame t to t+1 at the pair's own size.  With
     ``width_bucket`` 0 the pair runs at exact shapes, /8-padded
     (``pad_to_multiple_of_8``).  Otherwise it is zero-padded to its bucket
-    and the reference's symmetric /8 pad is emulated inside it (JAX
-    ``step_bucketed``): the images roll to the (top, left) pad offset, the
-    masked RAFT runs to the /8-aligned extent, and the flow rolls back and
-    is cropped to (H, W), where it equals the exact run's up to the order
-    of f32 sums."""
+    and the reference's symmetric /8 pad is emulated inside it
+    (``models/raft/raft.py::bucketed_flow``); the flow is cropped to
+    (H, W), where it equals the exact run's up to the order of f32
+    sums."""
     h, w = img1.shape[-2:]
     if not width_bucket:
         p1, pads = pad_to_multiple_of_8(img1)
         p2, _ = pad_to_multiple_of_8(img2)
         return unpad(model(p1, p2)[1], pads)
     key = bucket_hw(h, w, width_bucket)
-    pad_h = (((h // 8) + 1) * 8 - h) % 8
-    pad_w = (((w // 8) + 1) * 8 - w) % 8
-    top, left = pad_h // 2, pad_w // 2
-    r1 = torch.roll(pad_to(img1, key), (top, left), (2, 3))
-    r2 = torch.roll(pad_to(img2, key), (top, left), (2, 3))
-    _, flow = model(r1, r2, valid_hw=(h + pad_h, w + pad_w))
-    return torch.roll(flow, (-top, -left), (2, 3))[..., :h, :w]
+    return bucketed_flow(model, pad_to(img1, key), pad_to(img2, key),
+                         (h, w))[..., :h, :w]
 
 
 def warp_pred(next_pred, flow):

@@ -1,18 +1,26 @@
 """Temporal evaluation CLI (JAX counterpart: test_clip.py; reference
 test_clip2.py).
 
-``--method clip_psp`` streams (serving.py: every frame is encoded once and
-each window fused as its context arrives), by default width-bucketed: each
-frame is padded to its bucket (``--width_bucket 64``; heights to the stride
-32) and the masked model takes its true size (ops/masked.py).
-``--eval_policy exact`` runs every frame at its own shape, and ``auto`` runs
-a shape exactly where the val list holds at least ``--exact_min_frames`` of
-its frames (the JAX CLI's policy and defaults).  ``--method our_warp``,
-``ETC``, ``propnet`` and ``our_warp_merge`` take the window path: per eval
-frame, its centred ``clip_num`` neighbourhood (``TestClipDataset``) and the
-frame itself, target last, go through the model at once, padded to the
-frame's bucket with its true size beside it unless ``--width_bucket 0``
-(``--eval_policy`` governs the streaming engines only, as in the JAX CLI).
+``--method clip_psp`` and ``clip_ocr`` stream (serving.py: every frame is
+encoded once and each window fused as its context arrives), by default
+width-bucketed: each frame is padded to its bucket (``--width_bucket 64``;
+heights to the stride 32) and the masked model takes its true size
+(ops/masked.py).  ``--eval_policy exact`` runs every frame at its own shape,
+and ``auto`` runs a shape exactly where the val list holds at least
+``--exact_min_frames`` of its frames (the JAX CLI's policy and defaults).
+``clip_ocr`` with ``--use_memory`` (a ring of the last ``--memory_num`` + 1
+region contexts, carried from window to window and emptied at each video's
+start) or ``--clipocr_all`` takes the window path over its long clips
+(``TestLongClipDataset``), which the streamer cannot serve.
+``--method netwarp`` and ``netwarp_ocr`` stream pairs (each frame's
+features computed once), width-bucketed unless ``--width_bucket 0``; with
+``--dilation_num`` > 0 they take the window path at exact shapes, as the
+JAX CLI does.  ``--method our_warp``, ``ETC``, ``etc_ocr``, ``propnet`` and
+``our_warp_merge`` take the window path: per eval frame, its centred
+``clip_num`` neighbourhood (``TestClipDataset``) and the frame itself,
+target last, go through the model at once, padded to the frame's bucket
+with its true size beside it unless ``--width_bucket 0`` (``--eval_policy``
+governs the TCB streaming engines only, as in the JAX CLI).
 Global and per-video mIoU, VC, and optional
 palette PNG dumps (``--is_save``).  Flags keep the JAX CLI's names.
 ``--load`` takes a port checkpoint (``torch.save`` of the model's
@@ -38,18 +46,27 @@ from PIL import Image
 from .config import check_compute_dtype
 from .config import cfg as default_cfg
 from .config.args import postprocess_args
-from .data import TestClipDataset, TestFrameDataset, list_videos
+from .data import (TestClipDataset, TestFrameDataset, TestLongClipDataset,
+                   list_videos)
 from .methods import build_method
+from .models.clip_ocr import init_memory
 from .models.layers import init_weights
 from .models.segmentation import inference_pred, inference_pred_rt
 from .ops.masked import bucket_hw, feature_valid, pad_to
-from .serving import (ClipPSPBucketEngine, ClipPSPStreamer,
-                      ExactShapeEngine, video_shape_census)
+from .serving import (ClipOCRBucketEngine, ClipOCRStreamer,
+                      ClipPSPBucketEngine, ClipPSPStreamer, ExactShapeEngine,
+                      NetWarpBucketEngine, NetWarpStreamer,
+                      video_shape_census)
 from .utils import (Evaluator, get_common, resolve_device, setup_logger,
                     vspw_palette)
 
-#: methods whose eval is ported: clip_psp streams, the others take windows
-EVAL_METHODS = ("clip_psp", "our_warp", "ETC", "propnet", "our_warp_merge")
+#: methods whose eval is ported: the TCB methods stream windows, netwarp
+#: and netwarp_ocr stream pairs, the others take windows
+EVAL_METHODS = ("clip_psp", "clip_ocr", "netwarp", "netwarp_ocr", "our_warp",
+                "ETC", "etc_ocr", "propnet", "our_warp_merge")
+#: the TCB streamers and bucket engines by method
+TCB_STREAMERS = {"clip_psp": (ClipPSPStreamer, ClipPSPBucketEngine),
+                 "clip_ocr": (ClipOCRStreamer, ClipOCRBucketEngine)}
 
 
 def _bool(s: str) -> bool:
@@ -77,6 +94,13 @@ def build_eval_clip_parser():
     p.add_argument("--dilation_num", type=int, default=0)
     p.add_argument("--dilation2", type=str, default="3,6,9")
     p.add_argument("--vc_clip_num", type=int, default=8)
+    p.add_argument("--use_memory", type=_bool, default=False,
+                   help="clip_ocr: blend over a ring of the last "
+                        "--memory_num + 1 region contexts (window path)")
+    p.add_argument("--memory_num", type=int, default=8)
+    p.add_argument("--clipocr_all", type=_bool, default=False,
+                   help="clip_ocr: OCR attention on every clip frame "
+                        "(window path)")
     p.add_argument("--psp_weight", type=_bool, default=False)
     p.add_argument("--linear_combine", type=_bool, default=False)
     p.add_argument("--distsoftmax", type=_bool, default=False)
@@ -114,42 +138,65 @@ def build_model(cfg, args, device) -> torch.nn.Module:
     return model.to(device).eval()
 
 
-def _stream_clip_psp(model, ds, dilation2, device, engine=None):
+def _stream(model, ds, dilation2, device, engine=None,
+            streamer_cls=ClipPSPStreamer):
     """(index, prediction, label, PNG name) of every frame of ``ds``,
-    streaming through ``engine`` (exact shapes when None)."""
+    streaming windows through ``engine`` (exact shapes when None)."""
     items = [ds[i] for i in range(len(ds))]
-    streamer = ClipPSPStreamer(model, dilation2, len(ds),
-                               items[0][0].shape[:2], device=device,
-                               engine=engine)
+    streamer = streamer_cls(model, dilation2, len(ds), items[0][0].shape[:2],
+                            device=device, engine=engine)
     for i, pred in streamer.run(it[0] for it in items):
         yield i, pred, items[i][1], items[i][2]
 
 
+def _stream_pairs(model, ds, device, engine=None):
+    """(index, prediction, label, PNG name) of every frame of ``ds``,
+    NetWarp pairs streamed through ``engine`` (exact shapes when None)."""
+    items = [ds[i] for i in range(len(ds))]
+    streamer = NetWarpStreamer(model, len(ds), items[0][0].shape[:2],
+                               device=device, engine=engine)
+    for i, pred in streamer.run([it[0] for it in items]):
+        yield i, pred, items[i][1], items[i][2]
+
+
 @torch.inference_mode()
-def window_pred(model, imgs, bucket: int = 0):
+def window_pred(model, imgs, bucket: int = 0, memory=None):
     """The prediction [B, H, W] of a window imgs [T, B, 3, H, W], target
     last: at its shape, or with ``bucket`` padded to its bucket and the
     masked model given its true size, its logits' valid region resized to
-    (H, W) and cropped (JAX test_clip.py:266-357)."""
+    (H, W) and cropped (JAX test_clip.py:266-357).  With ``memory``
+    (clip_ocr's ring) the model blends over it: → (prediction, new
+    memory)."""
     h, w = imgs.shape[-2:]
+    kw = {} if memory is None else {"memory": memory}
+    if bucket:
+        pad_hw = bucket_hw(h, w, bucket)
+        out = model(pad_to(imgs, pad_hw), valid_hw=(h, w), **kw)
+    else:
+        out = model(imgs, **kw)
+    if memory is not None:
+        out, memory = out
     if not bucket:
-        return inference_pred(model(imgs), (h, w))
-    pad_hw = bucket_hw(h, w, bucket)
-    logits = model(pad_to(imgs, pad_hw), valid_hw=(h, w))[0]
-    fv = feature_valid(*logits.shape[-2:], (h, w), pad_hw)
-    return inference_pred_rt(logits, pad_hw, fv, (h, w))[:, :h, :w]
+        pred = inference_pred(out, (h, w))
+    else:
+        fv = feature_valid(*out[0].shape[-2:], (h, w), pad_hw)
+        pred = inference_pred_rt(out[0], pad_hw, fv, (h, w))[:, :h, :w]
+    return pred if memory is None else (pred, memory)
 
 
-def _windows(model, ds, device, bucket: int = 0):
+def _windows(model, ds, device, bucket: int = 0, memory=None):
     """(index, prediction, label, PNG name) of every frame of ``ds``: its
     context window and itself, target last, through the model at once (JAX
-    test_clip.py:566-602)."""
+    test_clip.py:566-602); ``memory`` is carried from window to window."""
     for i in range(len(ds)):
         img, gt, clips, _, name = ds[i]
         imgs = np.stack(clips + [img])[:, None]           # [T, 1, H, W, 3]
         imgs = torch.from_numpy(np.ascontiguousarray(
             imgs.transpose(0, 1, 4, 2, 3))).to(device)   # [T, 1, 3, H, W]
-        pred = window_pred(model, imgs, bucket)
+        if memory is None:
+            pred = window_pred(model, imgs, bucket)
+        else:
+            pred, memory = window_pred(model, imgs, bucket, memory)
         yield i, pred[0].cpu().numpy(), gt, name
 
 
@@ -159,13 +206,22 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     check_compute_dtype(cfg)
     logger = logger or setup_logger()
     device = resolve_device(args.device)
-    streaming = args.method == "clip_psp"
+    use_memory = getattr(args, "use_memory", False)
+    # the streamers serve clip_ocr neither with a memory nor with
+    # clipocr_all, and NetWarp's only with contiguous pairs (JAX
+    # test_clip.py:374-412)
+    streaming = args.method == "clip_psp" or (
+        args.method == "clip_ocr" and not use_memory
+        and not getattr(args, "clipocr_all", False))
+    pairs = (args.method in ("netwarp", "netwarp_ocr")
+             and args.dilation_num == 0)
     # the trainer's validation passes its own args: exact shapes there
     bucket = getattr(args, "width_bucket", 0)
     policy = getattr(args, "eval_policy", "bucketed")
     if model is None:
         model = build_model(cfg, args, device)
     if streaming:
+        streamer_cls, bucket_engine = TCB_STREAMERS[args.method]
         dil = args.dilation2
         dilation2 = [int(d) for d in dil.split(",")] if isinstance(dil, str) \
             else list(dil)
@@ -182,9 +238,11 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     # shared by all videos; 'exact' and 'auto' run shapes exactly, 'auto'
     # where the val list holds enough frames of the shape
     engine = exact_engine = census = None
+    if pairs and bucket:
+        engine = NetWarpBucketEngine(model, bucket=bucket)
     if streaming:
         if policy != "exact" and bucket:
-            engine = ClipPSPBucketEngine(model, bucket=bucket)
+            engine = bucket_engine(model, bucket=bucket)
         if policy in ("exact", "auto"):
             exact_engine = ExactShapeEngine(model, device)
             if policy == "auto":
@@ -199,10 +257,24 @@ def evaluate_clip(cfg, args, model=None, logger=None):
                     and census.get(vshapes.get(video), 0)
                     >= getattr(args, "exact_min_frames", 15000)):
                 eng = exact_engine
-            preds = _stream_clip_psp(model, ds, dilation2, device, eng)
+            preds = _stream(model, ds, dilation2, device, eng, streamer_cls)
+        elif pairs:
+            ds = TestFrameDataset(args.dataroot, video, args)
+            preds = _stream_pairs(model, ds, device, engine)
+        elif args.method == "clip_ocr":
+            # the window path over long clips; the memory starts empty at
+            # each video (reference is_clean_memory, test_clip2.py:44-48)
+            ds = TestLongClipDataset(args.dataroot, video, args)
+            memory = (init_memory(args.memory_num, 1, args.num_class,
+                                  device=device) if use_memory else None)
+            preds = _windows(model, ds, device, bucket, memory)
         else:
             ds = TestClipDataset(args.dataroot, video, args)
-            preds = _windows(model, ds, device, bucket)
+            # NetWarp's window forward has no masked path (JAX
+            # BUCKETED_WINDOW_METHODS)
+            preds = _windows(model, ds, device,
+                             0 if args.method.startswith("netwarp")
+                             else bucket)
         eval_video = Evaluator(args.num_class)
         gt_list, pred_list = [None] * len(ds), [None] * len(ds)
         t = time.perf_counter()
@@ -222,7 +294,7 @@ def evaluate_clip(cfg, args, model=None, logger=None):
         vc_accs.extend(get_common(gt_list, pred_list, args.vc_clip_num, h, w))
         vmiou[video] = eval_video.Mean_Intersection_over_Union()
         logger.info(f"video {video}: mIoU {vmiou[video]:.4f}"
-                    + (" (streaming)" if streaming else ""))
+                    + (" (streaming)" if streaming or pairs else ""))
 
     metrics = {
         # the bucketed engine's (h, w) buckets touched, else []

@@ -937,3 +937,83 @@ def test_frame_eval_launches_band_zero_as_the_model_implies(cuda_device,
     assert len(preds[0]) == 6
     differ = sum(int((a != b).sum()) for a, b in zip(preds[0], preds[64]))
     assert differ <= 1e-3 * 6 * 48 * 56
+
+
+def _r18(method, device, raft_iters=3):
+    """A seeded R18 model of ``method`` (fc_dim 512, 5 classes) in eval
+    mode on ``device``."""
+    import argparse
+
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.methods import build_method
+    from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
+
+    cfg = default_cfg.clone()
+    cfg.MODEL.arch_encoder = "resnet18dilated"
+    cfg.MODEL.fc_dim = 512
+    cfg.TPU.raft_iters = raft_iters
+    model, _ = build_method(method, cfg, argparse.Namespace(
+        num_class=5, clip_num=2 if method.startswith("netwarp") else 4,
+        dilation_num=0))
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(device).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["netwarp", "netwarp_ocr"])
+def test_netwarp_pair_launches_as_raft_implies(cuda_device, method):
+    """A NetWarp pair of 480x560 frames (RAFT's 60x70 features pass B4's
+    4096 gate) through the streaming engines: B1 once and B4 twice a
+    refinement, exact and in the 480x576 bucket, where B6 launches the
+    derived count of chip_smoke.py's ``ocr_netwarp_band_launches``; the
+    bucketed prediction differs from the exact one at no more than 0.1% of
+    the pixels.  The blend weights are live
+    (``chip_smoke.live_netwarp_blend``), so the predictions read the
+    bucketed feature warps."""
+    from cvpr2021_vspw_implement_tpu_torch import bench, serving
+
+    model = chip_smoke.live_netwarp_blend(torch, _r18(method, cuda_device))
+    rng = np.random.default_rng(6)
+    frames = [rng.normal(size=(480, 560, 3)).astype(np.float32)
+              for _ in range(2)]
+    preds = {}
+    for engine in (serving.NetWarpEngine(model),
+                   serving.NetWarpBucketEngine(model, bucket=64)):
+        with torch.inference_mode():
+            prev = engine.encode(frames[0])
+            for fn in bench.WRAPPERS.values():
+                fn.launches = 0
+            target = engine.encode(frames[1])
+            preds[type(engine)] = engine.fuse(target, prev, (480, 560))
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
+        want = {"corr_lookup": 3, "sep_gru": 6}
+        if isinstance(engine, serving.NetWarpBucketEngine):
+            want["band_zero"] = chip_smoke.ocr_netwarp_band_launches(
+                torch, model.raft, "resnet18dilated")[method]
+        assert got == {n: want.get(n, 0) for n in got}
+    a, b = preds.values()
+    assert a.shape == b.shape == (480, 560)
+    assert (a != b).sum() <= 1e-3 * a.size
+
+
+@pytest.mark.cuda
+def test_clip_ocr_bucketed_gather_matches_exact(cuda_device):
+    """ClipOCR's bucketed ``encode_frame`` (48x72 in the 64x128 bucket) on
+    the card: the features zero on the band and their valid region, and
+    the region context gathered over it, within 1e-4 of the largest value
+    of the exact run's (cuDNN sums in another order per width)."""
+    model = _r18("clip_ocr", cuda_device)
+    x = torch.randn(1, 3, 48, 72, generator=torch.Generator().manual_seed(7))
+    x = x.to(cuda_device)
+    padded = torch.zeros(1, 3, 64, 128, device=cuda_device)
+    padded[..., :48, :72] = x
+    with torch.inference_mode():
+        feat, ctx = model.encode_frame(x)
+        feat_b, ctx_b = model.encode_frame(padded, valid_hw=(48, 72))
+    assert feat.shape[-2:] == (6, 9) and ctx_b.shape == ctx.shape
+    assert not feat_b[..., 6:, :].any() and not feat_b[..., :, 9:].any()
+    for got, want in ((feat_b[..., :6, :9], feat), (ctx_b, ctx)):
+        assert (got - want).abs().max().item() <= 1e-4 * max(
+            1.0, want.abs().max().item())
+

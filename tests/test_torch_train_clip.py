@@ -261,7 +261,7 @@ def test_unported_methods_and_validation_hook(vspw_root, tmp_path, caplog):
     args = argparse.Namespace(num_class=K, clip_num=2, dilation_num=0,
                               deepsup_scale=0.4, st_weight=0.1)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        methods.build_method("netwarp", default_cfg, args)
+        methods.build_method("tdnet", default_cfg, args)
     with pytest.raises(ValueError, match="unknown method"):
         methods.build_method("nope", default_cfg, args)
     with pytest.raises(ValueError, match="clip_num=2"):
