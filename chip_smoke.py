@@ -97,6 +97,20 @@
       ``netwarp``, ``netwarp_ocr`` and ``etc_ocr`` (2 frames, RAFT at 20
       refinements: B1, B2 and B3 at 20 a step), crop 479, batch 2, four
       steps each;
+   j. the TDNet eval CLI (``test_clip --method tdnet``, four seeded
+      ResNet-18-dilated paths at crop 479, the LayerNorm maps live and the
+      attention's logits a few units) streaming a 12-frame 480x853 video,
+      exact and then bucketed in 480x896 (B6 at a count derived from the
+      model), held against each other as in d; a planted fault, the token
+      mask off in the bucketed attention, must fail that check;
+   k. the Non-local 3D eval CLI (``--method nonlocal3d --clip_num 3``,
+      ``test_all``, seeded R101, its BatchNorm statistics calibrated on the
+      first window and the block's residual scale live) over
+      the 10-frame video, exact and then bucketed, each window frame's
+      logits and the PNGs held; a planted fault, the dot normaliser
+      counting the padded positions, must fail that check;
+   l. the clip trainer for ``tdnet`` (4 frames, ``pos_id`` rotating) and
+      ``nonlocal3d`` (3 frames), crop 479, batch 2, four steps each;
    e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
@@ -1465,7 +1479,7 @@ def restore_window_heads(test_clip, saved):
 
 
 def window_bucket_check(torch, path, exact, bucketed, exact_pngs,
-                        bucket_pngs):
+                        bucket_pngs, align_corners=False):
     """A window CLI phase bucketed against its exact run, with the bars of
     :func:`bucketed_vs_exact`: the upsampled logits on the valid region
     within 1e-3 of the largest exact logit, and the PNGs equal but at
@@ -1475,7 +1489,8 @@ def window_bucket_check(torch, path, exact, bucketed, exact_pngs,
     pixel whose logits read a feature position where either run's
     aggregation had a near-tie (the two largest distances within 1e-4
     relative, where rounding may flip the pick, as in the kernel checks) is
-    excused from both bars, and the count printed."""
+    excused from both bars, and the count printed.  ``align_corners``:
+    the logits' upsampling (TDNet's is ``True``)."""
     from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
         resize_bilinear
     from cvpr2021_vspw_implement_tpu_torch.ops.masked import \
@@ -1483,12 +1498,13 @@ def window_bucket_check(torch, path, exact, bucketed, exact_pngs,
 
     def up_exact(i):
         logits, size, _ = exact[i]
-        return resize_bilinear(logits.float(), size)[0]
+        return resize_bilinear(logits.float(), size,
+                               align_corners=align_corners)[0]
 
     def up_bucketed(i):
         logits, pad, fv, (h, w), _ = bucketed[i]
-        return resize_bilinear_rt(logits.float(), pad, fv, (h, w))[
-            0, :, :h, :w]
+        return resize_bilinear_rt(logits.float(), pad, fv, (h, w),
+                                  align_corners=align_corners)[0, :, :h, :w]
 
     def touched(i):
         """Pixels whose logits read a near-tie feature position of window
@@ -1554,7 +1570,10 @@ BENCH_KEYS = (
     "clipocr_bucketed_frames_per_sec", "clipocr_bucketed_overhead_pct",
     "netwarp_stream_frames_per_sec", "netwarp_stream_mfu",
     "netwarp_stream_bucketed_frames_per_sec", "netwarp_train_step_ms",
-    "netwarp_train_mfu",
+    "netwarp_train_mfu", "tdnet_frames_per_sec", "tdnet_mfu",
+    "tdnet_stream4_frames_per_sec", "tdnet_bucketed_frames_per_sec",
+    "tdnet_bucketed_overhead_pct", "nonlocal3d_windows_per_sec",
+    "nonlocal3d_mfu",
     "host_decode_frames_per_sec", "host_decode_path",
     "host_cores_to_saturate_chip", "spreads_pct", "device", "power_limit_w",
     "peak_tflops_f32", "dtype", "not_ported")
@@ -1571,11 +1590,14 @@ BENCH_TIMES = (
     "clipocr_frames_per_sec", "clipocr_stream4_frames_per_sec",
     "clipocr_bucketed_frames_per_sec", "netwarp_stream_frames_per_sec",
     "netwarp_stream_bucketed_frames_per_sec", "netwarp_train_step_ms",
+    "tdnet_frames_per_sec", "tdnet_stream4_frames_per_sec",
+    "tdnet_bucketed_frames_per_sec", "nonlocal3d_windows_per_sec",
     "host_decode_frames_per_sec", "host_cores_to_saturate_chip")
 BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu",
               "our_warp_train_mfu", "etc_mfu", "our_warp_mfu", "propnet_mfu",
               "our_warp_merge_mfu", "tc_mfu", "clipocr_mfu",
-              "netwarp_stream_mfu", "netwarp_train_mfu")
+              "netwarp_stream_mfu", "netwarp_train_mfu", "tdnet_mfu",
+              "nonlocal3d_mfu")
 
 
 def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
@@ -1588,7 +1610,8 @@ def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
     window ``per_window`` (by path) of B6, a TC pair and a NetWarp frame
     ``iters`` of B1 and twice that of B4 (and bucketed ``per_pair`` and
     ``per_ocr["netwarp"]`` of B6), a bucketed TCB-OCR frame
-    ``per_ocr["clip_ocr"]`` of B6; no other launch."""
+    ``per_ocr["clip_ocr"]`` of B6, a bucketed TDNet frame
+    ``per_ocr["tdnet"]``; no other launch."""
     missing = [k for k in BENCH_KEYS if k not in out]
     bad = [k for k in BENCH_TIMES
            if not (math.isfinite(out[k]) and out[k] > 0)]
@@ -1612,6 +1635,7 @@ def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
             "tc_bucketed": {**tc, "band_zero": per_pair * n["pairs"]},
             "clipocr_bucketed": {
                 "band_zero": per_ocr["clip_ocr"] * n["frames"]},
+            "tdnet_bucketed": {"band_zero": per_ocr["tdnet"] * n["frames"]},
             "netwarp_train": {k: iters * n["etc_train_steps"] for k in (
                 "corr_lookup", "motion_encoder", "gru_flowhead")},
             "netwarp_stream": {"corr_lookup": iters * n["frames"],
@@ -1902,7 +1926,7 @@ def warp_train_agreement(torch):
 
 
 def train_phase(torch, method, flags, root, work, preset, k, steps,
-                head=None, name=None, b5=None, b5_only=None):
+                head=None, name=None, b5=None, b5_only=None, encoder=None):
     """``steps`` steps of ``train_clip.main`` at full width; prints step
     times, losses and peak memory and returns the model.  Fails unless the
     losses are finite, a head parameter (``head``, or the first one named
@@ -1913,21 +1937,26 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
     ``b5_only``: a parameter that only B5's backward reaches; its last
     step's gradient must be finite and not all zero, or all zero for
     nearest, which gives x and y_dist none.  A window method's distance
-    embedding starts at DIST_BN_SCALE."""
+    embedding starts at DIST_BN_SCALE.  ``encoder``: the encoder parameter
+    to watch, else the first ``encoder.*``.  TDNet's ``pos_id`` of each
+    step is printed and held to the trainer's rotation, (step + 1) % 4."""
     from cvpr2021_vspw_implement_tpu_torch import train_clip
 
-    records, spans, before, b5_grads = [], [], {}, []
+    records, spans, before, b5_grads, pos_ids = [], [], {}, [], []
     step = train_clip.train_step
 
     def watched(model):
         named = dict(model.named_parameters())
-        names = [n for n in named if n.startswith("encoder.")][:1]
+        names = [encoder] if encoder else [
+            n for n in named if n.startswith("encoder.")][:1]
         names += [head] if head else [
             n for n in named if n.endswith(".4.weight")][:1]
         names += [n for n in named if n.startswith("raft.")][:1]
         return {n: named[n] for n in names}
 
-    def timed_step(model, *args):
+    def timed_step(model, *args, **kw):
+        if "pos_id" in kw:
+            pos_ids.append(kw["pos_id"])
         if not before:
             if method in DIST_BN:
                 with torch.no_grad():
@@ -1936,7 +1965,7 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
                            for n, p in watched(model).items()})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = step(model, *args)
+        metrics = step(model, *args, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         records.append((t1 - t0, float(metrics["loss"])))
@@ -1962,6 +1991,10 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
     losses = [loss for _, loss in records]
     if len(records) != steps or not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"{method}: {len(records)} steps, losses {losses}")
+    if method == "tdnet":
+        if pos_ids != [(i + 1) % 4 for i in range(steps)]:
+            raise SystemExit(f"tdnet: the steps' pos_id {pos_ids}")
+        print(f"tdnet: pos_id of the steps {pos_ids}")
     for pname, p in watched(model).items():
         moved = not torch.equal(p.detach(), before[pname])
         if moved == pname.startswith("raft."):
@@ -1993,7 +2026,7 @@ def train_phase(torch, method, flags, root, work, preset, k, steps,
                   f"gradient of norm {grad.norm().item():.4g}"
                   if b5_only else ""))
     waits = data_waits_ms(spans, 2)
-    print(f"train {name or method} (R101, crop 479, batch 2, f32): first step "
+    print(f"train {name or method} (crop 479, batch 2, f32): first step "
           f"{1e3 * times[0]:.1f} ms, then "
           f"{1e3 * sum(times[1:]) / (steps - 1):.1f} ms/step over "
           f"{steps - 1} steps; data wait inside an epoch "
@@ -2357,6 +2390,68 @@ def live_netwarp_blend(torch, model, seed=0):
     return model
 
 
+def live_nonlocal_scale(torch, model, seed=0, stats=True):
+    """Give the non-local block's residual BatchNorm (``W_z.1``) seeded
+    scale in [0.5, 1.5] and bias, and with ``stats`` seeded running
+    statistics; ``model`` is a ``NonLocal3D`` or the block itself.  At init
+    its scale is 0 and the block is the identity: a prediction then does
+    not read the attention.  Returns ``model``."""
+    g = torch.Generator().manual_seed(seed)
+    bn = getattr(model, "nonlocalblock", model).W_z[1]
+    n = bn.num_features
+    with torch.no_grad():
+        bn.weight.copy_(0.5 + torch.rand(n, generator=g))
+        bn.bias.copy_(0.1 * torch.randn(n, generator=g))
+        if stats:
+            bn.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+            bn.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return model
+
+
+def calibrate_batchnorm(torch, model, *inputs):
+    """Set every BatchNorm's running statistics to those of one training
+    forward of ``model`` on ``inputs`` (no gradient), as training leaves
+    them; returns ``model`` in eval mode.  At the seeded init they are the
+    identity, and the R101 trunk's C5 then reaches ~1e5: the non-local
+    block's product of three projections of it gives logits of ~1e18 and a
+    prediction of one class.  Calibrated, every map is of unit scale."""
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    saved = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None            # a cumulative average: this batch's
+    try:
+        with torch.no_grad():
+            model.train()(*inputs)
+    finally:
+        for bn, momentum in zip(bns, saved):
+            bn.momentum = momentum
+    return model.eval()
+
+
+def live_td4_weights(torch, model, seed=0, qk_scale=0.1):
+    """Give TDNet's four spatial LayerNorms seeded affine maps (scale in
+    [0.5, 1.5], bias N(0, 0.1)), and scale the last conv of every query and
+    key projection by ``qk_scale``.  At init the maps are ones and zeros,
+    and a resize of them, exact or bucketed, is the same constant: with
+    these the comparisons hold the maps' resize too.  At the seeded init the
+    attention logits reach ~1e3, a one-hot softmax that turns f32 rounding
+    into 1e-4 of the logits; at 0.1 a side they are a few units.  Returns
+    ``model``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for i in range(1, 5):
+            ln = getattr(model, f"layer_norm{i}").ln
+            ln.weight.copy_(0.5 + torch.rand(ln.weight.shape, generator=g))
+            ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g))
+            enc = getattr(model, f"enc{i}")
+            for proj in (enc.w_qs, enc.w_ks):
+                proj[1].conv.weight.mul_(qk_scale)
+                proj[1].conv.bias.mul_(qk_scale)
+    return model
+
+
 def capture_stream_logits(serving, captured):
     """Wrap the streaming engines' prediction heads (``serving``'s
     ``inference_pred`` and ``inference_pred_rt``) so that each frame's
@@ -2684,6 +2779,299 @@ def ocr_netwarp_train_phases(torch, train_root, work, k, steps, reset,
             if n != want.get(kname, 0):
                 raise SystemExit(f"{kname}: {n} launches on the {method} "
                                  f"train path, expected {want.get(kname, 0)}")
+    return launches
+
+
+def tdnet_band_launches(torch):
+    """B6's launches in a bucketed TDNet frame, from the model: its path's
+    masked trunk (the input of every spatial conv of ResNet-18-dilated, the
+    stem max pool), C5, the attended features and the LayerNorm's two
+    (the input's band, the deviations')."""
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+               for m in build_encoder("resnet18dilated").modules()) + 1 + 4
+
+
+def nonlocal3d_band_launches(torch, arch="resnet101dilated"):
+    """B6's launches in a bucketed Non-local 3D window, from the model: the
+    masked trunk (one call for all of the window's frames: the input of
+    every spatial conv, the stem max pool) and the embedding."""
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+               for m in build_encoder(arch).modules()) + 1 + 1
+
+
+#: TDNet's eval phase streams this many frames (every pos_id warm from the
+#: fourth on, each path three times warm)
+TDNET_FRAMES = 12
+TDNET_PRESET = os.path.join(
+    REPO, "cvpr2021_vspw_implement_tpu_torch", "config", "presets",
+    "vsp-resnet18dilated-ppm_deepsup_clip.yaml")
+NONLOCAL3D_CLIP_NUM = 3
+
+
+def capture_probs_logits(test_clip, captured, margins):
+    """Wrap ``test_clip``'s probability heads (``inference_probs``,
+    ``inference_probs_rt``) so that the logits of each frame of each window
+    are kept in ``captured`` as :func:`capture_window_logits` keeps them,
+    and ``frame_pred`` so that each flushed frame's top-2 margin of its
+    averaged probabilities is kept in ``margins``, in flush order.  Returns
+    what :func:`restore_probs_heads` puts back."""
+    saved = (test_clip.inference_probs, test_clip.inference_probs_rt,
+             test_clip.frame_pred)
+
+    def exact(logits, size):
+        captured.append((logits.detach().clone(), size, None))
+        return saved[0](logits, size)
+
+    def bucketed(logits, pad, fv, hw):
+        captured.append((logits.detach().clone(), pad, fv, hw, None))
+        return saved[1](logits, pad, fv, hw)
+
+    def frame_pred(acc, n):
+        top = (acc / n).topk(2, dim=1).values[0]
+        margins.append(top[0] - top[1])
+        return saved[2](acc, n)
+
+    (test_clip.inference_probs, test_clip.inference_probs_rt,
+     test_clip.frame_pred) = exact, bucketed, frame_pred
+    return saved
+
+
+def restore_probs_heads(test_clip, saved):
+    (test_clip.inference_probs, test_clip.inference_probs_rt,
+     test_clip.frame_pred) = saved
+
+
+def nonlocal3d_bucket_check(torch, path, exact, bucketed, margins, order,
+                            exact_pngs, bucket_pngs):
+    """Non-local 3D's ``test_all`` bucketed against exact: every frame's
+    upsampled logits of every window on the valid region within 1e-3 of the
+    largest exact logit, and the PNGs equal but at pixels whose exact
+    averaged probabilities' top-2 margin is below 1e-3 (``margins`` in
+    flush order ``order``, the frames' indices)."""
+    from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
+        resize_bilinear
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import \
+        resize_bilinear_rt
+
+    if len(exact) != len(bucketed) or len(margins) != len(exact_pngs):
+        raise SystemExit(f"{path}: captured {len(exact)} exact and "
+                         f"{len(bucketed)} bucketed frames, {len(margins)} "
+                         f"flushes for {len(exact_pngs)} frames")
+    err = scale = 0.0
+    for (le, size, _), (lb, pad, fv, (h, w), _) in zip(exact, bucketed):
+        e = resize_bilinear(le.float(), size)[0]
+        b = resize_bilinear_rt(lb.float(), pad, fv, (h, w))[0, :, :h, :w]
+        err = max(err, (b - e).abs().max().item())
+        scale = max(scale, e.abs().max().item())
+    tol = 1e-3 * scale
+    diff = excused = 0
+    for i, margin in zip(order, margins):
+        differ = exact_pngs[i] != bucket_pngs[i]
+        diff += int(differ.sum())
+        excused += int((differ & (margin < 1e-3).cpu().numpy()).sum())
+    print(f"{path} bucketed vs exact test_all: logits of {len(exact)} window "
+          f"frames on the valid region max |diff| {err:.3e} (limit "
+          f"{tol:.3e}, 1e-3 of the largest exact logit); PNGs differ at "
+          f"{diff} of {len(exact_pngs) * exact_pngs[0].size} pixels, "
+          f"{excused} of them excused (averaged probabilities' top-2 margin "
+          f"below 1e-3)")
+    if not (err <= tol and diff == excused):
+        raise SystemExit(f"{path}: bucketed test_all disagrees with exact")
+    return {"logit_err": err, "logit_tol": tol, "pixels_differ": diff,
+            "pixels_excused": excused}
+
+
+def tdnet_nonlocal3d_eval_phases(torch, test_clip, root, td_root, work, k,
+                                 n_frames, reset, counts, check_pngs, pngs):
+    """j. ``test_clip --method tdnet`` over a TDNET_FRAMES-frame 480x853
+    video (seeded four ResNet-18-dilated paths at crop 479, the LayerNorm
+    maps live and the attention's logits a few units,
+    :func:`live_td4_weights`), exact then bucketed in 480x896: B6 at
+    :func:`tdnet_band_launches` a frame, none exact; each frame's logits
+    held as the window phases hold them (:func:`window_bucket_check`, the
+    upsampling ``align_corners=True``); a planted fault, the token mask off
+    in the bucketed attention, must fail that check.
+    k. ``test_clip --method nonlocal3d --clip_num 3`` (``test_all``, seeded
+    R101, its BatchNorm statistics those of the video's first window
+    (:func:`calibrate_batchnorm`) and the block's residual scale live,
+    :func:`live_nonlocal_scale`)
+    over the 10-frame video, exact then bucketed: B6 at
+    :func:`nonlocal3d_band_launches` a window; held by
+    :func:`nonlocal3d_bucket_check`; a planted fault, the dot normaliser
+    counting the padded positions, must fail it.  Returns (launches by
+    path, checks by path)."""
+    import numpy as np
+
+    from cvpr2021_vspw_implement_tpu_torch import serving
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.data import TestClipDataset
+    from cvpr2021_vspw_implement_tpu_torch.models import (nonlocal_blocks,
+                                                          td4_psp)
+
+    launches, checks = {}, {}
+    per_td, per_nl = tdnet_band_launches(torch), nonlocal3d_band_launches(
+        torch)
+    presets = {"tdnet": TDNET_PRESET,
+               "nonlocal3d": OCR_NETWARP_PRESETS["ppm_deepsup_clip"]}
+    flags = {"tdnet": [], "nonlocal3d": ["--clip_num",
+                                         str(NONLOCAL3D_CLIP_NUM)]}
+    ckpts = {}
+    for method in ("tdnet", "nonlocal3d"):
+        args = test_clip.build_eval_clip_parser().parse_args(
+            ["--cfg", presets[method], "--num_class", str(k), "--method",
+             method, *flags[method], "--seed", "0"])
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(presets[method])
+        model = test_clip.build_model(cfg, args, "cuda")
+        if method == "tdnet":
+            live_td4_weights(torch, model.cpu())
+        else:
+            # the statistics of the video's first window, then the live
+            # residual scale on them
+            ds = TestClipDataset(root, "video_000", args)
+            window = torch.from_numpy(np.stack(ds[0][2])[:, None]).cuda()
+            calibrate_batchnorm(torch, model, window.permute(
+                0, 1, 4, 2, 3).contiguous())
+            live_nonlocal_scale(torch, model, stats=False)
+            del ds, window
+        ckpts[method] = os.path.join(work, f"{method}_live.pth")
+        torch.save(model.state_dict(), ckpts[method])
+        del model
+
+    def run(method, bucket, tag=""):
+        """One CLI run → (captured logits, margins, flush order, PNGs,
+        metrics); its launches held (and kept unless ``tag``)."""
+        data, n = (td_root, TDNET_FRAMES) if method == "tdnet" else (
+            root, n_frames)
+        name = method + tag + ("_bucketed" if bucket else "")
+        out_dir = os.path.join(work, "preds_" + name)
+        captured, margins, order = [], [], []
+        saved_s = capture_stream_logits(serving, captured)
+        saved_p = capture_probs_logits(test_clip, captured, margins)
+        test_all = test_clip._test_all
+
+        def ordered(*a, **kw):
+            for item in test_all(*a, **kw):
+                order.append(item[0])
+                yield item
+        test_clip._test_all = ordered
+        reset()
+        t0 = time.perf_counter()
+        try:
+            m, _ = test_clip.main([
+                "--cfg", presets[method], "--dataroot", data, "--num_class",
+                str(k), "--method", method, *flags[method], "--load",
+                ckpts[method], "--width_bucket", str(bucket), "--is_save",
+                "--saveroot", out_dir, "--seed", "0"])
+        finally:
+            restore_stream_heads(serving, saved_s)
+            restore_probs_heads(test_clip, saved_p)
+            test_clip._test_all = test_all
+        secs = time.perf_counter() - t0
+        c = counts()
+        if not tag:
+            launches[name] = c
+        # one frame streamed, or one window, for each frame of the video
+        per, unit, model = ((per_td, "frame", "four R18 paths")
+                            if method == "tdnet" else
+                            (per_nl, "window", "R101, clip_num 3, test_all"))
+        amortized = (m["first_frame_ms"] + (n - 1) * m["frame_ms"]) / n
+        print(f"{name} eval ({model}, 480x853"
+              + (" in the 480x896 bucket" if bucket else "")
+              + f", {n} frames), host clock: {1e3 * secs / n:.1f} ms/frame "
+              f"with model set-up; evaluate_clip's frame times "
+              f"{m['first_frame_ms']:.1f} ms for the first, then "
+              f"{m['frame_ms']:.1f} ms, {amortized:.1f} ms a frame over the "
+              f"video; band_zero {c['band_zero'] / n:g} a {unit} (derived "
+              f"{per if bucket else 0}); mIoU {m['mIoU']:.6f} VC "
+              f"{m['VC']:.6f}; kernel launches {c}")
+        if not tag:
+            want = per * n if bucket else 0
+            for kname, got in c.items():
+                if got != (want if kname == "band_zero" else 0):
+                    raise SystemExit(f"{kname}: {got} launches on the {name} "
+                                     f"path")
+        check_pngs(os.path.join(out_dir, "video_000"), n)
+        if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
+            raise SystemExit(f"{name}: non-finite metric")
+        return captured, margins, order, pngs(out_dir), m
+
+    for method in ("tdnet", "nonlocal3d"):
+        runs = {b: run(method, b) for b in (0, 64)}
+
+        def check(exact, other, label):
+            if method == "tdnet":
+                return window_bucket_check(torch, label, exact[0], other[0],
+                                           exact[3], other[3],
+                                           align_corners=True)
+            return nonlocal3d_bucket_check(torch, label, exact[0], other[0],
+                                           exact[1], exact[2], exact[3],
+                                           other[3])
+
+        checks[method] = check(runs[0], runs[64], method)
+        n = TDNET_FRAMES if method == "tdnet" else n_frames
+        checks[method].update(
+            band_zero_per_unit=per_td if method == "tdnet" else per_nl,
+            ms_a_frame_host={
+                b: (r[4]["first_frame_ms"] + (n - 1) * r[4]["frame_ms"]) / n
+                for b, r in (("exact", runs[0]), ("bucketed", runs[64]))})
+        if method == "tdnet":
+            saved = td4_psp.token_valid
+            td4_psp.token_valid = lambda *a: None
+        else:
+            saved = nonlocal_blocks.true_positions
+            nonlocal_blocks.true_positions = (
+                lambda spatial, valid_hw: math.prod(spatial))
+        try:
+            planted = run(method, 64, tag="_planted")
+        finally:
+            if method == "tdnet":
+                td4_psp.token_valid = saved
+            else:
+                nonlocal_blocks.true_positions = saved
+        try:
+            check(runs[0], planted, f"{method} (planted fault)")
+        except SystemExit:
+            checks[method]["planted_fault_caught"] = True
+        else:
+            raise SystemExit(f"the {method} bucketed eval check missed the "
+                             "planted fault")
+        del runs, planted
+    return launches, checks
+
+
+#: the TDNet and Non-local 3D train phases: (--method, flags, a parameter
+#: that must move, an encoder parameter that must move)
+TDNET_NONLOCAL3D_TRAIN_PATHS = (
+    ("tdnet", ["--clip_num", "4", "--dilation_num", "0"],
+     "head2.conv5.4.weight", "pretrained1.conv1.weight", TDNET_PRESET),
+    ("nonlocal3d", ["--clip_num", str(NONLOCAL3D_CLIP_NUM), "--dilation_num",
+                    "0"], "nonlocalblock.W_z.1.weight",
+     "encoder.conv1.weight", OCR_NETWARP_PRESETS["ppm_deepsup_clip"]),
+)
+
+
+def tdnet_nonlocal3d_train_phases(torch, train_root, work, k, steps, reset,
+                                  counts):
+    """l. ``train_clip --method tdnet`` (4 frames, four R18 paths) and
+    ``--method nonlocal3d`` (3 frames, R101) at crop 479, batch 2,
+    ``steps`` steps (:func:`train_phase`: finite losses, the named head and
+    encoder parameters moved; TDNet's ``pos_id`` each step printed and
+    held to the trainer's rotation); no kernel launches.  Returns the
+    launches by path."""
+    launches = {}
+    for method, flags, head, encoder, preset in TDNET_NONLOCAL3D_TRAIN_PATHS:
+        reset()
+        train_phase(torch, method, flags, train_root, work, preset, k, steps,
+                    head=head, encoder=encoder)
+        launches["train_" + method] = c = counts()
+        print(f"kernel launches in the {method} train phase {c}")
+        if any(c.values()):
+            raise SystemExit(f"the {method} train path launched a kernel")
     return launches
 
 
@@ -3047,6 +3435,16 @@ def main() -> int:
     ocr_counts.update(ocr_netwarp_train_phases(torch, train_root, work, k,
                                                steps, reset, counts))
 
+    # j, k, l: TDNet (over a longer video: every path warm three times) and
+    # Non-local 3D, eval (exact, then bucketed) and training
+    td_root = os.path.join(work, "vspw_tdnet")
+    make_synthetic_vspw(td_root, 1, TDNET_FRAMES, hw, k, seed=2)
+    td_counts, td_checks = tdnet_nonlocal3d_eval_phases(
+        torch, test_clip, root, td_root, work, k, n_frames, reset, counts,
+        check_pngs, pngs)
+    td_counts.update(tdnet_nonlocal3d_train_phases(
+        torch, train_root, work, k, steps, reset, counts))
+
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
     reset()
@@ -3056,12 +3454,13 @@ def main() -> int:
     print(f"bench --quick: {time.perf_counter() - t0:.1f} s; kernel launches "
           f"{bench_counts}")
     check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS, per_window,
-                ocr_netwarp_band_launches(torch, raft))
+                {**ocr_netwarp_band_launches(torch, raft),
+                 "tdnet": tdnet_band_launches(torch)})
 
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
                "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
-               **window_counts, **frame_counts, **ocr_counts,
+               **window_counts, **frame_counts, **ocr_counts, **td_counts,
                "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
@@ -3142,6 +3541,7 @@ def main() -> int:
                       "tc_check": tc_check, "native_host_ops": host_ops,
                       "frame_bucketed_vs_exact": frame_check,
                       "ocr_netwarp_bucketed_vs_exact": ocr_checks,
+                      "tdnet_nonlocal3d_bucketed_vs_exact": td_checks,
                       "frame_train": frame_train, "loader": loader,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,

@@ -57,6 +57,20 @@ made on the device before the clock starts.  The rows:
   bucketed as ``NetWarpBucketEngine`` runs it (B6 too);
   ``netwarp_train_*`` NetWarp's train step, 2 frames x batch 2 x crop 479,
   K' steps (B1, B2, B3);
+* ``tdnet_*``: TDNet streaming (JAX bench.py:680-785), four seeded
+  ResNet-18-dilated paths (crop 479's LayerNorm maps), over N frames with
+  ``pos_id = frame % 4`` and the K/V/Q carry, which starts warm (three
+  frames of zeros in it, so that every timed frame runs its attention, as
+  in a video's steady state); a frame is ``TD4PSP.stream``, upsample
+  (``align_corners=True``) and argmax, as ``serving.TDNetStreamer`` runs it:
+  exact, 4 videos batched (``tdnet_stream4``) and bucketed in 480x896 (B6);
+  ``tdnet_bucketed_overhead_pct`` derived as the JAX bench derives it;
+* ``nonlocal3d_*``: Non-local 3D (ResNet-101-dilated ``NonLocal3D``) over
+  M windows of 3 frames at exact shapes (JAX bench.py:917-960): a window is
+  what ``test_clip``'s ``test_all`` runs for it in steady state, the model
+  and each frame's upsampled probabilities (``test_clip.window_probs``),
+  their sum into one frame's accumulator and that frame's argmax
+  (``test_clip.frame_pred``);
 * ``host_decode_frames_per_sec``: 32 frames of the configuration's size,
   JPEGs that ``make_synthetic_vspw`` wrote, decoded by PIL and normalized
   by ``native.normalize_u8`` on one thread (host clock, best of 3), the
@@ -106,11 +120,13 @@ from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP, clip_psp_loss
 from .models.etc import ETC, etc_loss
 from .models.netwarp import NetWarp, netwarp_loss
+from .models.nonlocal3d import NonLocal3D
 from .models.propnet import PropNet
 from .models.layers import init_weights, set_dropout_generator
 from .models.raft import RAFT
 from .models.resnet import build_encoder
 from .models.segmentation import inference_pred, inference_pred_rt
+from .models.td4_psp import TD4PSP, init_td4_state, td4_tokens
 from .models.warp_our import ClipWarpNet, clip_warp_loss
 from .models.warp_our_merge import OurWarpMerge
 from .ops import local_agg
@@ -148,9 +164,6 @@ TRIALS = 3
 #: rows of the JAX bench the port cannot run yet
 NOT_PORTED = [
     "int8_stream_frames_per_sec", "int8_speedup",
-    "tdnet_frames_per_sec", "tdnet_mfu", "tdnet_stream4_frames_per_sec",
-    "tdnet_bucketed_frames_per_sec",
-    "nonlocal3d_windows_per_sec", "nonlocal3d_mfu",
     "eval_policy_exact_mix_fps", "eval_policy_bucketed_mix_fps",
     "train_b4_ms_per_2_samples",
     "ocr_head_ms",
@@ -269,12 +282,13 @@ def _stream_row(frame, state, conf, n: int, batch: int, device, gen,
     return row
 
 
-def _pred(logits, key, fv, hw):
+def _pred(logits, key, fv, hw, align_corners: bool = False):
     """Upsample and argmax as the engines do: at the frame's size, or
     bucketed (``fv`` the logits' valid size) on the bucket grid, cropped."""
     if fv is None:
-        return inference_pred(logits, hw)
-    return inference_pred_rt(logits, key, fv, hw)[:, :hw[0], :hw[1]]
+        return inference_pred(logits, hw, align_corners=align_corners)
+    return inference_pred_rt(logits, key, fv, hw,
+                             align_corners=align_corners)[:, :hw[0], :hw[1]]
 
 
 def stream_rows(model, fc_dim: int, conf, counts, device, gen, out):
@@ -367,6 +381,35 @@ def netwarp_rows(model, conf, counts, device, gen, out):
         del state
 
 
+def tdnet_rows(model, conf, counts, device, gen, out):
+    """TDNet streaming (JAX bench.py:680-785): exact, 4 videos, bucketed;
+    a frame is ``stream`` through path ``frame % 4`` with the carry, then
+    upsample and argmax (``serving.TDNetStreamer``)."""
+    h, w = conf["hw"]
+    key = bucket_hw(h, w, WIDTH_BUCKET)
+
+    @torch.inference_mode()
+    def frame(img, carry, bucketed):
+        state, i = carry
+        if bucketed:
+            logits, state = model.stream(pad_to(img, key), i % 4, state,
+                                         valid_hw=(h, w))
+            fv = feature_valid(*logits.shape[-2:], (h, w), key)
+        else:
+            logits, state = model.stream(img, i % 4, state)
+            fv = None
+        return (state, i + 1), _pred(logits, key, fv, (h, w),
+                                     align_corners=True)
+
+    for name, batch, bucketed in (("tdnet", 1, False), ("tdnet4", 4, False),
+                                  ("tdnet_bucketed", 1, True)):
+        state = init_td4_state(batch, td4_tokens(*(key if bucketed
+                                                    else (h, w))), device)
+        state["count"] = 3      # warm: every frame runs its attention
+        out[name] = _stream_row(partial(frame, bucketed=bucketed), (state, 0),
+                                conf, counts["frames"], batch, device, gen)
+
+
 def window_row(model, t1: int, conf, counts, device, gen, bucket: int = 0):
     """The window forward of ``test_clip._windows`` over M windows of t1
     frames, target last: the model, then upsample and argmax; with
@@ -377,6 +420,28 @@ def window_row(model, t1: int, conf, counts, device, gen, bucket: int = 0):
 
     def step(i):
         return _checksum(test_clip.window_pred(model, windows[i], bucket))
+
+    row = Row(device, step, n).measure()
+    row["per_second"] = n / row["seconds"]
+    return row
+
+
+def nonlocal3d_row(model, t1: int, conf, counts, device, gen):
+    """Non-local 3D over M windows of t1 frames at exact shapes: a window's
+    steady-state ``test_all`` work, the model and every frame's upsampled
+    probabilities (``test_clip.window_probs``), their sum into one frame's
+    accumulator and its argmax (``test_clip.frame_pred``)."""
+    h, w = conf["hw"]
+    n = counts["windows"]
+    windows = torch.randn(n, t1, 1, 3, h, w, device=device, generator=gen)
+
+    @torch.inference_mode()
+    def step(i):
+        probs = test_clip.window_probs(model, windows[i])
+        acc = probs[0]
+        for p in probs[1:]:
+            acc += p
+        return _checksum(test_clip.frame_pred(acc, t1))
 
     row = Row(device, step, n).measure()
     row["per_second"] = n / row["seconds"]
@@ -576,6 +641,15 @@ def run(args) -> dict:
     netwarp_rows(netwarp.eval(), conf, counts, device, gen, rows)
     del netwarp
     free()
+    tdnet = TD4PSP(k, cropsize=conf["crop"])
+    init_weights(tdnet, torch.Generator().manual_seed(0))
+    tdnet_rows(tdnet.to(device).eval(), conf, counts, device, gen, rows)
+    del tdnet
+    free()
+    nl3d = _model(NonLocal3D, cfg, k, device).eval()
+    rows["nonlocal3d"] = nonlocal3d_row(nl3d, 3, conf, counts, device, gen)
+    del nl3d
+    free()
 
     def mfu(row):
         if peak is None:
@@ -651,6 +725,16 @@ def run(args) -> dict:
         "netwarp_train_step_ms": 1e3 * rows["netwarp_train"]["seconds"]
         / counts["etc_train_steps"],
         "netwarp_train_mfu": mfu(rows["netwarp_train"]),
+        "tdnet_frames_per_sec": rows["tdnet"]["per_second"],
+        "tdnet_mfu": mfu(rows["tdnet"]),
+        "tdnet_stream4_frames_per_sec": rows["tdnet4"]["per_second"],
+        "tdnet_bucketed_frames_per_sec":
+            rows["tdnet_bucketed"]["per_second"],
+        "tdnet_bucketed_overhead_pct":
+            100.0 * (rows["tdnet"]["per_second"]
+                     / rows["tdnet_bucketed"]["per_second"] - 1.0),
+        "nonlocal3d_windows_per_sec": rows["nonlocal3d"]["per_second"],
+        "nonlocal3d_mfu": mfu(rows["nonlocal3d"]),
         "host_decode_frames_per_sec": host["per_second"],
         "host_decode_path": host["path"],
         "host_cores_to_saturate_chip": math.ceil(stream

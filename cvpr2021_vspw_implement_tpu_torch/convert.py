@@ -3,12 +3,15 @@
 ``load_jax_variables(model, variables)`` takes a Flax ``{"params",
 "batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP``, a
 ``ClipOCRNet``, a ``RAFT``, a ``NetWarp`` or an ``ETC`` with either
-decoder, a ``ClipWarpNet`` or a ``SegmentationModule`` one, training heads
-included) and
+decoder, a ``ClipWarpNet``, a ``NonLocal3D``, a ``TD4PSP`` or a
+``SegmentationModule`` one, training heads included) and
 fills the port module (a per-frame ``SegmentationModule`` with any encoder
-and decoder of ``models.builder``, too): conv kernels HWIO → OIHW, BN
-scale/bias/mean/var → weight/bias/running_mean/running_var, free parameters
-(our_warp's ``w{i}``, NetWarp's ``w0_*`` / ``w1_*``) as they are.  It is the
+and decoder of ``models.builder``, too): conv kernels HWIO → OIHW, the
+Dense kernels [in, out] of the 1x1 convs that the JAX package runs as
+products (the non-local block's projections, TDNet's attention ``fc``) →
+[out, in, 1, ...], BN scale/bias/mean/var → weight/bias/running_mean/
+running_var, LayerNorm scale/bias → weight/bias, free parameters (our_warp's
+``w{i}``, NetWarp's ``w0_*`` / ``w1_*``) as they are.  It is the
 inverse of the JAX package's ``models/import_torch.py`` importers, which
 read a port ``state_dict()`` back, since the port keeps the reference's
 torch parameter names.  Every parameter and buffer of the module must be
@@ -27,8 +30,10 @@ from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP
 from .models.etc import ETC
 from .models.netwarp import NetWarp
+from .models.nonlocal3d import NonLocal3D
 from .models.raft import RAFT
 from .models.segmentation import SegmentationModule
+from .models.td4_psp import TD4PSP
 from .models.warp_our import ClipWarpNet
 
 # (port module name pattern, Flax path template) — BN paths name the node
@@ -150,9 +155,33 @@ _CLIP_WARP = _ENCODER_DECODER + [
     (r"prop_clip\.last_layer\.1", "prop_clip/last_conv/conv"),
     (r"last_layer\.1", "last_layer/conv"),
 ]
+_NONLOCAL3D = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
+    (r"(emb|last_layer)", r"\1/conv"),
+    (r"nonlocalblock\.(g|theta|phi)", r"nonlocalblock/\1"),
+    (r"nonlocalblock\.W_z\.0", "nonlocalblock/W_z"),
+    (r"nonlocalblock\.W_z\.1", "nonlocalblock/W_z_bn"),
+]
+# TDNet's path i (1-4) is the JAX package's list entry i - 1
+_TD4 = [rule for i in range(1, 5) for rule in [
+    (rf"pretrained{i}\." + p, f"paths_{i - 1}/" + t) for p, t in _RESNET] + [
+    (rf"psp{i}\.(conv\d)\.0", rf"psps_{i - 1}/\1_conv/conv"),
+    (rf"psp{i}\.(conv\d)\.1", rf"psps_{i - 1}/\1_bn"),
+    (rf"enc{i}\.(w_[qk]s)\.(\d)\.conv", rf"encs_{i - 1}/\1_\2/conv/conv"),
+    (rf"enc{i}\.(w_[qk]s)\.0\.bn", rf"encs_{i - 1}/\1_0/bn"),
+    (rf"enc{i}\.w_vs\.0\.conv", f"encs_{i - 1}/w_vs/conv/conv"),
+    (rf"layer_norm{i}\.ln", f"lns_{i - 1}"),
+    (rf"head{i}\.conv5\.0", f"heads_{i - 1}/conv/conv"),
+    (rf"head{i}\.conv5\.1", f"heads_{i - 1}/bn"),
+    (rf"head{i}\.conv5\.4", f"heads_{i - 1}/cls/conv"),
+    (rf"auxlayer{i}\.conv5\.0", f"auxs_{i - 1}/conv/conv"),
+    (rf"auxlayer{i}\.conv5\.1", f"auxs_{i - 1}/bn"),
+    (rf"auxlayer{i}\.conv5\.4", f"auxs_{i - 1}/cls/conv"),
+]] + [(rf"atn{a}_{b}\.fc\.0\.conv", f"atns_{a - 1}_{b - 1}/fc")
+      for a in range(1, 5) for b in range(1, 5) if a != b]
 _RULES = {ClipPSP: _CLIP_PSP, ClipOCRNet: _CLIP_OCR, RAFT: _RAFT, ETC: _ETC,
           NetWarp: _NETWARP, ClipWarpNet: _CLIP_WARP,
-          SegmentationModule: _SEGMENTATION}
+          SegmentationModule: _SEGMENTATION, NonLocal3D: _NONLOCAL3D,
+          TD4PSP: _TD4}
 
 
 def _flax_path(name: str, rules) -> list[str]:
@@ -180,21 +209,30 @@ def _copy(dst: torch.Tensor, src) -> None:
 
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    """Fill ``model`` (ClipPSP, ClipOCRNet, RAFT, ETC, NetWarp, ClipWarpNet
-    or SegmentationModule) from a Flax variable tree; returns the model."""
+    """Fill ``model`` (ClipPSP, ClipOCRNet, RAFT, ETC, NetWarp, ClipWarpNet,
+    NonLocal3D, TD4PSP or SegmentationModule) from a Flax variable tree;
+    returns the model."""
     rules = _RULES.get(type(model))
     if rules is None:
         raise TypeError(f"no JAX layout known for {type(model).__name__}")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             node = _get(params, _flax_path(name, rules))
-            _copy(m.weight, np.transpose(np.asarray(node["kernel"]),
-                                         (3, 2, 0, 1)))
+            kernel = np.asarray(node["kernel"])
+            if kernel.ndim == 2:            # a Dense kernel [in, out]
+                kernel = kernel.T.reshape(m.weight.shape)
+            else:
+                kernel = np.transpose(kernel, (3, 2, 0, 1))
+            _copy(m.weight, kernel)
             if m.bias is not None:
                 _copy(m.bias, node["bias"])
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, nn.LayerNorm):
+            node = _get(params, _flax_path(name, rules))
+            _copy(m.weight, node["scale"])
+            _copy(m.bias, node["bias"])
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             path = _flax_path(name, rules)
             _copy(m.weight, _get(params, path)["scale"])
             _copy(m.bias, _get(params, path)["bias"])

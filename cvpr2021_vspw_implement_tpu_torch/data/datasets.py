@@ -300,12 +300,14 @@ class TestClipDataset(TestFrameDataset):
     dataset2.py:154-338): within the frame's dilated sublist, a
     ``clip_num`` window centred on it (edge-clamped), the eval frame itself
     excluded from the context.  Items are (image, label, context images,
-    context labels, PNG name)."""
+    context labels, PNG name).  For ``method`` nonlocal3d the eval frame
+    stays in its window and the item ends with the window's frame names."""
 
     def __init__(self, dataroot: str, video: str, args):
         super().__init__(dataroot, video, args)
         self.clip_num = args.clip_num
         self.dilists = dilation_lists(self.imglist, args.dilation_num)
+        self.all_frames = getattr(args, "method", "") == "nonlocal3d"
 
     def __getitem__(self, idx):
         arr, lab, gtname = super().__getitem__(idx)
@@ -323,16 +325,20 @@ class TestClipDataset(TestFrameDataset):
             start, end = i - addleft, i - addleft + self.clip_num
 
         if end - start < 2:
-            return arr, lab, [arr], [lab], gtname
-        clips, cliplabs = [], []
-        lesslabel = getattr(self.args, "lesslabel", False)
-        for j in range(start, end):
-            if j == i:
-                continue
-            cimg, cmask = load_frame(self.dataroot, self.video, thelist[j],
-                                     lesslabel)
-            clips.append(normalize_image(np.asarray(cimg)))
-            cliplabs.append(remap_label(np.asarray(cmask)))
+            clips, cliplabs, names = [arr], [lab], [name]
+        else:
+            clips, cliplabs, names = [], [], []
+            lesslabel = getattr(self.args, "lesslabel", False)
+            for j in range(start, end):
+                if j == i and not self.all_frames:
+                    continue
+                cimg, cmask = load_frame(self.dataroot, self.video,
+                                         thelist[j], lesslabel)
+                clips.append(normalize_image(np.asarray(cimg)))
+                cliplabs.append(remap_label(np.asarray(cmask)))
+                names.append(thelist[j])
+        if self.all_frames:
+            return arr, lab, clips, cliplabs, gtname, names
         return arr, lab, clips, cliplabs, gtname
 
 

@@ -117,6 +117,17 @@ def make_collate_target_last(target_idx: int):
     return collate
 
 
+def collate_clips_in_order(items):
+    """Clips ([imgs...], [labels...]) → [T, N, ...] stacks in the sample's
+    frame order (tdnet, nonlocal3d)."""
+    t = len(items[0][0])
+    imgs = np.stack([np.stack([it[0][k] for it in items])
+                     for k in range(t)]).astype(np.float32)
+    labels = np.stack([np.stack([it[1][k] for it in items])
+                       for k in range(t)]).astype(np.int32)
+    return {"img": imgs, "labels": labels}
+
+
 def collate_clip_frames(items):
     """Long-clip samples with their frames folded into the batch (the
     per-frame trainer's ``--use_clipdataset``, reference train.py:41-50):

@@ -4,19 +4,21 @@ train_clip2.py:264-321).
 
 Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
 -> outputs`` convention and a loss ``(outputs, batch) -> (loss, acc)``.
-Ported, train and eval: ``clip_psp``, ``clip_ocr``, ``netwarp``,
-``netwarp_ocr``, ``ETC``, ``etc_ocr``, ``our_warp``, ``propnet`` and
-``our_warp_merge``; ``tdnet`` and ``nonlocal3d`` raise "not ported yet".
+Every method of the JAX clip trainer is ported, train and eval:
+``clip_psp``, ``clip_ocr``, ``netwarp``, ``netwarp_ocr``, ``ETC``,
+``etc_ocr``, ``our_warp``, ``propnet``, ``our_warp_merge``, ``tdnet`` and
+``nonlocal3d``.
 """
 
 from __future__ import annotations
 
 from functools import partial
 
-from .config.args import TEMPORAL_METHODS
-from .data.loader import make_collate_target_last
+from .data.loader import collate_clips_in_order, make_collate_target_last
 
 LONGCLIP_METHODS = ("clip_psp", "clip_ocr")
+#: methods that take every clip frame in order, none singled out as target
+ALLFRAME_METHODS = ("tdnet", "nonlocal3d")
 
 
 def _build_clip_psp(cfg, args):
@@ -79,19 +81,33 @@ def _build_warp_merge(cfg, args):
         warp_merge_loss, deep_sup_scale=getattr(args, "deepsup_scale", 0.4))
 
 
+def _build_nonlocal3d(cfg, args):
+    from .models.nonlocal3d import build_nonlocal3d, nonlocal3d_loss
+    return build_nonlocal3d(cfg, args.num_class), nonlocal3d_loss
+
+
+def _build_tdnet(cfg, args):
+    from .models.td4_psp import TD4PSP, td4_loss
+    return TD4PSP(args.num_class,
+                  cropsize=getattr(args, "cropsize", 479)), td4_loss
+
+
 METHODS = {"clip_psp": _build_clip_psp, "clip_ocr": _build_clip_ocr,
            "netwarp": _build_netwarp,
            "netwarp_ocr": partial(_build_netwarp, ocr=True),
            "ETC": _build_etc, "etc_ocr": partial(_build_etc, ocr=True),
            "our_warp": _build_our_warp, "propnet": _build_propnet,
-           "our_warp_merge": _build_warp_merge}
+           "our_warp_merge": _build_warp_merge,
+           "nonlocal3d": _build_nonlocal3d, "tdnet": _build_tdnet}
 
 
 def get_collate(method: str, clip_num: int):
-    """Batch collation per method (reference: train_clip2.py:50-82): long
-    clips (clip_psp, clip_ocr) put the anchor, sample frame 0, last;
-    contiguous clips (ETC, netwarp) the middle frame, for even ``clip_num``
-    the later middle."""
+    """Batch collation per method (reference: train_clip2.py:50-82): tdnet
+    and nonlocal3d keep the frames in order; long clips (clip_psp,
+    clip_ocr) put the anchor, sample frame 0, last; contiguous clips (ETC,
+    netwarp) the middle frame, for even ``clip_num`` the later middle."""
+    if method in ALLFRAME_METHODS:
+        return collate_clips_in_order
     if method in LONGCLIP_METHODS:
         return make_collate_target_last(0)
     mid = clip_num // 2 if clip_num % 2 == 0 else (clip_num - 1) // 2
@@ -100,8 +116,6 @@ def get_collate(method: str, clip_num: int):
 
 def build_method(method: str, cfg, args):
     """→ (model, loss_fn) with a fresh, unseeded init."""
-    if method in METHODS:
-        return METHODS[method](cfg, args)
-    if method in TEMPORAL_METHODS:
-        raise NotImplementedError(f"method {method!r} is not ported yet")
-    raise ValueError(f"unknown method {method!r}")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    return METHODS[method](cfg, args)

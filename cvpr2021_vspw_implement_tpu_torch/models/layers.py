@@ -33,7 +33,7 @@ def ConvBNReLU(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                          BatchNorm2d(cout), nn.ReLU(inplace=True))
 
 
-#: test/debug hook: overrides every Dropout2d rate (0.0 for deterministic
+#: test/debug hook: overrides every Dropout2d and Dropout rate (0.0 for deterministic
 #: training-curve comparisons against the JAX package, whose dropout draws
 #: cannot be matched).  Read at every forward.
 _DROPOUT_OVERRIDE: float | None = None
@@ -49,6 +49,11 @@ class Dropout2d(nn.Module):
     the masks come from ``generator`` (on the input's device) when one is
     set, else from the global RNG."""
 
+    #: the mask's shape for an input of ``shape``
+    @staticmethod
+    def mask_shape(shape):
+        return shape[:2] + (1, 1)
+
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
@@ -58,14 +63,24 @@ class Dropout2d(nn.Module):
         rate = self.rate if _DROPOUT_OVERRIDE is None else _DROPOUT_OVERRIDE
         if not self.training or rate == 0.0:
             return x
-        keep = torch.rand(x.shape[:2] + (1, 1), device=x.device,
+        keep = torch.rand(self.mask_shape(x.shape), device=x.device,
                           generator=self.generator) >= rate
         return x * (keep / (1.0 - rate))
 
 
+class Dropout(Dropout2d):
+    """Element dropout (``nn.Dropout``), with the same override and
+    generator."""
+
+    @staticmethod
+    def mask_shape(shape):
+        return shape
+
+
 def set_dropout_generator(model: nn.Module,
                           generator: torch.Generator | None) -> None:
-    """Give every ``Dropout2d`` of ``model`` the generator of its masks."""
+    """Give every ``Dropout2d`` and ``Dropout`` of ``model`` the generator
+    of its masks."""
     for m in model.modules():
         if isinstance(m, Dropout2d):
             m.generator = generator
@@ -79,9 +94,11 @@ def log_softmax(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init: convs kaiming-normal (fan_out, relu) with zero
     bias, BN weight 1 and bias 1e-4 with identity running statistics (the
-    reference ``ModelBuilder.weights_init``, models/models.py:514-521)."""
+    reference ``ModelBuilder.weights_init``, models/models.py:514-521).  The
+    non-local block's 3D convs are convs too; its 3D BatchNorm keeps the
+    zero scale it is built with."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
             if m.bias is not None:

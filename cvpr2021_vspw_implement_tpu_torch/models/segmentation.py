@@ -115,6 +115,23 @@ def inference_pred(outputs, seg_size, align_corners: bool = False):
     return torch.argmax(x, dim=1).to(torch.uint8)
 
 
+def inference_probs(outputs, seg_size) -> torch.Tensor:
+    """Softmax probabilities [N, K, H, W] of the logits upsampled to
+    ``seg_size`` (reference models/models.py:109-111): what nonlocal3d's
+    ``test_all`` averages over windows."""
+    logits = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+    return torch.softmax(resize_bilinear(logits.float(), seg_size), dim=1)
+
+
+def inference_probs_rt(outputs, seg_pad, feat_valid,
+                       seg_valid) -> torch.Tensor:
+    """``inference_probs`` for width-bucketed eval, on the padded grid
+    ``seg_pad``; beyond ``seg_valid`` garbage that the caller crops."""
+    logits = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+    x = resize_bilinear_rt(logits.float(), seg_pad, feat_valid, seg_valid)
+    return torch.softmax(x, dim=1)
+
+
 def inference_pred_rt(outputs, seg_pad, feat_valid, seg_valid,
                       align_corners: bool = False):
     """``inference_pred`` for width-bucketed eval: the logits' valid region

@@ -110,13 +110,15 @@ def device_prefetch(batches, device, depth: int = 2):
             event.synchronize()
 
 
-def train_step(model, optimizer, scheduler, batch, loss_fn) -> dict:
+def train_step(model, optimizer, scheduler, batch, loss_fn,
+               **model_kwargs) -> dict:
     """One step on ``batch`` (tensors on the model's device); ``loss_fn(outs,
-    batch) -> (loss, acc)``.  Returns {"loss", "acc"} as 0-d tensors.
+    batch) -> (loss, acc)``; ``model_kwargs`` go to the model's forward
+    (tdnet's ``pos_id``).  Returns {"loss", "acc"} as 0-d tensors.
     Dropout masks come from the generator that
     ``models.layers.set_dropout_generator`` gave the model."""
     model.train()
-    loss, acc = loss_fn(model(batch["img"]), batch)
+    loss, acc = loss_fn(model(batch["img"], **model_kwargs), batch)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     # a parameter the loss does not reach still decays, as in the optax chain

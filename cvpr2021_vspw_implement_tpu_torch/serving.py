@@ -9,7 +9,8 @@ TCB-PSP's blend only consumes each frame's pooled PPM statistics (at most
 exactly once, its stats cached, and windows fused as their future context
 arrives.  NetWarp caches each frame's C5 and decoder features (and C4 for
 the OCR decoder) and runs only the pair's own work, flow, blends and the
-target's decode, per frame.  Predictions equal the window forward.
+target's decode, per frame.  Predictions equal the window forward.  TDNet
+streams by design: one path a frame, with the video's K/V/Q carry.
 
 An engine decides the shapes a frame runs at: a bucket engine pads it to
 its width bucket and runs the masked model (ops/masked.py);
@@ -25,6 +26,7 @@ import torch
 from PIL import Image
 
 from .models.segmentation import inference_pred, inference_pred_rt
+from .models.td4_psp import init_td4_state, td4_tokens
 from .ops.masked import bucket_hw, feature_valid, pad_to
 
 
@@ -298,3 +300,47 @@ class NetWarpStreamer:
             yield i, self.engine.fuse(get(i), get(j), self.seg_size)
             for k in [k for k in cache if k < i]:
                 del cache[k]
+
+
+class TDNetStreamer:
+    """TDNet eval of one video (JAX test_clip.py:469-563): frame i through
+    path ``i % 4`` with the video's K/V/Q carry.  With ``bucket`` every
+    frame is padded to the bucket of the video's first frame and the masked
+    stream takes the true size; the carry then lives on the bucket's token
+    grid, so one bucketed step serves every video of that bucket.  Without
+    it, each frame runs at its own shape.  The logits are upsampled
+    ``align_corners=True``, TDNet's convention.  ``shapes`` collects the
+    frame shapes run (the buckets, when bucketed)."""
+
+    def __init__(self, model, seg_size, device="cuda", bucket: int = 0,
+                 shapes: set | None = None):
+        if bucket % 32:
+            raise ValueError("bucket must cover the encoder stride (32)")
+        self.model = model
+        self.seg_size = tuple(seg_size)
+        self.device = torch.device(device)
+        self.bucket = bucket
+        self.shapes = set() if shapes is None else shapes
+
+    @torch.inference_mode()
+    def run(self, frames):
+        """frames: [H, W, 3] normalized float32 frames in order; yields
+        (frame_idx, pred [H, W] uint8)."""
+        h, w = self.seg_size
+        key = bucket_hw(h, w, self.bucket) if self.bucket else (h, w)
+        self.shapes.add(key)
+        state = init_td4_state(1, td4_tokens(*key), self.device)
+        for i, frame in enumerate(frames):
+            img = torch.from_numpy(np.ascontiguousarray(frame)).to(
+                self.device).permute(2, 0, 1)[None]
+            if not self.bucket:
+                logits, state = self.model.stream(img, i % 4, state)
+                yield i, inference_pred(logits, (h, w), align_corners=True)[
+                    0].cpu().numpy()
+                continue
+            logits, state = self.model.stream(pad_to(img, key), i % 4, state,
+                                              valid_hw=(h, w))
+            fv = feature_valid(*logits.shape[-2:], (h, w), key)
+            pred = inference_pred_rt(logits, key, fv, (h, w),
+                                     align_corners=True)
+            yield i, pred[0, :h, :w].cpu().numpy()

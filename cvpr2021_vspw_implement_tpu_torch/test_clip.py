@@ -21,6 +21,13 @@ JAX CLI does.  ``--method our_warp``, ``ETC``, ``etc_ocr``, ``propnet`` and
 target last, go through the model at once, padded to the frame's bucket
 with its true size beside it unless ``--width_bucket 0`` (``--eval_policy``
 governs the TCB streaming engines only, as in the JAX CLI).
+``--method tdnet`` streams frame by frame, path ``i % 4`` with the video's
+K/V/Q carry (serving.py ``TDNetStreamer``), bucketed by default and under
+``--eval_policy`` as the TCB streamers.  ``--method nonlocal3d`` takes
+``test_all``: each window of ``clip_num`` frames (the eval frame in it)
+through the model, each frame's probabilities averaged on the card over
+the windows that hold it and argmaxed once it has been seen ``clip_num``
+times (the rest at the video's end), bucketed unless ``--width_bucket 0``.
 Global and per-video mIoU, VC, and optional
 palette PNG dumps (``--is_save``).  Flags keep the JAX CLI's names.
 ``--load`` takes a port checkpoint (``torch.save`` of the model's
@@ -51,19 +58,22 @@ from .data import (TestClipDataset, TestFrameDataset, TestLongClipDataset,
 from .methods import build_method
 from .models.clip_ocr import init_memory
 from .models.layers import init_weights
-from .models.segmentation import inference_pred, inference_pred_rt
+from .models.segmentation import (inference_pred, inference_pred_rt,
+                                  inference_probs, inference_probs_rt)
 from .ops.masked import bucket_hw, feature_valid, pad_to
 from .serving import (ClipOCRBucketEngine, ClipOCRStreamer,
                       ClipPSPBucketEngine, ClipPSPStreamer, ExactShapeEngine,
-                      NetWarpBucketEngine, NetWarpStreamer,
+                      NetWarpBucketEngine, NetWarpStreamer, TDNetStreamer,
                       video_shape_census)
 from .utils import (Evaluator, get_common, resolve_device, setup_logger,
                     vspw_palette)
 
 #: methods whose eval is ported: the TCB methods stream windows, netwarp
-#: and netwarp_ocr stream pairs, the others take windows
+#: and netwarp_ocr stream pairs, tdnet frames, nonlocal3d averages windows,
+#: the others take windows
 EVAL_METHODS = ("clip_psp", "clip_ocr", "netwarp", "netwarp_ocr", "our_warp",
-                "ETC", "etc_ocr", "propnet", "our_warp_merge")
+                "ETC", "etc_ocr", "propnet", "our_warp_merge", "tdnet",
+                "nonlocal3d")
 #: the TCB streamers and bucket engines by method
 TCB_STREAMERS = {"clip_psp": (ClipPSPStreamer, ClipPSPBucketEngine),
                  "clip_ocr": (ClipOCRStreamer, ClipOCRBucketEngine)}
@@ -123,6 +133,10 @@ def build_eval_clip_parser():
                    help="auto policy: frames a shape needs across the val "
                         "list to run exactly (the JAX CLI's default, set "
                         "for its compile cost on a TPU)")
+    p.add_argument("--cropsize", type=int, default=479,
+                   help="tdnet: the train crop its LayerNorm maps were made "
+                        "for, int(cropsize / 8) + 1 a side (the JAX CLI's "
+                        "fixed 479)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p
@@ -184,6 +198,65 @@ def window_pred(model, imgs, bucket: int = 0, memory=None):
     return pred if memory is None else (pred, memory)
 
 
+@torch.inference_mode()
+def window_probs(model, imgs, bucket: int = 0) -> list:
+    """nonlocal3d: the probabilities [B, K, H, W] of each frame of a window
+    imgs [T, B, 3, H, W], at its shape or, with ``bucket``, padded to its
+    bucket with the masked model given its true size (JAX
+    test_clip.py:247-253, :305-323)."""
+    h, w = imgs.shape[-2:]
+    if not bucket:
+        logits = model(imgs)
+        return [inference_probs(lg, (h, w)) for lg in logits]
+    pad_hw = bucket_hw(h, w, bucket)
+    logits = model(pad_to(imgs, pad_hw), valid_hw=(h, w))
+    fv = feature_valid(*logits.shape[-2:], (h, w), pad_hw)
+    return [inference_probs_rt(lg, pad_hw, fv, (h, w))[..., :h, :w]
+            for lg in logits]
+
+
+def frame_pred(acc: torch.Tensor, n: int) -> torch.Tensor:
+    """The prediction [B, H, W] uint8 of a frame whose probabilities summed
+    over ``n`` windows are ``acc``: the argmax of their mean."""
+    return torch.argmax(acc / n, dim=1).to(torch.uint8)
+
+
+@torch.inference_mode()
+def _test_all(model, ds, device, clip_num: int, bucket: int = 0):
+    """nonlocal3d's ``test_all`` (JAX test_clip.py:113-160; reference
+    test_clip2.py:90-195): (index, prediction, label, PNG name) of each
+    frame as it is flushed.  Its probabilities are summed on the card, in
+    window order, over the windows that hold it; once it has been seen
+    more than ``clip_num - 1`` times, or at the video's end, the mean is
+    argmaxed and only the prediction leaves the card."""
+    sums, seen, labels, done = {}, {}, {}, set()
+
+    def flush(name):
+        pred = frame_pred(sums.pop(name), seen.pop(name))
+        done.add(name)
+        return (ds.imglist.index(name), pred[0].cpu().numpy(), labels[name],
+                os.path.splitext(name)[0] + ".png")
+
+    for i in range(len(ds)):
+        _, _, clips, cliplabs, _, names = ds[i]
+        imgs = torch.from_numpy(np.ascontiguousarray(
+            np.stack(clips)[:, None].transpose(0, 1, 4, 2, 3))).to(device)
+        probs = window_probs(model, imgs, bucket)
+        for t, name in enumerate(names):
+            if name in done:
+                continue
+            labels.setdefault(name, cliplabs[t])
+            if name in sums:
+                sums[name] += probs[t]
+                seen[name] += 1
+            else:
+                sums[name], seen[name] = probs[t], 1
+            if seen[name] > clip_num - 1:
+                yield flush(name)
+    for name in list(sums):
+        yield flush(name)
+
+
 def _windows(model, ds, device, bucket: int = 0, memory=None):
     """(index, prediction, label, PNG name) of every frame of ``ds``: its
     context window and itself, target last, through the model at once (JAX
@@ -215,6 +288,7 @@ def evaluate_clip(cfg, args, model=None, logger=None):
         and not getattr(args, "clipocr_all", False))
     pairs = (args.method in ("netwarp", "netwarp_ocr")
              and args.dilation_num == 0)
+    tdnet = args.method == "tdnet"
     # the trainer's validation passes its own args: exact shapes there
     bucket = getattr(args, "width_bucket", 0)
     policy = getattr(args, "eval_policy", "bucketed")
@@ -245,19 +319,32 @@ def evaluate_clip(cfg, args, model=None, logger=None):
             engine = bucket_engine(model, bucket=bucket)
         if policy in ("exact", "auto"):
             exact_engine = ExactShapeEngine(model, device)
-            if policy == "auto":
-                census, vshapes = video_shape_census(args.dataroot, videos)
+    if (streaming or tdnet) and policy == "auto":
+        census, vshapes = video_shape_census(args.dataroot, videos)
+    td_buckets = set()
     frame_s = []      # wall time of each prediction: decode, forward, argmax
     for video in videos:
+        exact = policy == "exact" or (
+            census is not None and census.get(vshapes.get(video), 0)
+            >= getattr(args, "exact_min_frames", 15000))
         if streaming:
             ds = TestFrameDataset(args.dataroot, video, args)
-            eng = engine
-            if policy == "exact" or (
-                    policy == "auto"
-                    and census.get(vshapes.get(video), 0)
-                    >= getattr(args, "exact_min_frames", 15000)):
-                eng = exact_engine
-            preds = _stream(model, ds, dilation2, device, eng, streamer_cls)
+            preds = _stream(model, ds, dilation2, device,
+                            exact_engine if exact else engine, streamer_cls)
+        elif tdnet:
+            # the eval-shape policy as the TCB streamers' (JAX
+            # test_clip.py:500-531): exact shapes drop the bucket
+            ds = TestFrameDataset(args.dataroot, video, args)
+            items = [ds[i] for i in range(len(ds))]
+            td_bucket = 0 if exact else bucket
+            streamer = TDNetStreamer(model, items[0][0].shape[:2], device,
+                                     td_bucket,
+                                     td_buckets if td_bucket else set())
+            preds = ((i, pred, items[i][1], items[i][2])
+                     for i, pred in streamer.run(it[0] for it in items))
+        elif args.method == "nonlocal3d":
+            ds = TestClipDataset(args.dataroot, video, args)
+            preds = _test_all(model, ds, device, args.clip_num, bucket)
         elif pairs:
             ds = TestFrameDataset(args.dataroot, video, args)
             preds = _stream_pairs(model, ds, device, engine)
@@ -294,11 +381,13 @@ def evaluate_clip(cfg, args, model=None, logger=None):
         vc_accs.extend(get_common(gt_list, pred_list, args.vc_clip_num, h, w))
         vmiou[video] = eval_video.Mean_Intersection_over_Union()
         logger.info(f"video {video}: mIoU {vmiou[video]:.4f}"
-                    + (" (streaming)" if streaming or pairs else ""))
+                    + (" (streaming)" if streaming or pairs or tdnet else "")
+                    + (" (test_all)" if args.method == "nonlocal3d" else ""))
 
     metrics = {
         # the bucketed engine's (h, w) buckets touched, else []
-        "buckets": engine.encode_shapes if engine is not None else [],
+        "buckets": (engine.encode_shapes if engine is not None
+                    else sorted(td_buckets)),
         "Acc": evaluator.Pixel_Accuracy(),
         "Acc_class": evaluator.Pixel_Accuracy_Class(),
         "mIoU": evaluator.Mean_Intersection_over_Union(),

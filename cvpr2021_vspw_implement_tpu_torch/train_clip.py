@@ -1,9 +1,11 @@
 """Temporal-method trainer (JAX counterpart: train_clip.py;
 reference train_clip2.py).
 
-``--method`` dispatches over the registry in methods.py (``clip_psp``,
-``ETC``, ``our_warp``, ``propnet`` and ``our_warp_merge``); the collate
-functions put the target frame last in the stacked [T, B, ...] clip.
+``--method`` dispatches over the registry in methods.py (every method of
+the JAX trainer); the collate functions put the target frame last in the
+stacked [T, B, ...] clip, or keep the frames in order (``tdnet``,
+``nonlocal3d``).  ``tdnet`` rotates the path that owns the target, ``pos_id
+= (step + 1) % 4`` (reference train_clip2.py:93-94), and logs it.
 ``PrefetchLoader`` collates on its worker thread into pinned memory and
 ``device_prefetch`` copies each batch to the card ahead of its step (depth
 ``TPU.prefetch``).  A step is forward, loss, backward and the clip-recipe
@@ -84,7 +86,10 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
         for i, batch in enumerate(device_prefetch(loader, device,
                                                   cfg.TPU.prefetch)):
             data_time.update(time.time() - tic)
-            metrics = train_step(model, optimizer, scheduler, batch, loss_fn)
+            kw = ({"pos_id": (total_steps + 1) % 4}
+                  if args.method == "tdnet" else {})
+            metrics = train_step(model, optimizer, scheduler, batch, loss_fn,
+                                 **kw)
             loss, acc = float(metrics["loss"]), float(metrics["acc"])
             batch_time.update(time.time() - tic)
             tic = time.time()
@@ -96,7 +101,8 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
                     f"Time: {batch_time.average():.2f}, "
                     f"Data: {data_time.average():.2f}, "
                     f"Accuracy: {ave_acc.average():4.2f}, "
-                    f"Loss: {ave_loss.average():.6f}")
+                    f"Loss: {ave_loss.average():.6f}"
+                    + (f", pos_id: {kw['pos_id']}" if kw else ""))
             total_steps += 1
             steps_run += 1
             if max_steps and steps_run >= max_steps:

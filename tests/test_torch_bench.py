@@ -72,7 +72,9 @@ def test_bench_prints_one_json_line_with_every_row(toy_run):
     assert printed["device"] == "cpu" and printed["dtype"] == "float32"
     assert all(math.isfinite(v) and v >= 0
                for v in printed["spreads_pct"].values())
-    assert "tdnet_frames_per_sec" in printed["not_ported"]
+    assert "int8_stream_frames_per_sec" in printed["not_ported"]
+    assert not any(k.startswith(("tdnet_", "nonlocal3d_"))
+                   for k in printed["not_ported"])
     assert printed["counts"] == bench.COUNTS["quick"]
     # on the CPU the wrappers take their plain versions: no launch
     assert not any(n for row in printed["launches"].values()

@@ -1017,3 +1017,75 @@ def test_clip_ocr_bucketed_gather_matches_exact(cuda_device):
         assert (got - want).abs().max().item() <= 1e-4 * max(
             1.0, want.abs().max().item())
 
+
+
+@pytest.mark.cuda
+def test_tdnet_bucketed_stream_launches_and_matches_exact(cuda_device):
+    """TDNet (four seeded R18 paths, crop 63, live weights as the smoke's:
+    ``chip_smoke.live_td4_weights``) streams 6 frames of 48x72 exact and
+    in the 64x128 bucket on the card: B6 launches
+    ``chip_smoke.tdnet_band_launches`` a bucketed frame and nothing else
+    launches; the bucketed logits on the valid region within 1e-4 of the
+    largest exact logit, frame by frame (the attention runs from the
+    fourth)."""
+    from cvpr2021_vspw_implement_tpu_torch import bench
+    from cvpr2021_vspw_implement_tpu_torch.models import td4_psp
+    from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import pad_to
+
+    model = td4_psp.TD4PSP(5, cropsize=63)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = chip_smoke.live_td4_weights(torch, model).to(cuda_device).eval()
+    frames = torch.randn(6, 1, 3, 48, 72,
+                         generator=torch.Generator().manual_seed(8))
+    frames = frames.to(cuda_device)
+    outs = {}
+    for bucketed in (False, True):
+        state = td4_psp.init_td4_state(1, td4_psp.td4_tokens(
+            *((64, 128) if bucketed else (48, 72))), cuda_device)
+        for fn in bench.WRAPPERS.values():
+            fn.launches = 0
+        logits = []
+        with torch.inference_mode():
+            for i, f in enumerate(frames):
+                kw = {"valid_hw": (48, 72)} if bucketed else {}
+                out, state = model.stream(pad_to(f, (64, 128)) if bucketed
+                                          else f, i % 4, state, **kw)
+                logits.append(out[..., :6, :9].clone())
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
+        want = 6 * chip_smoke.tdnet_band_launches(torch) if bucketed else 0
+        assert got == {n: want if n == "band_zero" else 0 for n in got}
+        outs[bucketed] = logits
+    scale = max(e.abs().max().item() for e in outs[False])
+    for e, b in zip(outs[False], outs[True]):
+        assert (b - e).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_nonlocal3d_bucketed_window_launches_and_matches_exact(cuda_device):
+    """A Non-local 3D window (seeded R18, the block's residual scale live:
+    ``chip_smoke.live_nonlocal_scale``) of 3 frames of 48x72, exact and in
+    the 64x128 bucket on the card: B6 launches
+    ``chip_smoke.nonlocal3d_band_launches`` and nothing else launches; the
+    bucketed logits on the valid region within 1e-4 of the largest exact
+    logit."""
+    from cvpr2021_vspw_implement_tpu_torch import bench
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import pad_to
+
+    model = chip_smoke.live_nonlocal_scale(torch, _r18("nonlocal3d",
+                                                      cuda_device))
+    x = torch.randn(3, 1, 3, 48, 72,
+                    generator=torch.Generator().manual_seed(9)).to(
+                        cuda_device)
+    with torch.inference_mode():
+        exact = model(x)
+        for fn in bench.WRAPPERS.values():
+            fn.launches = 0
+        bucketed = model(pad_to(x, (64, 128)), valid_hw=(48, 72))
+    torch.cuda.synchronize()
+    got = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
+    want = chip_smoke.nonlocal3d_band_launches(torch, "resnet18dilated")
+    assert got == {n: want if n == "band_zero" else 0 for n in got}
+    assert (bucketed[..., :6, :9] - exact).abs().max().item() <= 1e-4 * (
+        exact.abs().max().item())

@@ -40,7 +40,8 @@ from cvpr2021_vspw_implement_tpu.parallel.optim import \
 from cvpr2021_vspw_implement_tpu_torch import methods, test_clip, train_clip
 from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
 from cvpr2021_vspw_implement_tpu_torch.convert import load_jax_variables
-from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
+from cvpr2021_vspw_implement_tpu_torch.data import (collate_clips_in_order,
+                                                    make_synthetic_vspw)
 from cvpr2021_vspw_implement_tpu_torch.models import layers
 from cvpr2021_vspw_implement_tpu_torch.models.clip_psp import (ClipPSP,
                                                                clip_psp_loss)
@@ -260,8 +261,16 @@ def test_train_clip_defaults_to_cuda(vspw_root, tmp_path):
 def test_unported_methods_and_validation_hook(vspw_root, tmp_path, caplog):
     args = argparse.Namespace(num_class=K, clip_num=2, dilation_num=0,
                               deepsup_scale=0.4, st_weight=0.1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        methods.build_method("tdnet", default_cfg, args)
+    # tdnet and nonlocal3d are ported: they build, with their in-order
+    # collate and their losses
+    tdnet, tdnet_loss = methods.build_method("tdnet", default_cfg, args)
+    assert type(tdnet).__name__ == "TD4PSP" and tdnet_loss.__name__ == \
+        "td4_loss"
+    nl3d, nl3d_loss = methods.build_method("nonlocal3d", default_cfg, args)
+    assert type(nl3d).__name__ == "NonLocal3D" and nl3d_loss.__name__ == \
+        "nonlocal3d_loss"
+    for method in ("tdnet", "nonlocal3d"):
+        assert methods.get_collate(method, 4) is collate_clips_in_order
     with pytest.raises(ValueError, match="unknown method"):
         methods.build_method("nope", default_cfg, args)
     with pytest.raises(ValueError, match="clip_num=2"):

@@ -188,6 +188,8 @@ def test_curve_matches_jax(no_dropout, method):
 
 
 def test_only_tdnet_and_nonlocal3d_are_unported():
+    """Since tdnet and nonlocal3d are ported too, every method of the JAX
+    clip trainer builds in the port: none is left unported."""
     from cvpr2021_vspw_implement_tpu_torch.config.args import \
         TEMPORAL_METHODS
     cfg = port_default_cfg.clone()
@@ -203,4 +205,4 @@ def test_only_tdnet_and_nonlocal3d_are_unported():
             methods.build_method(method, cfg, args)
         except NotImplementedError:
             unported.append(method)
-    assert sorted(unported) == ["nonlocal3d", "tdnet"]
+    assert unported == []
