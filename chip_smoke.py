@@ -111,6 +111,23 @@
       counting the padded positions, must fail that check;
    l. the clip trainer for ``tdnet`` (4 frames, ``pos_id`` rotating) and
       ``nonlocal3d`` (3 frames), crop 479, batch 2, four steps each;
+   m. the per-frame eval CLI with HRNetV2-W48 + C1 (``vsp-hrnetv2.yaml``,
+      seeded, its BatchNorm statistics calibrated on the first frame) over
+      the 10-frame video, exact and then bucketed in 480x896 (B6 at a count
+      derived from the model: the input of each of the trunk's 265
+      spatial convs, its output, C1's input), held against each other as
+      in f; a planted fault, the fusion upsamples on the padded size, must
+      fail that check;
+   n. ``test_clip --method hrnetv2_clip --clip_num 4`` (calibrated on the
+      first window) over the video with its frames made to differ, exact
+      and then bucketed, held as d holds the window methods, and
+      TimeAtten's blend weights within 1e-5 of exact; a planted fault,
+      TimeAtten pooling the padded grid with the stem's band in it, must
+      fail those checks;
+   o. the per-frame trainer with ``vsp-hrnetv2.yaml`` and
+      ``vsp-resnet101dilated-ocr_deepsup.yaml``, crop 479, batch 2, four
+      steps each; then the per-frame ``ocrnet_deepsup`` eval (seeded R101),
+      exact and bucketed, held as f;
    e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
@@ -1573,7 +1590,10 @@ BENCH_KEYS = (
     "netwarp_train_mfu", "tdnet_frames_per_sec", "tdnet_mfu",
     "tdnet_stream4_frames_per_sec", "tdnet_bucketed_frames_per_sec",
     "tdnet_bucketed_overhead_pct", "nonlocal3d_windows_per_sec",
-    "nonlocal3d_mfu",
+    "nonlocal3d_mfu", "hrnet_frames_per_sec", "hrnet_mfu",
+    "hrnet_bucketed_frames_per_sec", "hrnet_bucketed_overhead_pct",
+    "hrnetclip_windows_per_sec", "hrnetclip_mfu", "ocr_head_ms",
+    "ocr_head_mfu", "ocr_head_shape",
     "host_decode_frames_per_sec", "host_decode_path",
     "host_cores_to_saturate_chip", "spreads_pct", "device", "power_limit_w",
     "peak_tflops_f32", "dtype", "not_ported")
@@ -1592,12 +1612,14 @@ BENCH_TIMES = (
     "netwarp_stream_bucketed_frames_per_sec", "netwarp_train_step_ms",
     "tdnet_frames_per_sec", "tdnet_stream4_frames_per_sec",
     "tdnet_bucketed_frames_per_sec", "nonlocal3d_windows_per_sec",
+    "hrnet_frames_per_sec", "hrnet_bucketed_frames_per_sec",
+    "hrnetclip_windows_per_sec", "ocr_head_ms",
     "host_decode_frames_per_sec", "host_cores_to_saturate_chip")
 BENCH_MFUS = ("mfu", "baseline_mfu", "train_mfu", "etc_train_mfu",
               "our_warp_train_mfu", "etc_mfu", "our_warp_mfu", "propnet_mfu",
               "our_warp_merge_mfu", "tc_mfu", "clipocr_mfu",
               "netwarp_stream_mfu", "netwarp_train_mfu", "tdnet_mfu",
-              "nonlocal3d_mfu")
+              "nonlocal3d_mfu", "hrnet_mfu", "hrnetclip_mfu", "ocr_head_mfu")
 
 
 def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
@@ -1611,7 +1633,8 @@ def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
     ``iters`` of B1 and twice that of B4 (and bucketed ``per_pair`` and
     ``per_ocr["netwarp"]`` of B6), a bucketed TCB-OCR frame
     ``per_ocr["clip_ocr"]`` of B6, a bucketed TDNet frame
-    ``per_ocr["tdnet"]``; no other launch."""
+    ``per_ocr["tdnet"]``, a bucketed HRNet frame ``per_ocr["hrnet"]``; no
+    other launch."""
     missing = [k for k in BENCH_KEYS if k not in out]
     bad = [k for k in BENCH_TIMES
            if not (math.isfinite(out[k]) and out[k] > 0)]
@@ -1636,6 +1659,7 @@ def check_bench(out, per_frame, per_pair, iters, per_window, per_ocr):
             "clipocr_bucketed": {
                 "band_zero": per_ocr["clip_ocr"] * n["frames"]},
             "tdnet_bucketed": {"band_zero": per_ocr["tdnet"] * n["frames"]},
+            "hrnet_bucketed": {"band_zero": per_ocr["hrnet"] * n["frames"]},
             "netwarp_train": {k: iters * n["etc_train_steps"] for k in (
                 "corr_lookup", "motion_encoder", "gru_flowhead")},
             "netwarp_stream": {"corr_lookup": iters * n["frames"],
@@ -2140,14 +2164,21 @@ def frame_band_launches(torch, arch="resnet101dilated"):
                for m in build_encoder(arch).modules()) + 6
 
 
-def frame_eval_phase(torch, root, work, k, n_frames, reset, counts):
-    """f. The per-frame eval CLI (``test``) over the 10-frame video with a
-    seeded random R101 ``ppm_deepsup`` model, exact (``--width_bucket 0``)
-    then at its default, bucketed in 480x896: PNGs and finite mIoU, no
-    kernel exact and B6 at the model's count bucketed, the bucketed logits
-    held against the exact ones as the clip phases hold them (within 1e-3
-    of the largest, PNGs equal off near-ties), and a frame's forward and
-    argmax timed on CUDA events.  Returns (launches by path, checks)."""
+def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
+                     preset=FRAME_PRESET, name="frame_eval",
+                     label="R101 ppm_deepsup", per_frame=None, load="",
+                     fault=None):
+    """f (and m, o). The per-frame eval CLI (``test``) over the 10-frame
+    video with a seeded random model of ``preset`` (default R101
+    ``ppm_deepsup``; ``load``: a checkpoint of it instead), exact
+    (``--width_bucket 0``) then at its default, bucketed in 480x896: PNGs
+    and finite mIoU, no kernel exact and B6 at ``per_frame`` a frame
+    bucketed (default :func:`frame_band_launches`), the bucketed logits held
+    against the exact ones as the clip phases hold them (within 1e-3 of the
+    largest, PNGs equal off near-ties), and a frame's forward and argmax
+    timed on CUDA events.  ``fault``: a context manager factory that plants
+    a fault; a bucketed run under it must fail the same check.  Returns
+    (launches by path, checks)."""
     import numpy as np
     from PIL import Image
 
@@ -2156,10 +2187,17 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts):
     from cvpr2021_vspw_implement_tpu_torch.data import TestFrameDataset
     from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
         resize_bilinear
-    from cvpr2021_vspw_implement_tpu_torch.ops.masked import \
-        resize_bilinear_rt
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import (
+        bucket_hw, resize_bilinear_rt)
 
-    per_frame = frame_band_launches(torch)
+    args = frame_test.build_eval_parser().parse_args(
+        ["--cfg", preset, "--num_class", str(k), "--seed", "0"]
+        + (["--load", load] if load else []))
+    img = TestFrameDataset(root, "video_000", args)[0][0]
+    hw = img.shape[:2]
+    key = bucket_hw(*hw)
+    if per_frame is None:
+        per_frame = frame_band_launches(torch)
     captured = []
     saved = frame_test.inference_pred, frame_test.inference_pred_rt
 
@@ -2172,64 +2210,80 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts):
             0, :, :hw[0], :hw[1]])
         return saved[1](logits, pad, fv, hw)
 
-    launches, runs = {}, {}
-    frame_test.inference_pred, frame_test.inference_pred_rt = (exact_pred,
-                                                               bucket_pred)
-    try:
-        for bucket in (0, 64):
-            name = "frame_eval" + ("_bucketed" if bucket else "")
-            out = os.path.join(work, "preds_" + name)
-            reset()
-            t0 = time.perf_counter()
+    def run(bucket, tag=""):
+        """One CLI run → (captured logits, PNGs, metrics); its launches
+        held and kept unless ``tag``."""
+        path = name + tag + ("_bucketed" if bucket else "")
+        out = os.path.join(work, "preds_" + path)
+        reset()
+        t0 = time.perf_counter()
+        frame_test.inference_pred, frame_test.inference_pred_rt = (
+            exact_pred, bucket_pred)
+        try:
             m, _ = frame_test.main([
-                "--cfg", FRAME_PRESET, "--dataroot", root, "--num_class",
-                str(k), "--width_bucket", str(bucket), "--is_save",
-                "--saveroot", out, "--seed", "0"])
-            secs = time.perf_counter() - t0
-            launches[name] = c = counts()
-            d = os.path.join(out, "video_000")
-            pngs = [np.asarray(Image.open(os.path.join(d, n)))
-                    for n in sorted(os.listdir(d))]
-            print(f"{name}: per-frame eval (R101 ppm_deepsup, 480x853"
-                  + (f", buckets {m['buckets']}" if bucket else "")
-                  + f", {n_frames} frames), host clock {1e3 * secs / n_frames:.1f}"
-                  f" ms/frame with model set-up; per frame (decode, forward, "
-                  f"argmax) {m['first_frame_ms']:.1f} ms for the first, then "
-                  f"{m['frame_ms']:.1f}; mIoU {m['mIoU']:.6f}; kernel "
-                  f"launches {c}")
-            want = {"band_zero": per_frame * n_frames} if bucket else {}
-            for kname, n in c.items():
-                if n != want.get(kname, 0):
-                    raise SystemExit(f"{kname}: {n} launches on the {name} "
-                                     f"path, expected {want.get(kname, 0)}")
-            if bucket and m["buckets"] != [(480, 896)]:
-                raise SystemExit(f"{name} touched {m['buckets']}")
-            if len(pngs) != n_frames or not np.isfinite(m["mIoU"]) or any(
-                    p.shape != (480, 853) or p.max() >= k for p in pngs):
-                raise SystemExit(f"{name}: bad predictions or mIoU "
-                                 f"{m['mIoU']}")
-            runs[bucket] = (captured[:], pngs, m)
-            captured.clear()
-    finally:
-        frame_test.inference_pred, frame_test.inference_pred_rt = saved
-    exact, bucketed = runs[0][0], runs[64][0]
-    err = max((b - e).abs().max().item() for e, b in zip(exact, bucketed))
-    tol = 1e-3 * max(e.abs().max().item() for e in exact)
-    diff = excused = 0
-    for e, pe, pb in zip(exact, runs[0][1], runs[64][1]):
-        top = e.topk(2, dim=0).values
-        near = (top[0] - top[1] < tol).cpu().numpy()
-        differ = pe != pb
-        diff += int(differ.sum())
-        excused += int((differ & near).sum())
-    del exact, bucketed, runs[0], runs[64]
+                "--cfg", preset, "--dataroot", root, "--num_class", str(k),
+                *(["--load", load] if load else []), "--width_bucket",
+                str(bucket), "--is_save", "--saveroot", out, "--seed", "0"])
+        finally:
+            frame_test.inference_pred, frame_test.inference_pred_rt = saved
+        secs = time.perf_counter() - t0
+        c = counts()
+        if not tag:
+            launches[path] = c
+        d = os.path.join(out, "video_000")
+        pngs = [np.asarray(Image.open(os.path.join(d, n)))
+                for n in sorted(os.listdir(d))]
+        print(f"{path}: per-frame eval ({label}, {hw[0]}x{hw[1]}"
+              + (f", buckets {m['buckets']}" if bucket else "")
+              + f", {n_frames} frames), host clock {1e3 * secs / n_frames:.1f}"
+              f" ms/frame with model set-up; per frame (decode, forward, "
+              f"argmax) {m['first_frame_ms']:.1f} ms for the first, then "
+              f"{m['frame_ms']:.1f}; mIoU {m['mIoU']:.6f}; band_zero "
+              f"{c['band_zero'] / n_frames:g} a frame (derived "
+              f"{per_frame if bucket else 0}); kernel launches {c}")
+        want = {"band_zero": per_frame * n_frames} if bucket else {}
+        for kname, n in c.items():
+            if not tag and n != want.get(kname, 0):
+                raise SystemExit(f"{kname}: {n} launches on the {path} "
+                                 f"path, expected {want.get(kname, 0)}")
+        if bucket and m["buckets"] != [key]:
+            raise SystemExit(f"{path} touched {m['buckets']}")
+        if len(pngs) != n_frames or not np.isfinite(m["mIoU"]) or any(
+                p.shape != hw or p.max() >= k for p in pngs):
+            raise SystemExit(f"{path}: bad predictions or mIoU "
+                             f"{m['mIoU']}")
+        out_run = (captured[:], pngs, m)
+        captured.clear()
+        return out_run
 
-    args = frame_test.build_eval_parser().parse_args(
-        ["--cfg", FRAME_PRESET, "--num_class", str(k), "--seed", "0"])
+    def check(exact, other):
+        """(logit error, limit, PNG pixels that differ, excused)."""
+        err = max((b - e).abs().max().item()
+                  for e, b in zip(exact[0], other[0]))
+        tol = 1e-3 * max(e.abs().max().item() for e in exact[0])
+        diff = excused = 0
+        for e, pe, pb in zip(exact[0], exact[1], other[1]):
+            top = e.topk(2, dim=0).values
+            near = (top[0] - top[1] < tol).cpu().numpy()
+            differ = pe != pb
+            diff += int(differ.sum())
+            excused += int((differ & near).sum())
+        return err, tol, diff, excused
+
+    launches = {}
+    exact, bucketed = run(0), run(64)
+    err, tol, diff, excused = check(exact, bucketed)
+    planted = None
+    if fault is not None:
+        with fault():
+            faulty = run(64, tag="_planted")
+        planted = check(exact, faulty)
+        del faulty
+    del exact, bucketed
+
     cfg = default_cfg.clone()
-    cfg.merge_from_file(FRAME_PRESET)
+    cfg.merge_from_file(preset)
     model = frame_test.build_model(cfg, args, "cuda")
-    img = TestFrameDataset(root, "video_000", args)[0][0]
     x = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1))[None])
     x = x.cuda()
     reset()
@@ -2238,30 +2292,44 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts):
           "bucketed_ms": cuda_ms(lambda: frame_test.frame_pred(model, x, 64),
                                  n=10, warm=3)}
     reset()
-    print(f"per-frame eval, bucketed vs exact: logits on the valid region "
+    del model
+    print(f"{name}, bucketed vs exact: logits on the valid region "
           f"max |diff| {err:.3e} (limit {tol:.3e}); PNGs differ at {diff} of "
-          f"{n_frames * 480 * 853} pixels, {excused} of them with an exact "
-          f"top-2 margin below the limit; a frame's forward, upsample and "
-          f"argmax (CUDA events, 10 calls): exact {ms['exact_ms']:.2f} ms, "
-          f"bucketed in 480x896 {ms['bucketed_ms']:.2f} ms; B6 "
-          f"{per_frame} a frame (derived)")
+          f"{n_frames * hw[0] * hw[1]} pixels, {excused} of them with an "
+          f"exact top-2 margin below the limit; a frame's forward, upsample "
+          f"and argmax (CUDA events, 10 calls): exact {ms['exact_ms']:.2f} "
+          f"ms, bucketed in {key[0]}x{key[1]} {ms['bucketed_ms']:.2f} ms; B6 "
+          f"{per_frame} a frame (derived)"
+          + ("" if planted is None else
+             f"; the planted fault reads {planted[0]:.3e} (limit "
+             f"{planted[1]:.3e}), PNGs differ at {planted[2]} pixels, "
+             f"{planted[3]} excused"))
     if not (err <= tol and diff == excused):
-        raise SystemExit("the per-frame bucketed eval disagrees with exact")
-    return launches, {"logit_err": err, "logit_tol": tol,
-                      "pixels_differ": diff, "pixels_excused": excused,
-                      "band_zero_per_frame": per_frame, **ms}
+        raise SystemExit(f"{name}: the bucketed eval disagrees with exact")
+    out = {"logit_err": err, "logit_tol": tol, "pixels_differ": diff,
+           "pixels_excused": excused, "band_zero_per_frame": per_frame, **ms}
+    if planted is not None:
+        if planted[0] <= planted[1] and planted[2] == planted[3]:
+            raise SystemExit(f"{name}: the bucketed eval check missed the "
+                             "planted fault")
+        out.update(planted_fault_err=planted[0], planted_fault_caught=True)
+    return launches, out
 
 
-def frame_train_phase(torch, train_root, work, k, reset, counts):
-    """g. The per-frame trainer (``train``) with the R101 ``ppm_deepsup``
-    preset: batch 8, crop 479, ``--multi_scale True``, 4 steps (every third
-    frame of the 4 videos: 16 frames, two steps an epoch).  Losses finite,
-    an encoder and a head parameter moved, no kernel launched; prints the
-    steps' host time and the data wait.  Returns (launches, numbers)."""
+def frame_train_phase(torch, train_root, work, k, reset, counts,
+                      preset=FRAME_PRESET, batch=8, trainfps=5, epochs=2,
+                      watch=("encoder.conv1.weight",
+                             "decoder.conv_last_.4.weight")):
+    """g (and o). The per-frame trainer (``train``) with ``preset``
+    (default the R101 ``ppm_deepsup`` one: batch 8, crop 479,
+    ``--multi_scale True``, every third frame of the 4 videos, 16 frames,
+    two steps an epoch, 2 epochs), 4 steps.  Losses finite, the ``watch``
+    parameters (an encoder's and a head's) moved, no kernel launched;
+    prints the steps' host time and the data wait.  Returns (launches,
+    numbers)."""
     from cvpr2021_vspw_implement_tpu_torch import train as frame_train
 
     records, before = [], {}
-    watch = ("encoder.conv1.weight", "decoder.conv_last_.4.weight")
     step = frame_train.train_step
 
     def first_step(model, *args):
@@ -2274,38 +2342,40 @@ def frame_train_phase(torch, train_root, work, k, reset, counts):
     step_timer(frame_train, records)
     reset()
     torch.cuda.reset_peak_memory_stats()
+    label = os.path.splitext(os.path.basename(preset))[0]
     try:
         model = frame_train.main([
-            "--cfg", FRAME_PRESET, "--dataroot", train_root, "--num_class",
-            str(k), "--batchsize", "8", "--cropsize", "479",
-            "--multi_scale", "True", "--trainfps", "5", "--lr", "0.002",
-            "--totalepoch", "2", "--validation", "False", "--saveroot",
-            os.path.join(work, "ckpt_frame"), "--seed", "0",
-            "DIR", os.path.join(work, "cfg_frame")])
+            "--cfg", preset, "--dataroot", train_root, "--num_class",
+            str(k), "--batchsize", str(batch), "--cropsize", "479",
+            "--multi_scale", "True", "--trainfps", str(trainfps), "--lr",
+            "0.002", "--totalepoch", str(epochs), "--validation", "False",
+            "--saveroot", os.path.join(work, "ckpt_" + label), "--seed", "0",
+            "DIR", os.path.join(work, "cfg_" + label)])
     finally:
         frame_train.train_step = step
     c = counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [r[2] for r in records]
     times = [1e3 * (r[1] - r[0]) for r in records]
-    waits = data_waits_ms(records, 2)
+    waits = data_waits_ms(records, 4 // epochs)
     named = dict(model.named_parameters())
     if len(records) != 4 or not all(math.isfinite(v) for v in losses):
-        raise SystemExit(f"per-frame train: {len(records)} steps, losses "
-                         f"{losses}")
+        raise SystemExit(f"per-frame train ({label}): {len(records)} steps, "
+                         f"losses {losses}")
     for n in watch:
         if torch.equal(named[n].detach(), before[n]):
-            raise SystemExit(f"per-frame train: {n} did not move")
+            raise SystemExit(f"per-frame train ({label}): {n} did not move")
     if any(c.values()):
-        raise SystemExit(f"per-frame train launched a kernel: {c}")
-    print(f"train frame (R101 ppm_deepsup, batch 8, crop 479, multi_scale, "
+        raise SystemExit(f"per-frame train ({label}) launched a kernel: {c}")
+    print(f"train frame ({label}, batch {batch}, crop 479, multi_scale, "
           f"f32): first step {times[0]:.1f} ms, then "
           f"{sum(times[1:]) / 3:.1f} ms/step over 3 steps (host clock, "
           f"synchronised); data wait inside an epoch "
           f"{[round(w, 1) for w in waits]} ms; losses "
           f"{[round(v, 4) for v in losses]}; peak memory "
           f"{peak / 2 ** 30:.2f} GiB; kernel launches {c}")
-    return c, {"step_ms": times, "data_wait_ms": waits, "losses": losses}
+    return c, {"step_ms": times, "data_wait_ms": waits, "losses": losses,
+               "peak_gib": peak / 2 ** 30}
 
 
 def loader_comparison():
@@ -3075,6 +3145,264 @@ def tdnet_nonlocal3d_train_phases(torch, train_root, work, k, steps, reset,
     return launches
 
 
+HRNET_PRESETS = {
+    name: os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
+                       "presets", f"vsp-{name}.yaml")
+    for name in ("hrnetv2", "hrnetv2_clip", "resnet101dilated-ocr_deepsup")}
+HRNET_CLIP_NUM = 4
+#: bucketed against exact, TimeAtten's blend weights (in [0, 1]): a sound
+#: run differs by f32 rounding (6e-8 on the CPU at 480x853), the planted
+#: fault by 4.5e-4
+BLEND_WEIGHT_LIMIT = 1e-5
+
+
+def hrnet_ocr_band_launches(torch):
+    """B6's launches in bucketed eval, derived from the models: a
+    per-frame HRNetV2 + C1 frame (the input of each spatial conv of the
+    trunk, its one output level, C1's input), an ``hrnetv2_clip`` window
+    (the same, the stem's spatial convs once more for the context frames,
+    and TimeAtten's two re-zeros before its pooling) and a per-frame R101
+    ``ocrnet_deepsup`` frame (the trunk's spatial convs, the stem max pool
+    and the four levels; the OCR head re-zeros nothing)."""
+    from cvpr2021_vspw_implement_tpu_torch.models.hrnet import HRNetV2
+    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+
+    def spatial(*modules):
+        return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+                   for module in modules for m in module.modules())
+
+    hrnet = HRNetV2()
+    trunk, stem = spatial(hrnet), spatial(hrnet.conv1, hrnet.conv2,
+                                          hrnet.layer1)
+    return {"hrnet": trunk + 2, "hrnetv2_clip": trunk + stem + 4,
+            "ocrnet": spatial(build_encoder("resnet101dilated")) + 5}
+
+
+def varied_video(root, out, gains=(1.0, 0.35, 1.6, 0.6, 1.25)):
+    """A copy of ``root``'s first video whose frames differ: frame t's
+    pixels times ``gains[t % 5]`` and its colour channels rolled by t.
+    Over the synthetic video's near-identical frames TimeAtten's cosine
+    weights are nearly uniform, and a fault in its pooling barely moves
+    the blend; over these they spread.  Returns ``out``."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(root, out)
+    vdir = os.path.join(out, "data", "video_000", "origin")
+    for t, name in enumerate(sorted(os.listdir(vdir))):
+        path = os.path.join(vdir, name)
+        img = np.asarray(Image.open(path).convert("RGB"), np.float32)
+        img = np.roll(img * gains[t % len(gains)], t, axis=-1)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            path, quality=90)
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, attr, value):
+    """``module.attr`` set to ``value`` for the length of the context."""
+    saved = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
+def hrnet_ocr_phases(torch, test_clip, root, train_root, work, k, n_frames,
+                     reset, counts, check_pngs, pngs):
+    """m. The per-frame eval CLI ``test --cfg vsp-hrnetv2.yaml`` (seeded
+    HRNetV2-W48 + C1, its BatchNorm statistics those of the video's first
+    frame, :func:`calibrate_batchnorm`) over the 10-frame video, exact then
+    bucketed (:func:`frame_eval_phase`); the planted fault, HRNet's fusion
+    upsamples on the padded size (``resize_bilinear`` for
+    ``resize_bilinear_rt``), must fail the check.
+    n. ``test_clip --method hrnetv2_clip --clip_num 4`` (HRNetV2Clip + C1,
+    its statistics those of the video's first window) over the video with
+    its frames made to differ (:func:`varied_video`),
+    exact then bucketed, each window's logits held as the window phases
+    hold them (:func:`window_bucket_check`), and TimeAtten's blend weights
+    within BLEND_WEIGHT_LIMIT of exact; the planted fault, TimeAtten
+    pooling the padded grid with the stem's band in it, must fail them.
+    The logits alone do not catch it at this size: the band is 10 of 224
+    columns, the stem's band response nearly the same vector in every
+    frame, and the fault moves a seeded model's logits by about 7e-4 of
+    the largest (CPU, one window), inside the 1e-3 limit; it moves the
+    weights by 4.5e-4, and a sound run by 6e-8.
+    o. The per-frame trainer with ``vsp-hrnetv2.yaml`` and
+    ``vsp-resnet101dilated-ocr_deepsup.yaml`` at crop 479, batch 2, 4
+    steps each (:func:`frame_train_phase`); then the per-frame
+    ``ocrnet_deepsup`` eval (seeded R101), exact and bucketed, held as m.
+    B6 at :func:`hrnet_ocr_band_launches` a bucketed frame or window, none
+    exact.  Returns (launches by path, checks by path)."""
+    import numpy as np
+
+    from cvpr2021_vspw_implement_tpu_torch import test as frame_test
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.data import (TestClipDataset,
+                                                        TestFrameDataset)
+    from cvpr2021_vspw_implement_tpu_torch.models import hrnet, hrnet_clip
+
+    per = hrnet_ocr_band_launches(torch)
+    launches, checks, ckpts = {}, {}, {}
+    # n runs over frames that differ (:func:`varied_video`)
+    clip_root = varied_video(root, os.path.join(work, "vspw_varied"))
+    for name in ("hrnetv2", "hrnetv2_clip"):
+        preset = HRNET_PRESETS[name]
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(preset)
+        if name == "hrnetv2":
+            args = frame_test.build_eval_parser().parse_args(
+                ["--cfg", preset, "--num_class", str(k), "--seed", "0"])
+            model = frame_test.build_model(cfg, args, "cuda")
+            x = TestFrameDataset(root, "video_000", args)[0][0]
+            x = torch.from_numpy(np.ascontiguousarray(
+                x.transpose(2, 0, 1))[None]).cuda()
+        else:
+            args = test_clip.build_eval_clip_parser().parse_args(
+                ["--cfg", preset, "--num_class", str(k), "--method", name,
+                 "--clip_num", str(HRNET_CLIP_NUM), "--seed", "0"])
+            model = test_clip.build_model(cfg, args, "cuda")
+            item = TestClipDataset(clip_root, "video_000", args)[0]
+            x = torch.from_numpy(np.stack(item[2] + [item[0]])[:, None])
+            x = x.permute(0, 1, 4, 2, 3).contiguous().cuda()
+        calibrate_batchnorm(torch, model, x)
+        ckpts[name] = os.path.join(work, f"{name}_live.pth")
+        torch.save(model.state_dict(), ckpts[name])
+        del model, x
+
+    # m: per-frame HRNetV2 + C1
+    c, checks["hrnet"] = frame_eval_phase(
+        torch, root, work, k, n_frames, reset, counts,
+        preset=HRNET_PRESETS["hrnetv2"], name="hrnet_eval",
+        label="HRNetV2-W48 c1", per_frame=per["hrnet"],
+        load=ckpts["hrnetv2"],
+        fault=lambda: patched(hrnet, "resize_bilinear_rt",
+                              lambda t, size, *_: hrnet.resize_bilinear(
+                                  t, size)))
+    launches.update(c)
+
+    # n: hrnetv2_clip through test_clip's window path, TimeAtten's blend
+    # weights captured beside each window's logits
+    weights = []
+    blend = hrnet_clip.TimeAtten.weights
+
+    def recorded(self, *a, **kw):
+        w = blend(self, *a, **kw)
+        weights.append(w.detach().clone())
+        return w
+
+    def run(bucket, tag=""):
+        path = "hrnetv2_clip" + tag + ("_bucketed" if bucket else "")
+        out_dir = os.path.join(work, "preds_" + path)
+        captured = []
+        saved = capture_window_logits(test_clip, captured)
+        hrnet_clip.TimeAtten.weights = recorded
+        reset()
+        t0 = time.perf_counter()
+        try:
+            m, _ = test_clip.main([
+                "--cfg", HRNET_PRESETS["hrnetv2_clip"], "--dataroot",
+                clip_root,
+                "--num_class", str(k), "--method", "hrnetv2_clip",
+                "--clip_num", str(HRNET_CLIP_NUM), "--load",
+                ckpts["hrnetv2_clip"], "--width_bucket", str(bucket),
+                "--is_save", "--saveroot", out_dir, "--seed", "0"])
+        finally:
+            restore_window_heads(test_clip, saved)
+            hrnet_clip.TimeAtten.weights = blend
+        secs = time.perf_counter() - t0
+        c = counts()
+        print(f"{path} window eval (HRNetV2Clip + c1, clip_num "
+              f"{HRNET_CLIP_NUM}, 480x853"
+              + (" in the 480x896 bucket" if bucket else "")
+              + f", {n_frames} frames), host clock: "
+              f"{1e3 * secs / n_frames:.1f} ms/frame with model set-up; per "
+              f"window (decode, forward, argmax) {m['first_frame_ms']:.1f} ms "
+              f"for the first, then {m['frame_ms']:.1f} ms; band_zero "
+              f"{c['band_zero'] / n_frames:g} a window (derived "
+              f"{per['hrnetv2_clip'] if bucket else 0}); "
+              f"mIoU {m['mIoU']:.6f} VC {m['VC']:.6f}; kernel launches {c}")
+        if not tag:
+            launches[path] = c
+            for kname, n in c.items():
+                want = per["hrnetv2_clip"] * n_frames if (
+                    bucket and kname == "band_zero") else 0
+                if n != want:
+                    raise SystemExit(f"{kname}: {n} launches on the {path} "
+                                     f"path, expected {want}")
+        check_pngs(os.path.join(out_dir, "video_000"), n_frames)
+        if not (np.isfinite(m["mIoU"]) and np.isfinite(m["VC"])):
+            raise SystemExit(f"{path}: non-finite metric")
+        out = captured, pngs(out_dir), m, weights[:]
+        weights.clear()
+        return out
+
+    def weight_gap(exact, other, label):
+        if len(exact[3]) != n_frames or len(other[3]) != n_frames:
+            raise SystemExit(f"{label}: {len(other[3])} blend weights "
+                             f"captured for {n_frames} windows")
+        gap = max((b - e).abs().max().item()
+                  for e, b in zip(exact[3], other[3]))
+        spread = max((e.max() - e.min()).item() for e in exact[3])
+        print(f"{label} bucketed vs exact TimeAtten blend weights: max "
+              f"|diff| {gap:.3e} (limit {BLEND_WEIGHT_LIMIT:g}); the exact "
+              f"weights of a window spread by up to {spread:.3e}")
+        return gap
+
+    runs = {b: run(b) for b in (0, 64)}
+    checks["hrnetv2_clip"] = window_bucket_check(
+        torch, "hrnetv2_clip", runs[0][0], runs[64][0], runs[0][1],
+        runs[64][1])
+    gap = weight_gap(runs[0], runs[64], "hrnetv2_clip")
+    if gap > BLEND_WEIGHT_LIMIT:
+        raise SystemExit("hrnetv2_clip: bucketed blend weights disagree "
+                         "with exact")
+    checks["hrnetv2_clip"].update(
+        blend_weight_gap=gap, band_zero_per_window=per["hrnetv2_clip"],
+        host_ms_per_window={"exact": runs[0][2]["frame_ms"],
+                            "bucketed": runs[64][2]["frame_ms"]})
+    with patched(hrnet_clip, "pool_valid",
+                 lambda v, _: v.float().mean(dim=(2, 3))):
+        planted = run(64, tag="_planted")
+    caught = weight_gap(runs[0], planted, "hrnetv2_clip (planted fault)") \
+        > BLEND_WEIGHT_LIMIT
+    try:
+        window_bucket_check(torch, "hrnetv2_clip (planted fault)",
+                            runs[0][0], planted[0], runs[0][1], planted[1])
+        checks["hrnetv2_clip"]["planted_fault_caught_by_logits"] = False
+    except SystemExit:
+        checks["hrnetv2_clip"]["planted_fault_caught_by_logits"] = True
+        caught = True
+    if not caught:
+        raise SystemExit("the hrnetv2_clip bucketed eval check missed the "
+                         "planted fault")
+    checks["hrnetv2_clip"]["planted_fault_caught"] = True
+    del runs, planted
+
+    # o: the per-frame trainer with both presets, then OCRNet's eval
+    for name, watch in (
+            ("hrnetv2", ("encoder.conv1.weight",
+                         "decoder.conv_last_1.weight")),
+            ("resnet101dilated-ocr_deepsup", ("encoder.conv1.weight",
+                                              "decoder.head.weight"))):
+        c, checks["train_" + name] = frame_train_phase(
+            torch, train_root, work, k, reset, counts,
+            preset=HRNET_PRESETS[name], batch=2, trainfps=2, epochs=1,
+            watch=watch)
+        launches["frame_train_" + name] = c
+    c, checks["ocrnet"] = frame_eval_phase(
+        torch, root, work, k, n_frames, reset, counts,
+        preset=HRNET_PRESETS["resnet101dilated-ocr_deepsup"],
+        name="ocrnet_eval", label="R101 ocrnet_deepsup",
+        per_frame=per["ocrnet"])
+    launches.update(c)
+    return launches, checks
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3445,6 +3773,13 @@ def main() -> int:
     td_counts.update(tdnet_nonlocal3d_train_phases(
         torch, train_root, work, k, steps, reset, counts))
 
+    # m, n, o: HRNetV2 per-frame and hrnetv2_clip eval (exact, then
+    # bucketed), the per-frame trainer with HRNetV2 and with OCRNet, and
+    # the per-frame OCRNet eval
+    hr_counts, hr_checks = hrnet_ocr_phases(
+        torch, test_clip, root, train_root, work, k, n_frames, reset, counts,
+        check_pngs, pngs)
+
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
     reset()
@@ -3455,13 +3790,14 @@ def main() -> int:
           f"{bench_counts}")
     check_bench(bench_out, per_frame, per_pair, bench.RAFT_ITERS, per_window,
                 {**ocr_netwarp_band_launches(torch, raft),
-                 "tdnet": tdnet_band_launches(torch)})
+                 "tdnet": tdnet_band_launches(torch),
+                 "hrnet": hrnet_ocr_band_launches(torch)["hrnet"]})
 
     by_path = {"eval": eval_counts, "tc": tc_counts,
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
                "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
                **window_counts, **frame_counts, **ocr_counts, **td_counts,
-               "bench": bench_counts}
+               **hr_counts, "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -3542,6 +3878,7 @@ def main() -> int:
                       "frame_bucketed_vs_exact": frame_check,
                       "ocr_netwarp_bucketed_vs_exact": ocr_checks,
                       "tdnet_nonlocal3d_bucketed_vs_exact": td_checks,
+                      "hrnet_ocrnet": hr_checks,
                       "frame_train": frame_train, "loader": loader,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,

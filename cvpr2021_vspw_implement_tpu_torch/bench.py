@@ -71,6 +71,23 @@ made on the device before the clock starts.  The rows:
   and each frame's upsampled probabilities (``test_clip.window_probs``),
   their sum into one frame's accumulator and that frame's argmax
   (``test_clip.frame_pred``);
+* ``hrnet_*``: the per-frame HRNetV2-W48 + C1 (``vsp-hrnetv2.yaml``,
+  fc_dim 720) over N frames as ``test.frame_pred`` runs one (the model,
+  upsample and argmax of a contiguous NCHW frame): exact, and bucketed in
+  480x896 (the masked trunk, its fusion upsamples at the true sizes: B6 at
+  the input of each of its 265 spatial convs, its output and C1's input);
+  ``hrnet_bucketed_overhead_pct`` derived as the TCB rows'; these keys are
+  the port's own;
+* ``hrnetclip_windows_per_sec``: ``hrnetv2_clip`` (HRNetV2Clip + C1), the
+  window forward of ``test_clip --method hrnetv2_clip --clip_num 4``
+  (``test_clip.window_pred``: 3 context frames through the frozen stem,
+  the target's stem, TimeAtten, the stages, C1, upsample and argmax) over M
+  windows at exact shapes; the port's own key;
+* ``ocr_head_ms``: the JAX bench's OCR-head microbench (JAX
+  bench.py:975-1012, the reference's harness shape, spatial_ocr_block.py:
+  470-517): a 3x3 conv 2048 -> 512, ``spatial_gather`` with 19-class
+  logits and ``SpatialOCR(512, 256, 512)`` at 128x128, batch 1, a call's
+  ms over N calls; JAX runs it in bfloat16, the port in float32;
 * ``host_decode_frames_per_sec``: 32 frames of the configuration's size,
   JPEGs that ``make_synthetic_vspw`` wrote, decoded by PIL and normalized
   by ``native.normalize_u8`` on one thread (host clock, best of 3), the
@@ -113,14 +130,17 @@ import torch
 from PIL import Image
 from torch.utils.flop_counter import FlopCounterMode
 
-from . import native, tc_cal, test_clip
+from . import methods, native, tc_cal, test_clip
+from . import test as frame_test
 from .config import cfg as default_cfg
 from .data import make_synthetic_vspw
 from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP, clip_psp_loss
 from .models.etc import ETC, etc_loss
 from .models.netwarp import NetWarp, netwarp_loss
+from .models.layers import Conv
 from .models.nonlocal3d import NonLocal3D
+from .models.ocr import SpatialOCR, spatial_gather
 from .models.propnet import PropNet
 from .models.layers import init_weights, set_dropout_generator
 from .models.raft import RAFT
@@ -144,10 +164,13 @@ PRESETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
 #: the JAX bench's model at VSPW-480p, and a toy of it for the CPU test
 CONFIGS = {
     "full": {"preset": "vsp-resnet101dilated-ppm_deepsup_clip.yaml",
-             "num_class": 124, "hw": (480, 853), "crop": 479},
+             "num_class": 124, "hw": (480, 853), "crop": 479, "ocr_hw": 128},
     "toy": {"preset": "vsp-resnet18dilated-ppm_deepsup_clip.yaml",
-            "num_class": 5, "hw": (64, 96), "crop": 63},
+            "num_class": 5, "hw": (64, 96), "crop": 63, "ocr_hw": 16},
 }
+#: HRNet's presets (W48's widths are fixed: the toy runs them too)
+HRNET_PRESETS = {"hrnet": "vsp-hrnetv2.yaml",
+                 "hrnetclip": "vsp-hrnetv2_clip.yaml"}
 #: N streaming frames, M windows, K train steps (clip_psp, our_warp), K'
 #: (ETC, NetWarp), P TC pairs
 COUNTS = {
@@ -166,7 +189,6 @@ NOT_PORTED = [
     "int8_stream_frames_per_sec", "int8_speedup",
     "eval_policy_exact_mix_fps", "eval_policy_bucketed_mix_fps",
     "train_b4_ms_per_2_samples",
-    "ocr_head_ms",
 ]
 
 
@@ -410,6 +432,39 @@ def tdnet_rows(model, conf, counts, device, gen, out):
                                 conf, counts["frames"], batch, device, gen)
 
 
+def hrnet_rows(model, conf, counts, device, gen, out):
+    """Per-frame HRNetV2 + C1 over N frames as ``test.frame_pred`` runs a
+    frame (contiguous NCHW, as the CLI gives it): exact and bucketed."""
+    for name, bucket in (("hrnet", 0), ("hrnet_bucketed", WIDTH_BUCKET)):
+        def frame(img, state, bucket=bucket):
+            return state, frame_test.frame_pred(model, img, bucket)
+
+        out[name] = _stream_row(frame, None, conf, counts["frames"], 1,
+                                device, gen, contiguous=True)
+
+
+def ocr_head_row(conf, counts, device, gen):
+    """The JAX bench's OCR-head microbench in f32: a 3x3 conv 2048 -> 512,
+    ``spatial_gather`` with 19-class logits and ``SpatialOCR(512, 256,
+    512)``, batch 1, at ``ocr_hw`` squared; N calls on two inputs in
+    turn."""
+    s = conf["ocr_hw"]
+    conv = Conv(2048, 512, 3, padding=1)
+    ocr = SpatialOCR(512, 256, 512, dropout=0.0)
+    for m in (conv, ocr):
+        init_weights(m, torch.Generator().manual_seed(0))
+        m.to(device).eval()
+    feats = torch.randn(2, 1, 2048, s, s, device=device, generator=gen)
+    probs = torch.randn(2, 1, 19, s, s, device=device, generator=gen)
+
+    @torch.inference_mode()
+    def step(i):
+        x = conv(feats[i % 2])
+        return _checksum(ocr(x, spatial_gather(x, probs[i % 2]))[0])
+
+    return Row(device, step, counts["frames"]).measure()
+
+
 def window_row(model, t1: int, conf, counts, device, gen, bucket: int = 0):
     """The window forward of ``test_clip._windows`` over M windows of t1
     frames, target last: the model, then upsample and argmax; with
@@ -650,6 +705,24 @@ def run(args) -> dict:
     rows["nonlocal3d"] = nonlocal3d_row(nl3d, 3, conf, counts, device, gen)
     del nl3d
     free()
+    hcfg = {}
+    for row, preset in HRNET_PRESETS.items():
+        hcfg[row] = default_cfg.clone()
+        hcfg[row].merge_from_file(os.path.join(PRESETS, preset))
+    hrnet = frame_test.build_segmentation(hcfg["hrnet"], k)
+    init_weights(hrnet, torch.Generator().manual_seed(0))
+    hrnet_rows(hrnet.to(device).eval(), conf, counts, device, gen, rows)
+    del hrnet
+    free()
+    clip, _ = methods.build_method("hrnetv2_clip", hcfg["hrnetclip"],
+                                   argparse.Namespace(num_class=k))
+    init_weights(clip, torch.Generator().manual_seed(0))
+    rows["hrnetclip"] = window_row(clip.to(device).eval(), 4, conf, counts,
+                                   device, gen)
+    del clip
+    free()
+    rows["ocr_head"] = ocr_head_row(conf, counts, device, gen)
+    free()
 
     def mfu(row):
         if peak is None:
@@ -735,6 +808,21 @@ def run(args) -> dict:
                      / rows["tdnet_bucketed"]["per_second"] - 1.0),
         "nonlocal3d_windows_per_sec": rows["nonlocal3d"]["per_second"],
         "nonlocal3d_mfu": mfu(rows["nonlocal3d"]),
+        "hrnet_frames_per_sec": rows["hrnet"]["per_second"],
+        "hrnet_mfu": mfu(rows["hrnet"]),
+        "hrnet_bucketed_frames_per_sec":
+            rows["hrnet_bucketed"]["per_second"],
+        "hrnet_bucketed_overhead_pct":
+            100.0 * (rows["hrnet"]["per_second"]
+                     / rows["hrnet_bucketed"]["per_second"] - 1.0),
+        "hrnetclip_windows_per_sec": rows["hrnetclip"]["per_second"],
+        "hrnetclip_mfu": mfu(rows["hrnetclip"]),
+        "ocr_head_ms": 1e3 * rows["ocr_head"]["seconds"] / counts["frames"],
+        "ocr_head_mfu": mfu(rows["ocr_head"]),
+        "ocr_head_shape": f"conv3x3 2048->512 + spatial_gather (19 classes) "
+                          f"+ SpatialOCR(512, 256, 512), 1x{conf['ocr_hw']}x"
+                          f"{conf['ocr_hw']}, float32 (the JAX bench's row "
+                          "runs bfloat16)",
         "host_decode_frames_per_sec": host["per_second"],
         "host_decode_path": host["path"],
         "host_cores_to_saturate_chip": math.ceil(stream

@@ -3,8 +3,9 @@
 ``load_jax_variables(model, variables)`` takes a Flax ``{"params",
 "batch_stats"}`` tree as nested dicts of numpy arrays (a ``ClipPSP``, a
 ``ClipOCRNet``, a ``RAFT``, a ``NetWarp`` or an ``ETC`` with either
-decoder, a ``ClipWarpNet``, a ``NonLocal3D``, a ``TD4PSP`` or a
-``SegmentationModule`` one, training heads included) and
+decoder, a ``ClipWarpNet``, a ``NonLocal3D``, a ``TD4PSP``, a
+``SegmentationModule`` or a ``SegmentationModuleClip`` one, training heads
+included, or an ``HRNetV2``, ``HRNetV2Clip`` or ``SpatialOCRNet`` alone) and
 fills the port module (a per-frame ``SegmentationModule`` with any encoder
 and decoder of ``models.builder``, too): conv kernels HWIO → OIHW, the
 Dense kernels [in, out] of the 1x1 convs that the JAX package runs as
@@ -29,8 +30,11 @@ from torch import nn
 from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP
 from .models.etc import ETC
+from .models.hrnet import HRNetV2
+from .models.hrnet_clip import HRNetV2Clip, SegmentationModuleClip
 from .models.netwarp import NetWarp
 from .models.nonlocal3d import NonLocal3D
+from .models.ocr import SpatialOCRNet
 from .models.raft import RAFT
 from .models.segmentation import SegmentationModule
 from .models.td4_psp import TD4PSP
@@ -80,10 +84,40 @@ _ENCODER_DECODER = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
     (r"decoder\.cbr_deepsup\.1", "decoder/cbr_deepsup/1"),
     (r"decoder\.conv_last_deepsup_", "decoder/conv_last_deepsup_/conv"),
 ]
+# HRNetV2 (JAX ``stem`` and ``stages``); stage s's transition is the
+# reference's transition{s-1}, a new branch one Sequential deeper
+_HRNET = [
+    (r"conv([12])", r"stem/stem\1/conv/conv"),
+    (r"bn([12])", r"stem/stem\1/bn"),
+    (r"layer1\.(\d)\.(conv\d)", r"stem/layer1_\1/\2/conv"),
+    (r"layer1\.(\d)\.(bn\d)", r"stem/layer1_\1/\2"),
+    (r"layer1\.(\d)\.downsample\.0",
+     r"stem/layer1_\1/downsample_conv/conv"),
+    (r"layer1\.(\d)\.downsample\.1", r"stem/layer1_\1/downsample_bn"),
+    *[rule for t in (1, 2, 3) for rule in [
+        (rf"transition{t}\.(\d)\.(?:0\.)?0",
+         rf"stages/transition{t + 1}_\1/conv/conv"),
+        (rf"transition{t}\.(\d)\.(?:0\.)?1",
+         rf"stages/transition{t + 1}_\1/bn")]],
+    (r"stage(\d)\.(\d)\.branches\.(\d)\.(\d)\.(conv\d)",
+     r"stages/stage\1_m\2/branch\3_block\4/\5/conv"),
+    (r"stage(\d)\.(\d)\.branches\.(\d)\.(\d)\.(bn\d)",
+     r"stages/stage\1_m\2/branch\3_block\4/\5"),
+    (r"stage(\d)\.(\d)\.fuse_layers\.(\d)\.(\d)\.0",
+     r"stages/stage\1_m\2/fuse\3_\4/conv/conv"),
+    (r"stage(\d)\.(\d)\.fuse_layers\.(\d)\.(\d)\.1",
+     r"stages/stage\1_m\2/fuse\3_\4/bn"),
+    (r"stage(\d)\.(\d)\.fuse_layers\.(\d)\.(\d)\.(\d)\.0",
+     r"stages/stage\1_m\2/fuse\3_\4_\5/conv/conv"),
+    (r"stage(\d)\.(\d)\.fuse_layers\.(\d)\.(\d)\.(\d)\.1",
+     r"stages/stage\1_m\2/fuse\3_\4_\5/bn"),
+]
+_HRNET_CLIP = _HRNET + [(r"time_atten\.conv1", "time_atten/conv1/conv")]
 # the per-frame decoders: C1 (cbr, conv_last_1), C1DeepSup (cbr,
 # conv_last_, cbr_deepsup, conv_last_deepsup_), PPM (ppm, conv_last) and
-# PPMDeepsup (ppm, conv_last_, cbr_deepsup, conv_last_deepsup_)
-_SEGMENTATION = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
+# PPMDeepsup (ppm, conv_last_, cbr_deepsup, conv_last_deepsup_); OCRNet's
+# are _OCR_NET below
+_FRAME_DECODERS = [
     (r"decoder\.ppm\.(\d+)\.1", r"decoder/ppm/ppm_\1_conv/conv"),
     (r"decoder\.ppm\.(\d+)\.2", r"decoder/ppm/ppm_\1_bn"),
     (r"decoder\.(conv_last_?)\.0", r"decoder/\1/0/conv"),
@@ -128,6 +162,11 @@ _OCR_DECODER = [(r"decoder\." + p, "decoder/" + t) for p, t in _OCR_HEAD] + [
     (r"decoder\.dsn_head\.1", "decoder/dsn_head_cbr/1"),
     (r"decoder\.dsn_head\.4", "decoder/dsn_cls/conv"),
 ]
+# SpatialOCRNet, the per-frame OCRNet decoder
+_OCR_NET = _OCR_DECODER + [(r"decoder\.head", "decoder/head/conv")]
+_DECODERS = _FRAME_DECODERS + _OCR_NET
+_SEGMENTATION = [(r"encoder\." + p, "encoder/" + t)
+                 for p, t in _RESNET] + _DECODERS
 _CLIP_OCR = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + \
     _OCR_HEAD + [
     (r"dsn_head\.0", "dsn_conv/conv"),
@@ -181,7 +220,21 @@ _TD4 = [rule for i in range(1, 5) for rule in [
 _RULES = {ClipPSP: _CLIP_PSP, ClipOCRNet: _CLIP_OCR, RAFT: _RAFT, ETC: _ETC,
           NetWarp: _NETWARP, ClipWarpNet: _CLIP_WARP,
           SegmentationModule: _SEGMENTATION, NonLocal3D: _NONLOCAL3D,
-          TD4PSP: _TD4}
+          TD4PSP: _TD4, HRNetV2: _HRNET, HRNetV2Clip: _HRNET_CLIP,
+          SpatialOCRNet: [(p.removeprefix(r"decoder\."),
+                           t.removeprefix("decoder/")) for p, t in _OCR_NET],
+          SegmentationModuleClip: [(r"encoder\." + p, "encoder/" + t)
+                                   for p, t in _HRNET_CLIP] + _DECODERS}
+
+
+def _rules(model: nn.Module):
+    """The rules of ``model``: a per-frame ``SegmentationModule``'s by its
+    encoder."""
+    if isinstance(model, SegmentationModule) and isinstance(model.encoder,
+                                                            HRNetV2):
+        return [(r"encoder\." + p, "encoder/" + t)
+                for p, t in _HRNET] + _DECODERS
+    return _RULES.get(type(model))
 
 
 def _flax_path(name: str, rules) -> list[str]:
@@ -201,7 +254,10 @@ def _get(tree: dict, path: list[str]) -> dict:
 
 
 def _copy(dst: torch.Tensor, src) -> None:
-    src = torch.from_numpy(np.asarray(src, np.float32).copy())
+    """``src`` into ``dst`` at ``dst``'s precision: a float64 model takes a
+    float64 tree without a pass through float32."""
+    dtype = np.float64 if dst.dtype == torch.float64 else np.float32
+    src = torch.from_numpy(np.asarray(src, dtype).copy())
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(src.shape)} vs {tuple(dst.shape)}")
     dst.copy_(src)
@@ -210,9 +266,10 @@ def _copy(dst: torch.Tensor, src) -> None:
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
     """Fill ``model`` (ClipPSP, ClipOCRNet, RAFT, ETC, NetWarp, ClipWarpNet,
-    NonLocal3D, TD4PSP or SegmentationModule) from a Flax variable tree;
+    NonLocal3D, TD4PSP, SegmentationModule, SegmentationModuleClip,
+    HRNetV2, HRNetV2Clip or SpatialOCRNet) from a Flax variable tree;
     returns the model."""
-    rules = _RULES.get(type(model))
+    rules = _rules(model)
     if rules is None:
         raise TypeError(f"no JAX layout known for {type(model).__name__}")
     params = variables["params"]

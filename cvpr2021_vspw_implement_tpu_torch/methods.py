@@ -7,7 +7,9 @@ Each entry builds a module with the ``(imgs [T+1, B, 3, H, W] target last)
 Every method of the JAX clip trainer is ported, train and eval:
 ``clip_psp``, ``clip_ocr``, ``netwarp``, ``netwarp_ocr``, ``ETC``,
 ``etc_ocr``, ``our_warp``, ``propnet``, ``our_warp_merge``, ``tdnet`` and
-``nonlocal3d``.
+``nonlocal3d``; and ``hrnetv2_clip``, which the JAX package evaluates and
+whose loss it has, but which its clip trainer does not offer (JAX
+config/args.py:12-15), nor does the port's.
 """
 
 from __future__ import annotations
@@ -86,6 +88,19 @@ def _build_nonlocal3d(cfg, args):
     return build_nonlocal3d(cfg, args.num_class), nonlocal3d_loss
 
 
+def _build_hrnetv2_clip(cfg, args):
+    """HRNetV2-clip (the TimeAtten clip encoder) and the cfg's per-frame
+    decoder (JAX methods.py:141-152)."""
+    from .models.builder import ModelBuilder
+    from .models.hrnet_clip import (HRNetV2Clip, SegmentationModuleClip,
+                                    seg_clip_loss)
+    enc = HRNetV2Clip(clip_middle=getattr(args, "clip_middle", True))
+    dec = ModelBuilder.build_decoder(cfg.MODEL.arch_decoder,
+                                     fc_dim=cfg.MODEL.fc_dim,
+                                     num_class=args.num_class)
+    return SegmentationModuleClip(enc, dec), seg_clip_loss
+
+
 def _build_tdnet(cfg, args):
     from .models.td4_psp import TD4PSP, td4_loss
     return TD4PSP(args.num_class,
@@ -98,7 +113,8 @@ METHODS = {"clip_psp": _build_clip_psp, "clip_ocr": _build_clip_ocr,
            "ETC": _build_etc, "etc_ocr": partial(_build_etc, ocr=True),
            "our_warp": _build_our_warp, "propnet": _build_propnet,
            "our_warp_merge": _build_warp_merge,
-           "nonlocal3d": _build_nonlocal3d, "tdnet": _build_tdnet}
+           "nonlocal3d": _build_nonlocal3d, "tdnet": _build_tdnet,
+           "hrnetv2_clip": _build_hrnetv2_clip}
 
 
 def get_collate(method: str, clip_num: int):

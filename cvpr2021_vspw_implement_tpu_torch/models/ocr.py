@@ -9,16 +9,19 @@ models/ocr.py; reference models/ocr_modules/spatial_ocr_block.py:39-380).
   features and fused by a 1x1 conv.
 * :class:`SpatialOCRAsDec`: the OCR decoder without its classifier
   (reference netwarp_ocr.py:65-115), the decoder of ``netwarp_ocr`` and
-  ``etc_ocr``.
+  ``etc_ocr``;
+* :class:`SpatialOCRNet`: the per-frame OCRNet decoder ``ocrnet_deepsup``
+  (reference ocrnet.py:22-72), the same blocks and a 1x1 classifier.
 
 Region features are the reference's [N, C, K, 1] images, transformed by
 1x1 ``Conv2d`` + ``BatchNorm2d`` (BN over (N, K)); the JAX package carries
 them as [N, K, C] with the same statistics.  Module names are the
 reference's (``f_pixel.{0,1,3,4}``, ``f_object``, ``f_down``, ``f_up``,
-``conv_bn_dropout``, ``conv_3x3``, ``dsn_head``), so a ``state_dict()``
-reads back through the JAX package's ``import_ocr_decoder_state_dict``.
-Every conv carries a bias, as the JAX modules' do.  The two products of the
-attention and the gather's product are ``torch.matmul``.
+``conv_bn_dropout``, ``conv_3x3``, ``dsn_head``, ``head``), so a
+``state_dict()`` reads back through the JAX package's
+``import_ocr_decoder_state_dict``.  Every conv carries a bias, as the JAX
+modules' do.  The two products of the attention and the gather's product
+are ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -144,3 +147,26 @@ class SpatialOCRAsDec(nn.Module):
         if feat_valid is not None:
             x = mask_valid(x, feat_valid)
         return x, x_dsn
+
+
+class SpatialOCRNet(SpatialOCRAsDec):
+    """The per-frame OCRNet decoder (``ocrnet_deepsup``; JAX
+    models/ocr.py:152-191): the DSN head over C4, ``conv_3x3`` over C5, the
+    gather, ``SpatialOCR(512, 256, 512)`` and the 1x1 ``head`` →
+    (logits, dsn logits) in training, (logits,) in eval."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 2048):
+        super().__init__(num_class, fc_dim)
+        self.head = Conv(512, num_class, 1)
+
+    def forward(self, conv_out, valid_hw=None):
+        """``valid_hw``: C5's valid size in width-bucketed eval.  C4 and C5
+        come with a zero band (``masked_encode``), so the two 3x3 convs are
+        exact on the valid region, the gather excludes the band, and what
+        follows is per pixel: the logits' valid region is the unpadded
+        run's, with no re-zero of their own."""
+        x_dsn = self.dsn_head(conv_out[-2])
+        x = self.conv_3x3(conv_out[-1])
+        x = self.head(self.spatial_ocr_head(
+            x, spatial_gather(x, x_dsn, valid=valid_hw)))
+        return (x, x_dsn) if self.training else (x,)

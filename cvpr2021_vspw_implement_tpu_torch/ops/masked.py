@@ -266,14 +266,18 @@ def masked_trunk(module, valid_hw, pad_hw):
 def masked_encode(encoder: nn.Module, x: torch.Tensor, valid_hw=None):
     """``encoder(x)`` width-bucketed (eval only, under inference mode): the
     trunk under :func:`masked_trunk`, then every level's band re-zeroed
-    (the JAX window models' masked trunk).  Returns (levels, the feature
-    valid size of the last level); (levels, None) at exact shapes, when
-    ``valid_hw`` is None."""
+    (the JAX window models' masked trunk).  An encoder that resizes between
+    its levels (``resizes_across_levels``: HRNet's fusion upsamples) also
+    gets ``valid_hw`` and ``pad_hw`` (JAX models/segmentation.py:42-47).
+    Returns (levels, the feature valid size of the last level); (levels,
+    None) at exact shapes, when ``valid_hw`` is None."""
     if valid_hw is None:
         return encoder(x), None
-    pad_hw = x.shape[-2:]
+    pad_hw = tuple(x.shape[-2:])
+    kw = ({"valid_hw": valid_hw, "pad_hw": pad_hw}
+          if getattr(encoder, "resizes_across_levels", False) else {})
     with masked_trunk(encoder, valid_hw, pad_hw):
-        levels = encoder(x)
+        levels = encoder(x, **kw)
     levels = [mask_valid(lv, feature_valid(*lv.shape[-2:], valid_hw, pad_hw))
               for lv in levels]
     return levels, feature_valid(*levels[-1].shape[-2:], valid_hw, pad_hw)

@@ -19,25 +19,34 @@ is, but for what the JAX importers rename (``import_resnet_state_dict``,
 DataParallel checkpoint goes, ``num_batches_tracked`` is dropped, and a
 per-frame ``PPMDeepsup``'s ``conv_last`` / ``conv_last_deepsup`` are the
 clip decoder's ``conv_last_`` / ``conv_last_deepsup_`` (``conv_last`` only
-for a ``deepsup`` decoder arch, as the importer's ``deepsup`` flag).
+for a ``deepsup`` decoder arch, as the importer's ``deepsup`` flag).  An
+HRNet encoder's checkpoint drops its classification head
+(``HRNET_HEADS``), which ``import_hrnet_state_dict`` skips too.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .models.hrnet import HRNetV2
 
-def _renamed(state_dict, heads=None) -> dict:
-    """``state_dict`` without the ``module.`` prefix and the
-    ``num_batches_tracked`` counters, its first name component mapped
-    through ``heads``."""
+#: the reference HRNet's classification head, which the segmentation trunk
+#: has no place for (JAX models/import_torch.py:250-252)
+HRNET_HEADS = ("incre_modules", "downsamp_modules", "final_layer",
+               "classifier", "last_layer")
+
+
+def _renamed(state_dict, heads=None, drop=()) -> dict:
+    """``state_dict`` without the ``module.`` prefix, the
+    ``num_batches_tracked`` counters and the entries whose first name
+    component is in ``drop``, that component mapped through ``heads``."""
     heads = heads or {}
     out = {}
     for name, t in state_dict.items():
         name = name.removeprefix("module.")
-        if name.endswith("num_batches_tracked"):
-            continue
         head, dot, rest = name.partition(".")
+        if name.endswith("num_batches_tracked") or head in drop:
+            continue
         out[heads.get(head, head) + dot + rest] = t
     return out
 
@@ -68,8 +77,9 @@ def load_reference_weights(model, cfg, encoder: str = "", decoder: str = "",
             continue
         heads = _decoder_heads(cfg.MODEL.arch_decoder) \
             if part == "decoder" else None
+        drop = HRNET_HEADS if isinstance(module, HRNetV2) else ()
         missing, unexpected = module.load_state_dict(
-            _renamed(torch.load(path, map_location="cpu"), heads),
+            _renamed(torch.load(path, map_location="cpu"), heads, drop),
             strict=False)
         missing = [k for k in missing if not k.endswith("num_batches_tracked")]
         if strict and (missing or unexpected):

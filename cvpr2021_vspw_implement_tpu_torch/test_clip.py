@@ -15,12 +15,16 @@ start) or ``--clipocr_all`` takes the window path over its long clips
 ``--method netwarp`` and ``netwarp_ocr`` stream pairs (each frame's
 features computed once), width-bucketed unless ``--width_bucket 0``; with
 ``--dilation_num`` > 0 they take the window path at exact shapes, as the
-JAX CLI does.  ``--method our_warp``, ``ETC``, ``etc_ocr``, ``propnet`` and
-``our_warp_merge`` take the window path: per eval frame, its centred
+JAX CLI does.  ``--method our_warp``, ``ETC``, ``etc_ocr``, ``propnet``,
+``our_warp_merge`` and ``hrnetv2_clip`` take the window path: per eval
+frame, its centred
 ``clip_num`` neighbourhood (``TestClipDataset``) and the frame itself,
 target last, go through the model at once, padded to the frame's bucket
 with its true size beside it unless ``--width_bucket 0`` (``--eval_policy``
 governs the TCB streaming engines only, as in the JAX CLI).
+``hrnetv2_clip``'s model gives its encoder the target and the context
+frames apart (``SegmentationModuleClip``) and always blends them
+(TimeAtten): the JAX CLI has no ``--clip_middle``.
 ``--method tdnet`` streams frame by frame, path ``i % 4`` with the video's
 K/V/Q carry (serving.py ``TDNetStreamer``), bucketed by default and under
 ``--eval_policy`` as the TCB streamers.  ``--method nonlocal3d`` takes
@@ -73,7 +77,7 @@ from .utils import (Evaluator, get_common, resolve_device, setup_logger,
 #: the others take windows
 EVAL_METHODS = ("clip_psp", "clip_ocr", "netwarp", "netwarp_ocr", "our_warp",
                 "ETC", "etc_ocr", "propnet", "our_warp_merge", "tdnet",
-                "nonlocal3d")
+                "nonlocal3d", "hrnetv2_clip")
 #: the TCB streamers and bucket engines by method
 TCB_STREAMERS = {"clip_psp": (ClipPSPStreamer, ClipPSPBucketEngine),
                  "clip_ocr": (ClipOCRStreamer, ClipOCRBucketEngine)}

@@ -552,6 +552,10 @@ def test_local_agg_kernel_merge_shape(cuda_device, mode, valid):
     ((1, 2048, 60, 112), 60, 107),     # the smoke's shapes: C5,
     ((6720, 1, 30, 56), 30, 53),       # the TC pair's pyramid level,
     ((1, 256, 64, 112), 57, 112),      # rows only
+    ((1, 48, 120, 224), 120, 214),     # HRNet's four branches in the
+    ((1, 96, 60, 112), 60, 107),       # 480x896 bucket (480x853 valid)
+    ((1, 192, 30, 56), 30, 54),
+    ((1, 384, 15, 28), 15, 27),
 ])
 def test_band_zero_kernel_matches_plain(cuda_device, shape, hv, wv):
     x = torch.randn(*shape, device=cuda_device)
@@ -1089,3 +1093,41 @@ def test_nonlocal3d_bucketed_window_launches_and_matches_exact(cuda_device):
     assert got == {n: want if n == "band_zero" else 0 for n in got}
     assert (bucketed[..., :6, :9] - exact).abs().max().item() <= 1e-4 * (
         exact.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_hrnet_on_the_card_matches_the_cpu(cuda_device):
+    """Per-frame HRNetV2-W48 + C1 (seeded, its BatchNorm statistics those
+    of the input, ``chip_smoke.calibrate_batchnorm``) on one 64x96 frame:
+    the card's logits within 1e-3 of the largest CPU logit (cuDNN sums in
+    another order); in the 64x128 bucket with the true size 64x96 B6
+    launches ``chip_smoke.hrnet_ocr_band_launches`` and nothing else
+    launches, and the valid region is the exact run's within 1e-4 of the
+    largest."""
+    from cvpr2021_vspw_implement_tpu_torch import bench, test
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import pad_to
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(os.path.join(os.path.dirname(test.__file__),
+                                     "config", "presets", "vsp-hrnetv2.yaml"))
+    model = test.build_segmentation(cfg, 5)
+    init_weights(model, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, 64, 96, generator=torch.Generator().manual_seed(3))
+    chip_smoke.calibrate_batchnorm(torch, model, x)
+    with torch.inference_mode():
+        want = model(x)[0]
+        model.to(cuda_device)
+        got = model(x.to(cuda_device))[0]
+        for fn in bench.WRAPPERS.values():
+            fn.launches = 0
+        bucketed = model(pad_to(x.to(cuda_device), (64, 128)),
+                         valid_hw=(64, 96))[0]
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * scale
+    launched = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
+    per = chip_smoke.hrnet_ocr_band_launches(torch)["hrnet"]
+    assert launched == {n: per if n == "band_zero" else 0 for n in launched}
+    assert (bucketed[..., :16, :24] - got).abs().max().item() <= 1e-4 * scale

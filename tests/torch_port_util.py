@@ -222,3 +222,22 @@ def perturb_port_batchnorm(model: torch.nn.Module, seed: int):
                          (m.bias, rng.normal(0, 0.1, n))):
                 t.copy_(torch.from_numpy(v.astype(np.float32)))
     return model
+
+
+@torch.no_grad()
+def calibrate_batchnorm(model: torch.nn.Module, *inputs,
+                        var_floor: float = 0.5):
+    """``chip_smoke.calibrate_batchnorm`` (the running statistics those of
+    one training-mode forward of ``inputs``), the variances then floored
+    at ``var_floor``; returns the model in eval mode.  A deep seeded net
+    (HRNet's hundreds of convs and residual sums) then keeps its
+    activations near unit scale (with the init's identity statistics its
+    logits reach ~1e9), and the floor keeps a channel that is near constant
+    on these inputs from amplifying f32 rounding 300-fold."""
+    import chip_smoke
+
+    chip_smoke.calibrate_batchnorm(torch, model, *inputs)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_var.clamp_(min=var_floor)
+    return model

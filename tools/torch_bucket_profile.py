@@ -3,6 +3,7 @@
     python3 tools/torch_bucket_profile.py [--out DIR]
     python3 tools/torch_bucket_profile.py --method clip_ocr [--out DIR]
     python3 tools/torch_bucket_profile.py --method netwarp [--out DIR]
+    python3 tools/torch_bucket_profile.py --method hrnet [--out DIR]
 
 Builds the R101 ClipPSP of ``test_clip`` and the RAFT of ``tc_cal`` (seeded
 random weights, 124 classes, RAFT at 20 refinements, f32 without TF32) and
@@ -23,6 +24,10 @@ argmax), exact (contiguous NCHW) and bucketed.  ``--method netwarp`` (or
 ``fuse_pair`` (RAFT at 20 refinements, FlowCNN, warps, the target's decode,
 the classifier, then upsample and argmax), exact and bucketed, and the
 RAFT pair alone (``bucketed_flow`` or the /8-padded exact call).
+``--method hrnet`` the per-frame HRNetV2-W48 + C1 (``vsp-hrnetv2.yaml``,
+a frame as ``test.frame_pred`` runs it, contiguous NCHW) and an
+``hrnetv2_clip`` window of 4 frames (``test_clip.window_pred``), each
+exact and bucketed.
 
 Each form is timed on CUDA events (10 calls after 2, in the order of the
 list and then in reverse), then run 3 times under ``torch.profiler``: prints
@@ -148,12 +153,47 @@ def netwarp_forms(img, method):
     }
 
 
+def hrnet_forms(img):
+    """Per-frame HRNetV2 + C1 and an hrnetv2_clip window, exact and
+    bucketed (seeded weights)."""
+    from cvpr2021_vspw_implement_tpu_torch import test as frame_test
+
+    forms = {}
+    for name in ("hrnetv2", "hrnetv2_clip"):
+        preset = os.path.join(PRESETS, f"vsp-{name}.yaml")
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(preset)
+        if name == "hrnetv2":
+            model = frame_test.build_model(
+                cfg, frame_test.build_eval_parser().parse_args(
+                    ["--cfg", preset]), "cuda")
+            x = img.contiguous()
+            forms.update({
+                "frame, exact (NCHW)":
+                    lambda m=model: frame_test.frame_pred(m, x),
+                "frame, bucketed":
+                    lambda m=model: frame_test.frame_pred(m, x, 64)})
+        else:
+            model = test_clip.build_model(
+                cfg, test_clip.build_eval_clip_parser().parse_args(
+                    ["--cfg", preset, "--method", name]), "cuda")
+            window = torch.roll(img, (2, 3), (2, 3)).contiguous()
+            window = torch.stack([torch.roll(window, (i, i), (2, 3))
+                                  for i in range(4)])
+            forms.update({
+                "hrnetv2_clip window, exact":
+                    lambda m=model: test_clip.window_pred(m, window),
+                "hrnetv2_clip window, bucketed":
+                    lambda m=model: test_clip.window_pred(m, window, 64)})
+    return forms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     ap.add_argument("--method", default="clip_psp",
                     choices=("clip_psp", "clip_ocr", "netwarp",
-                             "netwarp_ocr"))
+                             "netwarp_ocr", "hrnet"))
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_bucket_profile: CUDA is not available", file=sys.stderr)
@@ -171,6 +211,8 @@ def main(argv=None) -> int:
         return profile_forms(clip_ocr_forms(img), opts)
     if opts.method.startswith("netwarp"):
         return profile_forms(netwarp_forms(img, opts.method), opts)
+    if opts.method == "hrnet":
+        return profile_forms(hrnet_forms(img), opts)
     cfg = default_cfg.clone()
     cfg.merge_from_file(PRESET)
     model = test_clip.build_model(cfg, test_clip.build_eval_clip_parser()
