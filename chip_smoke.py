@@ -128,6 +128,15 @@
       ``vsp-resnet101dilated-ocr_deepsup.yaml``, crop 479, batch 2, four
       steps each; then the per-frame ``ocrnet_deepsup`` eval (seeded R101),
       exact and bucketed, held as f;
+   p. the remaining per-frame baselines, each seeded with its BatchNorm
+      statistics calibrated: R101 UPerNet (output stride 32), R101-dilated
+      DeepLabV3+ and Non-local 2D (its residual scale live),
+      MobileNetV2-dilated + C1 with deep supervision and ResNeXt-101 +
+      UPerNet: the per-frame eval CLI exact and then bucketed (B6 at a
+      count derived from each model), held as f, with a planted fault each
+      for UPerNet (its top-down resize on the padded size) and DeepLab (its
+      image pool over the padded grid) that must fail that check; then
+      the per-frame trainer, crop 479, batch 2, four steps each;
    e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
@@ -261,12 +270,26 @@ def lookup_sectors(pyramid, coords, r=4):
 LOOKUP_SHAPES = ((1, 60, 107, 4), (2, 60, 60, 4), (1, 60, 107, 1))
 # the band re-zero's (B6), (label, shape, hv, wv): R101 at 480x853 in the
 # 480x896 bucket (C5 and a 256-channel feature at 60x112, valid 60x107), a
-# correlation-pyramid level of the TC pair, a rows-only and a no-band case
+# correlation-pyramid level of the TC pair, a rows-only and a no-band case;
+# then HRNet's four branches (the first also DeepLab's low-level
+# features), UPerNet's on the output-stride-32 R101 (C2, C5, the FPN's
+# 512-channel levels at strides 4 and 16; C2's shape is also DeepLab's
+# fusion convs') and MobileNetV2's widest depthwise input
 BAND_SHAPES = (("C5", (1, 2048, 60, 112), 60, 107),
                ("feature", (1, 256, 60, 112), 60, 107),
                ("pyramid level", (6720, 1, 30, 56), 30, 53),
                ("rows only", (1, 256, 64, 112), 57, 112),
-               ("no band", (1, 256, 60, 112), 60, 112))
+               ("no band", (1, 256, 60, 112), 60, 112),
+               ("HRNet branch 1, DeepLab low-level", (1, 48, 120, 224), 120,
+                214),
+               ("HRNet branch 2", (1, 96, 60, 112), 60, 107),
+               ("HRNet branch 3", (1, 192, 30, 56), 30, 54),
+               ("HRNet branch 4", (1, 384, 15, 28), 15, 27),
+               ("UPerNet C2, DeepLab fusion", (1, 256, 120, 224), 120, 214),
+               ("UPerNet C5 (stride 32)", (1, 2048, 15, 28), 15, 27),
+               ("UPerNet FPN stride 4", (1, 512, 120, 224), 120, 214),
+               ("UPerNet FPN stride 16", (1, 512, 30, 56), 30, 54),
+               ("MobileNetV2 depthwise input", (1, 960, 60, 112), 60, 107))
 
 
 def lookup_cases(torch):
@@ -2154,20 +2177,23 @@ FRAME_PRESET = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch",
 
 def frame_band_launches(torch, arch="resnet101dilated"):
     """B6's launches a frame of the per-frame ``ppm_deepsup`` model's
-    bucketed eval where every level has a band, from the model: the input
-    of every spatial conv of the trunk (ops/masked.py::masked_trunk), the
-    stem max pool, the four levels (models/segmentation.py) and C5 again
-    in the pyramid (PPMPyramid)."""
-    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+    bucketed eval where every level has a band
+    (:func:`frame_model_band_launches`: the trunk's spatial convs, the stem
+    max pool, the four levels and C5 again in the pyramid)."""
+    from cvpr2021_vspw_implement_tpu_torch.models.builder import ModelBuilder
+    from cvpr2021_vspw_implement_tpu_torch.models.segmentation import \
+        SegmentationModule
 
-    return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
-               for m in build_encoder(arch).modules()) + 6
+    with torch.device("meta"):
+        return frame_model_band_launches(torch, SegmentationModule(
+            ModelBuilder.build_encoder(arch),
+            ModelBuilder.build_decoder("ppm_deepsup")))
 
 
 def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
                      preset=FRAME_PRESET, name="frame_eval",
                      label="R101 ppm_deepsup", per_frame=None, load="",
-                     fault=None):
+                     fault=None, opts=()):
     """f (and m, o). The per-frame eval CLI (``test``) over the 10-frame
     video with a seeded random model of ``preset`` (default R101
     ``ppm_deepsup``; ``load``: a checkpoint of it instead), exact
@@ -2176,13 +2202,18 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
     bucketed (default :func:`frame_band_launches`), the bucketed logits held
     against the exact ones as the clip phases hold them (within 1e-3 of the
     largest, PNGs equal off near-ties), and a frame's forward and argmax
-    timed on CUDA events.  ``fault``: a context manager factory that plants
-    a fault; a bucketed run under it must fail the same check.  Returns
+    timed on CUDA events beside its operations (``FlopCounterMode``) and
+    mfu against the f32 peak.  ``fault``: a context manager factory that
+    plants a fault; a bucketed run under it must fail the same check.
+    ``opts``: trailing ``KEY VALUE`` overrides of the preset.  Returns
     (launches by path, checks)."""
     import numpy as np
     from PIL import Image
 
+    from torch.utils.flop_counter import FlopCounterMode
+
     from cvpr2021_vspw_implement_tpu_torch import test as frame_test
+    from cvpr2021_vspw_implement_tpu_torch.bench import PEAK_F32_FLOPS
     from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
     from cvpr2021_vspw_implement_tpu_torch.data import TestFrameDataset
     from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
@@ -2192,7 +2223,7 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
 
     args = frame_test.build_eval_parser().parse_args(
         ["--cfg", preset, "--num_class", str(k), "--seed", "0"]
-        + (["--load", load] if load else []))
+        + (["--load", load] if load else []) + list(opts))
     img = TestFrameDataset(root, "video_000", args)[0][0]
     hw = img.shape[:2]
     key = bucket_hw(*hw)
@@ -2223,7 +2254,8 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
             m, _ = frame_test.main([
                 "--cfg", preset, "--dataroot", root, "--num_class", str(k),
                 *(["--load", load] if load else []), "--width_bucket",
-                str(bucket), "--is_save", "--saveroot", out, "--seed", "0"])
+                str(bucket), "--is_save", "--saveroot", out, "--seed", "0",
+                *opts])
         finally:
             frame_test.inference_pred, frame_test.inference_pred_rt = saved
         secs = time.perf_counter() - t0
@@ -2283,6 +2315,7 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
 
     cfg = default_cfg.clone()
     cfg.merge_from_file(preset)
+    cfg.merge_from_list(list(opts))
     model = frame_test.build_model(cfg, args, "cuda")
     x = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1))[None])
     x = x.cuda()
@@ -2291,6 +2324,11 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
                               n=10, warm=3),
           "bucketed_ms": cuda_ms(lambda: frame_test.frame_pred(model, x, 64),
                                  n=10, warm=3)}
+    with FlopCounterMode(display=False) as fc:
+        frame_test.frame_pred(model, x)
+    ms["gflop"] = fc.get_total_flops() / 1e9
+    ms["mfu_exact"] = fc.get_total_flops() / (1e-3 * ms["exact_ms"]) / (
+        PEAK_F32_FLOPS[torch.cuda.get_device_name(0)])
     reset()
     del model
     print(f"{name}, bucketed vs exact: logits on the valid region "
@@ -2298,7 +2336,9 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
           f"{n_frames * hw[0] * hw[1]} pixels, {excused} of them with an "
           f"exact top-2 margin below the limit; a frame's forward, upsample "
           f"and argmax (CUDA events, 10 calls): exact {ms['exact_ms']:.2f} "
-          f"ms, bucketed in {key[0]}x{key[1]} {ms['bucketed_ms']:.2f} ms; B6 "
+          f"ms ({ms['gflop']:.1f} GFLOP counted, mfu "
+          f"{ms['mfu_exact']:.4f}), bucketed in {key[0]}x{key[1]} "
+          f"{ms['bucketed_ms']:.2f} ms; B6 "
           f"{per_frame} a frame (derived)"
           + ("" if planted is None else
              f"; the planted fault reads {planted[0]:.3e} (limit "
@@ -2319,14 +2359,16 @@ def frame_eval_phase(torch, root, work, k, n_frames, reset, counts,
 def frame_train_phase(torch, train_root, work, k, reset, counts,
                       preset=FRAME_PRESET, batch=8, trainfps=5, epochs=2,
                       watch=("encoder.conv1.weight",
-                             "decoder.conv_last_.4.weight")):
+                             "decoder.conv_last_.4.weight"), opts=(),
+                      label=None):
     """g (and o). The per-frame trainer (``train``) with ``preset``
     (default the R101 ``ppm_deepsup`` one: batch 8, crop 479,
     ``--multi_scale True``, every third frame of the 4 videos, 16 frames,
     two steps an epoch, 2 epochs), 4 steps.  Losses finite, the ``watch``
     parameters (an encoder's and a head's) moved, no kernel launched;
-    prints the steps' host time and the data wait.  Returns (launches,
-    numbers)."""
+    prints the steps' host time and the data wait.  ``opts``: trailing
+    ``KEY VALUE`` overrides of the preset; ``label``: the run's name
+    (default the preset's).  Returns (launches, numbers)."""
     from cvpr2021_vspw_implement_tpu_torch import train as frame_train
 
     records, before = [], {}
@@ -2342,7 +2384,7 @@ def frame_train_phase(torch, train_root, work, k, reset, counts,
     step_timer(frame_train, records)
     reset()
     torch.cuda.reset_peak_memory_stats()
-    label = os.path.splitext(os.path.basename(preset))[0]
+    label = label or os.path.splitext(os.path.basename(preset))[0]
     try:
         model = frame_train.main([
             "--cfg", preset, "--dataroot", train_root, "--num_class",
@@ -2350,7 +2392,7 @@ def frame_train_phase(torch, train_root, work, k, reset, counts,
             "--multi_scale", "True", "--trainfps", str(trainfps), "--lr",
             "0.002", "--totalepoch", str(epochs), "--validation", "False",
             "--saveroot", os.path.join(work, "ckpt_" + label), "--seed", "0",
-            "DIR", os.path.join(work, "cfg_" + label)])
+            "DIR", os.path.join(work, "cfg_" + label), *opts])
     finally:
         frame_train.train_step = step
     c = counts()
@@ -3162,10 +3204,11 @@ def hrnet_ocr_band_launches(torch):
     trunk, its one output level, C1's input), an ``hrnetv2_clip`` window
     (the same, the stem's spatial convs once more for the context frames,
     and TimeAtten's two re-zeros before its pooling) and a per-frame R101
-    ``ocrnet_deepsup`` frame (the trunk's spatial convs, the stem max pool
-    and the four levels; the OCR head re-zeros nothing)."""
+    ``ocrnet_deepsup`` frame (:func:`frame_model_band_launches`)."""
+    from cvpr2021_vspw_implement_tpu_torch.models.builder import ModelBuilder
     from cvpr2021_vspw_implement_tpu_torch.models.hrnet import HRNetV2
-    from cvpr2021_vspw_implement_tpu_torch.models.resnet import build_encoder
+    from cvpr2021_vspw_implement_tpu_torch.models.segmentation import \
+        SegmentationModule
 
     def spatial(*modules):
         return sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
@@ -3174,8 +3217,12 @@ def hrnet_ocr_band_launches(torch):
     hrnet = HRNetV2()
     trunk, stem = spatial(hrnet), spatial(hrnet.conv1, hrnet.conv2,
                                           hrnet.layer1)
+    with torch.device("meta"):
+        ocrnet = frame_model_band_launches(torch, SegmentationModule(
+            ModelBuilder.build_encoder("resnet101dilated"),
+            ModelBuilder.build_decoder("ocrnet_deepsup", 2048)))
     return {"hrnet": trunk + 2, "hrnetv2_clip": trunk + stem + 4,
-            "ocrnet": spatial(build_encoder("resnet101dilated")) + 5}
+            "ocrnet": ocrnet}
 
 
 def varied_video(root, out, gains=(1.0, 0.35, 1.6, 0.6, 1.25)):
@@ -3203,8 +3250,9 @@ def varied_video(root, out, gains=(1.0, 0.35, 1.6, 0.6, 1.25)):
 
 @contextlib.contextmanager
 def patched(module, attr, value):
-    """``module.attr`` set to ``value`` for the length of the context."""
-    saved = getattr(module, attr)
+    """``module.attr`` set to ``value`` for the length of the context (a
+    class's own attribute restored as it was, a ``staticmethod`` too)."""
+    saved = vars(module)[attr]
     setattr(module, attr, value)
     try:
         yield
@@ -3400,6 +3448,123 @@ def hrnet_ocr_phases(torch, test_clip, root, train_root, work, k, n_frames,
         name="ocrnet_eval", label="R101 ocrnet_deepsup",
         per_frame=per["ocrnet"])
     launches.update(c)
+    return launches, checks
+
+
+#: the per-frame baselines of phase p: (path, preset, trailing overrides,
+#: the head's parameter that the train phase watches); ResNeXt-101 has no
+#: preset and runs on the R101 UPerNet one
+BASELINE_PATHS = (
+    ("upernet", "vsp-resnet101-upernet.yaml", (),
+     "decoder.conv_last_.1.weight"),
+    ("deeplab", "vsp-resnet101dilated-deeplab.yaml", (),
+     "decoder.decoder.lastlast_conv.1.weight"),
+    ("nonlocal2d", "vsp-resnet101dilated-nonlocal2d.yaml", (),
+     "decoder.last_layer.weight"),
+    ("mobilenetv2_c1", "vsp-mobilenetv2dilated-c1_deepsup.yaml", (),
+     "decoder.conv_last_.weight"),
+    ("resnext101_upernet", "vsp-resnet101-upernet.yaml",
+     ("MODEL.arch_encoder", "resnext101"), "decoder.conv_last_.1.weight"),
+)
+
+
+def frame_model_band_launches(torch, model):
+    """B6's launches a bucketed frame of a per-frame ``SegmentationModule``
+    whose every level has a band, from the model: the input of each
+    spatial conv of the trunk (ops/masked.py::masked_trunk), a ResNet
+    stem's max pool, every level of the trunk (masked_encode), and the
+    head's re-zeros: UPerNet's pyramid branches, laterals and finest FPN
+    level; DeepLab's low-level features, ASPP's output and its two
+    fusion convs; OCRNet's none; C1's, PPM's and Non-local 2D's one (C5,
+    or the embedding)."""
+    from cvpr2021_vspw_implement_tpu_torch.models import (decoders, deeplab,
+                                                          mobilenet, ocr,
+                                                          resnet)
+
+    enc, dec = model.encoder, model.decoder
+    n = sum(isinstance(m, torch.nn.Conv2d) and max(m.kernel_size) > 1
+            for m in enc.modules())
+    if isinstance(enc, resnet.ResNetFeatures):
+        n += 1 + 4
+    elif isinstance(enc, mobilenet.MobileNetV2Dilated):
+        n += len(mobilenet.DOWN_IDX) + 1
+    else:
+        raise TypeError(f"no band count for {type(enc).__name__}")
+    if isinstance(dec, decoders.UPerNet):
+        return n + len(dec.pool_scales) + len(dec.fpn_in) + 1
+    if isinstance(dec, deeplab.DeepLab):
+        return n + 2 + 2
+    return n + (0 if isinstance(dec, ocr.SpatialOCRNet) else 1)
+
+
+def baseline_phases(torch, root, train_root, work, k, n_frames, reset,
+                    counts):
+    """p. The remaining per-frame baselines (:data:`BASELINE_PATHS`): R101
+    UPerNet (output stride 32), R101-dilated DeepLabV3+ and Non-local 2D,
+    MobileNetV2-dilated + C1 with deep supervision, and ResNeXt-101 +
+    UPerNet.  Each seeded, its BatchNorm statistics those of the video's
+    first frame and that frame's colours rolled (a batch of 2: DeepLab's
+    image pool normalises one value a frame; :func:`calibrate_batchnorm`),
+    Non-local 2D's residual scale live first (:func:`live_nonlocal_scale`);
+    then the per-frame eval CLI exact and bucketed
+    (:func:`frame_eval_phase`, B6 at :func:`frame_model_band_launches` a
+    frame), UPerNet's planted fault (its top-down resize on the padded
+    size) and DeepLab's (its image pool over the padded grid) each caught;
+    then the per-frame trainer, crop 479, batch 2, 4 steps
+    (:func:`frame_train_phase`).  Returns (launches by path, checks by
+    path)."""
+    import numpy as np
+
+    from cvpr2021_vspw_implement_tpu_torch import test as frame_test
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+    from cvpr2021_vspw_implement_tpu_torch.data import TestFrameDataset
+    from cvpr2021_vspw_implement_tpu_torch.models import decoders, deeplab
+    from cvpr2021_vspw_implement_tpu_torch.ops.interpolate import \
+        resize_bilinear
+
+    faults = {
+        "upernet": lambda: patched(
+            decoders.UPerNet, "top_down",
+            staticmethod(lambda f, size, *_: resize_bilinear(f, size))),
+        "deeplab": lambda: patched(
+            deeplab, "global_avg_pool_rt",
+            lambda x, _: x.mean(dim=(2, 3), keepdim=True)),
+    }
+    presets = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch",
+                           "config", "presets")
+    launches, checks = {}, {}
+    for path, name, opts, head in BASELINE_PATHS:
+        preset = os.path.join(presets, name)
+        cfg = default_cfg.clone()
+        cfg.merge_from_file(preset)
+        cfg.merge_from_list(list(opts))
+        with torch.device("meta"):
+            per = frame_model_band_launches(
+                torch, frame_test.build_segmentation(cfg, k))
+        args = frame_test.build_eval_parser().parse_args(
+            ["--cfg", preset, "--num_class", str(k), "--seed", "0", *opts])
+        model = frame_test.build_model(cfg, args, "cuda")
+        if path == "nonlocal2d":
+            live_nonlocal_scale(torch, model.decoder, stats=False)
+        x = TestFrameDataset(root, "video_000", args)[0][0]
+        x = torch.from_numpy(np.ascontiguousarray(
+            x.transpose(2, 0, 1))[None]).cuda()
+        calibrate_batchnorm(torch, model, torch.cat([x, x.roll(1, dims=1)]))
+        ckpt = os.path.join(work, f"{path}_live.pth")
+        torch.save(model.state_dict(), ckpt)
+        encoder_param = next(n for n, _ in model.named_parameters())
+        del model, x
+        c, checks[path] = frame_eval_phase(
+            torch, root, work, k, n_frames, reset, counts, preset=preset,
+            name=path + "_eval", label=f"{path} ({cfg.MODEL.arch_encoder} "
+            f"{cfg.MODEL.arch_decoder})", per_frame=per, load=ckpt,
+            fault=faults.get(path), opts=opts)
+        launches.update(c)
+        c, checks["train_" + path] = frame_train_phase(
+            torch, train_root, work, k, reset, counts, preset=preset,
+            batch=2, trainfps=2, epochs=1, watch=(encoder_param, head),
+            opts=opts, label=path)
+        launches["frame_train_" + path] = c
     return launches, checks
 
 
@@ -3780,6 +3945,11 @@ def main() -> int:
         torch, test_clip, root, train_root, work, k, n_frames, reset, counts,
         check_pngs, pngs)
 
+    # p: the remaining per-frame baselines (UPerNet, DeepLab, Non-local 2D,
+    # MobileNetV2, ResNeXt-101), eval (exact, then bucketed) and training
+    base_counts, base_checks = baseline_phases(
+        torch, root, train_root, work, k, n_frames, reset, counts)
+
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
     reset()
@@ -3797,7 +3967,7 @@ def main() -> int:
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
                "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
                **window_counts, **frame_counts, **ocr_counts, **td_counts,
-               **hr_counts, "bench": bench_counts}
+               **hr_counts, **base_counts, "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -3879,6 +4049,7 @@ def main() -> int:
                       "ocr_netwarp_bucketed_vs_exact": ocr_checks,
                       "tdnet_nonlocal3d_bucketed_vs_exact": td_checks,
                       "hrnet_ocrnet": hr_checks,
+                      "frame_baselines": base_checks,
                       "frame_train": frame_train, "loader": loader,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,

@@ -5,9 +5,11 @@
 ``ClipOCRNet``, a ``RAFT``, a ``NetWarp`` or an ``ETC`` with either
 decoder, a ``ClipWarpNet``, a ``NonLocal3D``, a ``TD4PSP``, a
 ``SegmentationModule`` or a ``SegmentationModuleClip`` one, training heads
-included, or an ``HRNetV2``, ``HRNetV2Clip`` or ``SpatialOCRNet`` alone) and
-fills the port module (a per-frame ``SegmentationModule`` with any encoder
-and decoder of ``models.builder``, too): conv kernels HWIO → OIHW, the
+included, or a trunk or a per-frame head alone) and fills the port module
+(a per-frame ``SegmentationModule`` with any encoder and decoder of
+``models.builder``, its rules chosen by the encoder's and the decoder's
+type): conv kernels HWIO → OIHW (a grouped kernel's I is cin / groups, so
+[kh, kw, cin / groups, O] → [O, cin / groups, kh, kw]), the
 Dense kernels [in, out] of the 1x1 convs that the JAX package runs as
 products (the non-local block's projections, TDNet's attention ``fc``) →
 [out, in, 1, ...], BN scale/bias/mean/var → weight/bias/running_mean/
@@ -29,13 +31,18 @@ from torch import nn
 
 from .models.clip_ocr import ClipOCRNet
 from .models.clip_psp import ClipPSP
+from .models.deeplab import DeepLab
+from .models.decoders import UPerNet
 from .models.etc import ETC
 from .models.hrnet import HRNetV2
 from .models.hrnet_clip import HRNetV2Clip, SegmentationModuleClip
+from .models.mobilenet import MobileNetV2Dilated
 from .models.netwarp import NetWarp
 from .models.nonlocal3d import NonLocal3D
+from .models.nonlocal_blocks import NonLocal2d
 from .models.ocr import SpatialOCRNet
 from .models.raft import RAFT
+from .models.resnet import ResNetFeatures
 from .models.segmentation import SegmentationModule
 from .models.td4_psp import TD4PSP
 from .models.warp_our import ClipWarpNet
@@ -165,8 +172,63 @@ _OCR_DECODER = [(r"decoder\." + p, "decoder/" + t) for p, t in _OCR_HEAD] + [
 # SpatialOCRNet, the per-frame OCRNet decoder
 _OCR_NET = _OCR_DECODER + [(r"decoder\.head", "decoder/head/conv")]
 _DECODERS = _FRAME_DECODERS + _OCR_NET
-_SEGMENTATION = [(r"encoder\." + p, "encoder/" + t)
-                 for p, t in _RESNET] + _DECODERS
+
+
+def _under(prefix: str, rules):
+    """``rules`` of a submodule named ``prefix`` (its Flax node too)."""
+    return [(prefix + r"\." + p, prefix + "/" + t) for p, t in rules]
+
+
+# MobileNetV2: the stem and the inverted residual blocks, whose Sequential
+# indices 0/1, 3/4, 6/7 are the JAX package's conv_/bn_ 0, 1, 2
+_MOBILENET = [
+    (r"features\.0\.0", "stem_conv/conv"),
+    (r"features\.0\.1", "stem_bn"),
+    *[(rf"features\.(\d+)\.conv\.{3 * j}", rf"block_\1/conv_{j}/conv")
+      for j in range(3)],
+    *[(rf"features\.(\d+)\.conv\.{3 * j + 1}", rf"block_\1/bn_{j}")
+      for j in range(3)],
+]
+_UPERNET = [
+    (r"ppm_conv\.(\d+)\.0", r"ppm_conv_\1_conv/conv"),
+    (r"ppm_conv\.(\d+)\.1", r"ppm_conv_\1_bn"),
+    (r"ppm_last_conv\.0", "ppm_last_conv/0/conv"),
+    (r"ppm_last_conv\.1", "ppm_last_conv/1"),
+    (r"fpn_in\.(\d+)\.0", r"fpn_in_\1_conv/conv"),
+    (r"fpn_in\.(\d+)\.1", r"fpn_in_\1_bn"),
+    (r"fpn_out\.(\d+)\.0\.0", r"fpn_out_\1/0/conv"),
+    (r"fpn_out\.(\d+)\.0\.1", r"fpn_out_\1/1"),
+    (r"conv_last_\.0\.0", "conv_last_0/0/conv"),
+    (r"conv_last_\.0\.1", "conv_last_0/1"),
+    (r"conv_last_\.1", "conv_last_1/conv"),
+]
+_DEEPLAB = [
+    (r"aspp\.(aspp\d)\.atrous_conv", r"aspp/\1/conv/conv"),
+    (r"aspp\.(aspp\d)\.bn", r"aspp/\1/bn"),
+    (r"aspp\.global_avg_pool\.1", "aspp/gp_conv/conv"),
+    (r"aspp\.global_avg_pool\.2", "aspp/gp_bn"),
+    (r"aspp\.conv1", "aspp/conv1/conv"),
+    (r"aspp\.bn1", "aspp/bn1"),
+    (r"decoder\.conv1", "low_conv/conv"),
+    (r"decoder\.bn1", "low_bn"),
+    (r"decoder\.last_conv\.0", "last_conv_0/conv"),
+    (r"decoder\.last_conv\.1", "last_bn_0"),
+    (r"decoder\.last_conv\.4", "last_conv_1/conv"),
+    (r"decoder\.last_conv\.5", "last_bn_1"),
+    (r"decoder\.lastlast_conv\.1", "classifier/conv"),
+]
+# the 2D and the 3D non-local heads: the block's projections are Dense
+_NONLOCAL_HEAD = [
+    (r"(emb|last_layer)", r"\1/conv"),
+    (r"nonlocalblock\.(g|theta|phi)", r"nonlocalblock/\1"),
+    (r"nonlocalblock\.W_z\.0", "nonlocalblock/W_z"),
+    (r"nonlocalblock\.W_z\.1", "nonlocalblock/W_z_bn"),
+]
+#: a per-frame model's rules by its encoder's and its decoder's type (the
+#: ResNets and the per-frame decoders of _DECODERS otherwise)
+_ENCODER_RULES = {HRNetV2: _HRNET, MobileNetV2Dilated: _MOBILENET}
+_DECODER_RULES = {UPerNet: _UPERNET, DeepLab: _DEEPLAB,
+                  NonLocal2d: _NONLOCAL_HEAD}
 _CLIP_OCR = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + \
     _OCR_HEAD + [
     (r"dsn_head\.0", "dsn_conv/conv"),
@@ -194,12 +256,7 @@ _CLIP_WARP = _ENCODER_DECODER + [
     (r"prop_clip\.last_layer\.1", "prop_clip/last_conv/conv"),
     (r"last_layer\.1", "last_layer/conv"),
 ]
-_NONLOCAL3D = [(r"encoder\." + p, "encoder/" + t) for p, t in _RESNET] + [
-    (r"(emb|last_layer)", r"\1/conv"),
-    (r"nonlocalblock\.(g|theta|phi)", r"nonlocalblock/\1"),
-    (r"nonlocalblock\.W_z\.0", "nonlocalblock/W_z"),
-    (r"nonlocalblock\.W_z\.1", "nonlocalblock/W_z_bn"),
-]
+_NONLOCAL3D = _under("encoder", _RESNET) + _NONLOCAL_HEAD
 # TDNet's path i (1-4) is the JAX package's list entry i - 1
 _TD4 = [rule for i in range(1, 5) for rule in [
     (rf"pretrained{i}\." + p, f"paths_{i - 1}/" + t) for p, t in _RESNET] + [
@@ -219,21 +276,21 @@ _TD4 = [rule for i in range(1, 5) for rule in [
       for a in range(1, 5) for b in range(1, 5) if a != b]
 _RULES = {ClipPSP: _CLIP_PSP, ClipOCRNet: _CLIP_OCR, RAFT: _RAFT, ETC: _ETC,
           NetWarp: _NETWARP, ClipWarpNet: _CLIP_WARP,
-          SegmentationModule: _SEGMENTATION, NonLocal3D: _NONLOCAL3D,
-          TD4PSP: _TD4, HRNetV2: _HRNET, HRNetV2Clip: _HRNET_CLIP,
+          NonLocal3D: _NONLOCAL3D, TD4PSP: _TD4, HRNetV2Clip: _HRNET_CLIP,
+          ResNetFeatures: _RESNET, **_ENCODER_RULES, **_DECODER_RULES,
           SpatialOCRNet: [(p.removeprefix(r"decoder\."),
                            t.removeprefix("decoder/")) for p, t in _OCR_NET],
-          SegmentationModuleClip: [(r"encoder\." + p, "encoder/" + t)
-                                   for p, t in _HRNET_CLIP] + _DECODERS}
+          SegmentationModuleClip: _under("encoder", _HRNET_CLIP) + _DECODERS}
 
 
 def _rules(model: nn.Module):
     """The rules of ``model``: a per-frame ``SegmentationModule``'s by its
-    encoder."""
-    if isinstance(model, SegmentationModule) and isinstance(model.encoder,
-                                                            HRNetV2):
-        return [(r"encoder\." + p, "encoder/" + t)
-                for p, t in _HRNET] + _DECODERS
+    encoder's and its decoder's type."""
+    if isinstance(model, SegmentationModule):
+        dec = _DECODER_RULES.get(type(model.decoder))
+        return (_under("encoder", _ENCODER_RULES.get(type(model.encoder),
+                                                     _RESNET))
+                + (_DECODERS if dec is None else _under("decoder", dec)))
     return _RULES.get(type(model))
 
 
@@ -267,8 +324,8 @@ def _copy(dst: torch.Tensor, src) -> None:
 def load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
     """Fill ``model`` (ClipPSP, ClipOCRNet, RAFT, ETC, NetWarp, ClipWarpNet,
     NonLocal3D, TD4PSP, SegmentationModule, SegmentationModuleClip,
-    HRNetV2, HRNetV2Clip or SpatialOCRNet) from a Flax variable tree;
-    returns the model."""
+    HRNetV2Clip, or a trunk or per-frame head of ``_RULES`` alone) from a
+    Flax variable tree; returns the model."""
     rules = _rules(model)
     if rules is None:
         raise TypeError(f"no JAX layout known for {type(model).__name__}")

@@ -1,7 +1,9 @@
 """String-keyed model factory (JAX counterpart: models/builder.py; reference
 models/models.py:512-656): the reference's ``arch_encoder`` /
-``arch_decoder`` names onto the port's modules.  Names the port has no
-module for raise, naming the ROADMAP item (Queue A) that ports them.
+``arch_decoder`` names onto the port's modules.  Every name of the JAX
+package's ``ModelBuilder`` is built; the clip encoder ``hrnetv2_clip``
+raises here, naming the CLI that builds it, and an unknown name raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -9,51 +11,41 @@ from __future__ import annotations
 from torch import nn
 
 from . import decoders
+from .deeplab import DeepLab
 from .hrnet import HRNetV2
+from .mobilenet import MobileNetV2Dilated
+from .nonlocal_blocks import NonLocal2d
 from .ocr import SpatialOCRNet
+from .resnet import ARCHS as RESNETS
 from .resnet import build_encoder as build_resnet
-
-#: the encoders and decoders that the port does not have yet, by the
-#: ROADMAP Queue A item that ports them
-_NOT_PORTED = {
-    **dict.fromkeys(("mobilenetv2dilated", "resnext101", "resnet18",
-                     "resnet50", "resnet101"), 7),
-    **dict.fromkeys(("upernet", "upernet_lite", "deeplab", "nonlocal2d"), 7),
-}
-
-
-def _refuse(kind: str, arch: str, known) -> None:
-    item = _NOT_PORTED.get(arch)
-    if item is not None:
-        raise NotImplementedError(
-            f"{kind} {arch!r} is not ported yet (ROADMAP Queue A item "
-            f"{item}); the port has {sorted(known)}")
-    raise ValueError(f"unknown {kind} {arch!r}; the port has "
-                     f"{sorted(known)}")
 
 
 class ModelBuilder:
-    ENCODERS = ("resnet18dilated", "resnet50dilated", "resnet101dilated",
-                "hrnetv2")
+    ENCODERS = (*RESNETS, "mobilenetv2dilated", "hrnetv2")
     DECODERS = ("c1", "c1_deepsup", "ppm", "ppm_deepsup",
-                "ppm_deepsup_clip", "ppm_clip", "ocrnet_deepsup")
+                "ppm_deepsup_clip", "ppm_clip", "upernet", "upernet_lite",
+                "deeplab", "nonlocal2d", "ocrnet_deepsup")
 
     @staticmethod
     def build_encoder(arch: str = "resnet50dilated") -> nn.Module:
-        """The trunk: the dilated ResNets' [C2, C3, C4, C5] (output stride
-        8), HRNetV2's one 720-channel map (output stride 4).  The clip
-        encoder ``hrnetv2_clip`` takes a (target, clips) pair: the method
-        ``hrnetv2_clip`` builds it (methods.py)."""
+        """The trunk: a ResNet's or ResNeXt's [C2, C3, C4, C5] (output
+        stride 8 for the ``*dilated`` names, else 32), MobileNetV2's five
+        levels (output stride 8), HRNetV2's one 720-channel map (output
+        stride 4).  The clip encoder ``hrnetv2_clip`` takes a (target,
+        clips) pair: the method ``hrnetv2_clip`` builds it (methods.py)."""
         arch = arch.lower()
         if arch == "hrnetv2":
             return HRNetV2()
+        if arch == "mobilenetv2dilated":
+            return MobileNetV2Dilated()
         if arch == "hrnetv2_clip":
             raise ValueError(
                 "encoder 'hrnetv2_clip' takes a (target, clips) pair, which "
                 "a per-frame model cannot feed: evaluate it with test_clip "
                 "--method hrnetv2_clip")
-        if arch not in ModelBuilder.ENCODERS:
-            _refuse("encoder", arch, ModelBuilder.ENCODERS)
+        if arch not in RESNETS:
+            raise ValueError(f"unknown encoder {arch!r}; the port has "
+                             f"{sorted(ModelBuilder.ENCODERS)}")
         return build_resnet(arch)
 
     @staticmethod
@@ -72,6 +64,15 @@ class ModelBuilder:
             return decoders.PPMDeepsupClip(num_class, fc_dim)
         if arch == "ppm_clip":
             return decoders.PPMClip(fc_dim)
+        if arch in ("upernet", "upernet_lite"):
+            return decoders.UPerNet(num_class, fc_dim,
+                                    fpn_dim=256 if arch == "upernet_lite"
+                                    else 512)
+        if arch == "deeplab":
+            return DeepLab(num_class, fc_dim)
+        if arch == "nonlocal2d":
+            return NonLocal2d(num_class, fc_dim)
         if arch == "ocrnet_deepsup":
             return SpatialOCRNet(num_class, fc_dim)
-        _refuse("decoder", arch, ModelBuilder.DECODERS)
+        raise ValueError(f"unknown decoder {arch!r}; the port has "
+                         f"{sorted(ModelBuilder.DECODERS)}")

@@ -1,6 +1,7 @@
 """Decoders (JAX counterpart: models/decoders.py ``C1``, ``C1DeepSup``,
 ``PPM``, ``PPMDeepsup``, ``PPMPyramid``, ``PPMLastConv``,
-``PPMDeepsupClip``, ``PPMClip``; reference models/models.py:826-1083).
+``PPMDeepsupClip``, ``PPMClip``, ``UPerNet``; reference
+models/models.py:826-1172).
 
 Decoders take the encoder's [C2, C3, C4, C5] and return raw logits, the
 per-frame ones a tuple: (main,) in eval, (main, deep supervision) in
@@ -14,7 +15,9 @@ back through the JAX package's ``import_c1_state_dict`` and
 Width-bucketed eval (``valid_hw``: C5's valid size, ops/masked.py): C1's
 3x3 conv reads C5 with its band re-zeroed; the pyramid pools C5's valid
 region and resizes each branch onto it, and the concat is zero on the band,
-so the 3x3 conv after it is exact on the valid region.
+so the 3x3 conv after it is exact on the valid region.  UPerNet spans the
+four strides, so it takes the input-level ``valid_hw`` and ``pad_hw``
+(``spans_strides``) and derives each level's valid size itself.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_bilinear
-from ..ops.masked import adaptive_avg_pool2d_rt, mask_valid, resize_bilinear_rt
+from ..ops.masked import (adaptive_avg_pool2d_rt, feature_valid, mask_valid,
+                          resize_bilinear_rt)
+from ..ops.pooling import adaptive_avg_pool2d
 from .layers import BatchNorm2d, Conv, ConvBNReLU, Dropout2d
 
 
@@ -193,3 +198,100 @@ class PPMDeepsup(nn.Module):
             return (x,)
         d = self.dropout_deepsup(self.cbr_deepsup(conv_out[-2]))
         return x, self.conv_last_deepsup_(d)
+
+
+def _conv1x1_bn_relu(cin: int, cout: int) -> nn.Sequential:
+    return nn.Sequential(Conv(cin, cout, 1, bias=False), BatchNorm2d(cout),
+                         nn.ReLU(inplace=True))
+
+
+class UPerNet(nn.Module):
+    """Pooling pyramid + FPN (reference models/models.py:1085-1172):
+    ``upernet`` (fpn_dim 512) and ``upernet_lite`` (256) over a
+    [C2, C3, C4, C5] trunk whose channels are ``fpn_inplanes`` (every ResNet
+    and ResNeXt: fc_dim / 8, / 4, / 2, fc_dim).  Returns (logits,) at C2's
+    stride.  Module names are the reference's (``ppm_conv.{i}``,
+    ``ppm_last_conv``, ``fpn_in.{i}``, ``fpn_out.{i}.0``, ``conv_last_``),
+    which the JAX package's ``import_upernet_decoder_state_dict`` reads."""
+
+    #: takes the input-level valid and padded sizes in bucketed eval
+    #: (models/segmentation.py)
+    spans_strides = True
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 4096,
+                 pool_scales=(1, 2, 3, 6), fpn_inplanes=None,
+                 fpn_dim: int = 256):
+        super().__init__()
+        if fpn_inplanes is None:
+            fpn_inplanes = (fc_dim // 8, fc_dim // 4, fc_dim // 2, fc_dim)
+        self.fpn_inplanes = tuple(fpn_inplanes)
+        self.pool_scales = tuple(pool_scales)
+        self.ppm_conv = nn.ModuleList(_conv1x1_bn_relu(fc_dim, 512)
+                                      for _ in pool_scales)
+        self.ppm_last_conv = ConvBNReLU(fc_dim + len(pool_scales) * 512,
+                                        fpn_dim)
+        self.fpn_in = nn.ModuleList(_conv1x1_bn_relu(c, fpn_dim)
+                                    for c in self.fpn_inplanes[:-1])
+        self.fpn_out = nn.ModuleList(nn.Sequential(ConvBNReLU(fpn_dim,
+                                                              fpn_dim))
+                                     for _ in self.fpn_inplanes[:-1])
+        self.conv_last_ = nn.Sequential(
+            ConvBNReLU(len(self.fpn_inplanes) * fpn_dim, fpn_dim),
+            Conv(fpn_dim, num_class, 1))
+
+    @staticmethod
+    def top_down(f, size, f_valid=None, valid=None):
+        """The FPN's top-down resize of ``f`` onto a lateral's grid
+        ``size``; bucketed, the valid region ``f_valid`` onto ``valid``."""
+        if f_valid is None:
+            return resize_bilinear(f, size)
+        return resize_bilinear_rt(f, size, f_valid, valid)
+
+    def forward(self, conv_out, valid_hw=None, pad_hw=None):
+        """``valid_hw`` / ``pad_hw``: the input's valid and padded sizes in
+        width-bucketed eval; each level's valid size by the ratio rule
+        (JAX decoders.py:237-296).  Every 3x3 conv's input has its band
+        zero: the trunk's levels arrive so (``masked_encode``), the
+        pyramid's branches and the laterals are re-zeroed (B6), the resizes
+        are the ``*_rt`` products, zero beyond the valid region."""
+        got = tuple(c.shape[1] for c in conv_out)
+        if got != self.fpn_inplanes:
+            raise ValueError(f"UPerNet expects a trunk of channels "
+                             f"{self.fpn_inplanes}, got {got}")
+        masked = valid_hw is not None
+        fv = ([feature_valid(*c.shape[-2:], valid_hw, pad_hw)
+               for c in conv_out] if masked else [None] * len(conv_out))
+        conv5 = conv_out[-1]                 # its band zero (masked_encode)
+        size = conv5.shape[-2:]
+        ppm_out = [conv5]
+        for scale, branch in zip(self.pool_scales, self.ppm_conv):
+            if masked:
+                p = resize_bilinear_rt(
+                    adaptive_avg_pool2d_rt(conv5, scale, fv[-1]), size,
+                    (scale, scale), fv[-1])
+                ppm_out.append(mask_valid(branch(p), fv[-1]))
+            else:
+                ppm_out.append(branch(resize_bilinear(
+                    adaptive_avg_pool2d(conv5, scale), size)))
+        f = self.ppm_last_conv(torch.cat(ppm_out, 1))
+
+        fpn_features = [f]
+        f_fv = fv[-1]
+        for i in reversed(range(len(conv_out) - 1)):
+            lateral = self.fpn_in[i](conv_out[i])
+            if masked:
+                lateral = mask_valid(lateral, fv[i])
+            f = lateral + self.top_down(f, lateral.shape[-2:], f_fv, fv[i])
+            f_fv = fv[i]
+            fpn_features.append(self.fpn_out[i](f))
+        fpn_features.reverse()                               # [P2 ... P5]
+
+        out_hw = fpn_features[0].shape[-2:]
+        if masked:
+            fusion = [mask_valid(fpn_features[0], fv[0])] + [
+                resize_bilinear_rt(p, out_hw, fv[j + 1], fv[0])
+                for j, p in enumerate(fpn_features[1:])]
+        else:
+            fusion = [fpn_features[0]] + [resize_bilinear(p, out_hw)
+                                          for p in fpn_features[1:]]
+        return (self.conv_last_(torch.cat(fusion, 1)),)

@@ -16,10 +16,12 @@ from torch import nn
 
 
 def Conv(cin: int, cout: int, kernel_size=3, stride: int = 1,
-         padding: int = 0, dilation: int = 1, bias: bool = True) -> nn.Conv2d:
-    """2D conv with torch-style symmetric padding."""
+         padding: int = 0, dilation: int = 1, bias: bool = True,
+         groups: int = 1) -> nn.Conv2d:
+    """2D conv with torch-style symmetric padding; ``groups`` as
+    ``nn.Conv2d`` (ResNeXt's grouped 3x3, MobileNetV2's depthwise)."""
     return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding,
-                     dilation=dilation, bias=bias)
+                     dilation=dilation, bias=bias, groups=groups)
 
 
 BatchNorm2d = nn.BatchNorm2d
@@ -95,15 +97,16 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init: convs kaiming-normal (fan_out, relu) with zero
     bias, BN weight 1 and bias 1e-4 with identity running statistics (the
     reference ``ModelBuilder.weights_init``, models/models.py:514-521).  The
-    non-local block's 3D convs are convs too; its 3D BatchNorm keeps the
-    zero scale it is built with."""
+    non-local block's convs are convs too; its residual BatchNorm
+    (``keep_init``) keeps the zero scale it is built with."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, nn.BatchNorm2d) and not getattr(m, "keep_init",
+                                                           False):
             m.weight.fill_(1.0)
             m.bias.fill_(1e-4)
             m.running_mean.zero_()

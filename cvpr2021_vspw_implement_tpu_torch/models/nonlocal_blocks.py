@@ -1,5 +1,6 @@
-"""The generic non-local block (JAX counterpart: models/nonlocal_blocks.py
-``NLBlockND``; reference models/non_local.py:7-151).
+"""The generic non-local block and the Non-local 2D decoder (JAX
+counterpart: models/nonlocal_blocks.py ``NLBlockND``, ``NonLocal2d``;
+reference models/non_local.py:7-151, models/non_local_models.py:115-151).
 
 Positions (T)HW are flattened, so the pairwise function is one batched
 product [N, P, P] whatever the number of spatial dims.  The four pairwise
@@ -13,7 +14,8 @@ The layers are the reference's (``g``, ``theta``, ``phi``, ``W_f.0``,
 ``W_z.{0,1}``: 1x1 convs and a BatchNorm of the block's dimension), so a
 reference checkpoint loads as it is and the JAX importers read the port's
 ``state_dict()``; the 1x1 convs run as products over the flattened
-positions.
+positions.  The residual BatchNorm keeps its zero scale through
+``layers.init_weights`` (``keep_init``), as the JAX block's does.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.masked import mask_valid
+from .layers import Conv
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
@@ -66,6 +71,7 @@ class NLBlockND(nn.Module):
                                      _BN[dimension](in_channels))
             nn.init.zeros_(self.W_z[1].weight)
             nn.init.zeros_(self.W_z[1].bias)
+            self.W_z[1].keep_init = True
         else:
             self.W_z = conv(inter, in_channels, 1)
             nn.init.zeros_(self.W_z.weight)
@@ -115,3 +121,30 @@ class NLBlockND(nn.Module):
         y = torch.matmul(f_div, g_x).to(x.dtype)                # [N, P, inter]
         y = y.transpose(1, 2).reshape(n, self.inter_channels, *spatial)
         return self.W_z(y) + x
+
+
+class NonLocal2d(nn.Module):
+    """The Non-local 2D decoder (reference models/non_local_models.py:
+    115-151): C5 embedded to 256 channels by a 1x1 conv, a 2D ``NLBlockND``
+    in ``dot`` mode over it, the two concatenated and classified by a 1x1
+    conv.  Returns (logits,).  Module names are the reference's (``emb``,
+    ``nonlocalblock``, ``last_layer``), which the JAX package's
+    ``import_nonlocal2d_decoder_state_dict`` reads.
+
+    Width-bucketed eval (``valid_hw``: C5's valid size): the embedding's
+    band (its conv's bias) is re-zeroed (B6) and the block excludes the
+    padded keys, dividing by the true position count; the other convs are
+    1x1, so the valid region is the unpadded run's."""
+
+    def __init__(self, num_class: int = 150, fc_dim: int = 2048):
+        super().__init__()
+        self.emb = Conv(fc_dim, 256, 1)
+        self.nonlocalblock = NLBlockND(256, mode="dot", dimension=2)
+        self.last_layer = Conv(512, num_class, 1)
+
+    def forward(self, conv_out, valid_hw=None):
+        emb = self.emb(conv_out[-1])
+        if valid_hw is not None:
+            emb = mask_valid(emb, valid_hw)
+        nl = self.nonlocalblock(emb, valid_hw=valid_hw)
+        return (self.last_layer(torch.cat([emb, nl], 1)),)

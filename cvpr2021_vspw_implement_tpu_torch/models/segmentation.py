@@ -27,7 +27,10 @@ class SegmentationModule(nn.Module):
     ``valid_hw``: the true (rows, cols) of the image inside a zero-padded
     width bucket (eval only, under inference mode; ops/masked.py): the
     trunk runs under the spatial-conv-input mask, every level's band is
-    re-zeroed in place (B6) and the decoder gets C5's valid size, so the
+    re-zeroed in place (B6) and the decoder gets C5's valid size, or, for a
+    head that spans strides (``spans_strides``: UPerNet's FPN levels,
+    DeepLab's OS8 and OS4), the input's valid and padded sizes, from which
+    it derives each level's (JAX models/segmentation.py:55-62); so the
     logits' valid region is the unpadded run's."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module):
@@ -39,6 +42,9 @@ class SegmentationModule(nn.Module):
         conv_out, fv = masked_encode(self.encoder, img, valid_hw)
         if fv is None:
             return self.decoder(conv_out)
+        if getattr(self.decoder, "spans_strides", False):
+            return self.decoder(conv_out, valid_hw=valid_hw,
+                                pad_hw=tuple(img.shape[-2:]))
         return self.decoder(conv_out, valid_hw=fv)
 
 

@@ -270,7 +270,9 @@ def masked_encode(encoder: nn.Module, x: torch.Tensor, valid_hw=None):
     its levels (``resizes_across_levels``: HRNet's fusion upsamples) also
     gets ``valid_hw`` and ``pad_hw`` (JAX models/segmentation.py:42-47).
     Returns (levels, the feature valid size of the last level); (levels,
-    None) at exact shapes, when ``valid_hw`` is None."""
+    None) at exact shapes, when ``valid_hw`` is None.  A head that reads
+    levels of several strides derives each one's valid size from
+    ``valid_hw`` and the padded input size by :func:`feature_valid`."""
     if valid_hw is None:
         return encoder(x), None
     pad_hw = tuple(x.shape[-2:])

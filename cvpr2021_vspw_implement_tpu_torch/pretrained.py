@@ -20,8 +20,11 @@ DataParallel checkpoint goes, ``num_batches_tracked`` is dropped, and a
 per-frame ``PPMDeepsup``'s ``conv_last`` / ``conv_last_deepsup`` are the
 clip decoder's ``conv_last_`` / ``conv_last_deepsup_`` (``conv_last`` only
 for a ``deepsup`` decoder arch, as the importer's ``deepsup`` flag).  An
-HRNet encoder's checkpoint drops its classification head
-(``HRNET_HEADS``), which ``import_hrnet_state_dict`` skips too.
+encoder checkpoint drops the classification head that the JAX importer
+skips too (``ENCODER_HEADS``): HRNet's (``import_hrnet_state_dict``), a
+ResNet's or ResNeXt's ``fc`` (``import_resnet_state_dict``), MobileNetV2's
+``features.18`` and classifier (``import_mobilenet_state_dict``).  The
+new heads (UPerNet, DeepLab, Non-local 2D) keep the reference's names.
 """
 
 from __future__ import annotations
@@ -29,23 +32,31 @@ from __future__ import annotations
 import torch
 
 from .models.hrnet import HRNetV2
+from .models.mobilenet import MobileNetV2Dilated
+from .models.resnet import ResNetFeatures
 
 #: the reference HRNet's classification head, which the segmentation trunk
 #: has no place for (JAX models/import_torch.py:250-252)
 HRNET_HEADS = ("incre_modules", "downsamp_modules", "final_layer",
                "classifier", "last_layer")
+#: the classification heads of an encoder checkpoint, by the trunk's type
+#: (JAX models/import_torch.py:119, :266-297)
+ENCODER_HEADS = {HRNetV2: HRNET_HEADS,
+                 ResNetFeatures: ("fc", "fc_1", "avgpool"),
+                 MobileNetV2Dilated: ("features.18", "classifier")}
 
 
 def _renamed(state_dict, heads=None, drop=()) -> dict:
     """``state_dict`` without the ``module.`` prefix, the
-    ``num_batches_tracked`` counters and the entries whose first name
-    component is in ``drop``, that component mapped through ``heads``."""
+    ``num_batches_tracked`` counters and the entries under a name of
+    ``drop``, the first name component mapped through ``heads``."""
     heads = heads or {}
     out = {}
     for name, t in state_dict.items():
         name = name.removeprefix("module.")
         head, dot, rest = name.partition(".")
-        if name.endswith("num_batches_tracked") or head in drop:
+        if name.endswith("num_batches_tracked") or any(
+                name.startswith(d + ".") for d in drop):
             continue
         out[heads.get(head, head) + dot + rest] = t
     return out
@@ -77,7 +88,8 @@ def load_reference_weights(model, cfg, encoder: str = "", decoder: str = "",
             continue
         heads = _decoder_heads(cfg.MODEL.arch_decoder) \
             if part == "decoder" else None
-        drop = HRNET_HEADS if isinstance(module, HRNetV2) else ()
+        drop = ENCODER_HEADS.get(type(module), ()) \
+            if part == "encoder" else ()
         missing, unexpected = module.load_state_dict(
             _renamed(torch.load(path, map_location="cpu"), heads, drop),
             strict=False)

@@ -13,12 +13,17 @@ state_dict, or a checkpoint of ``train``), then ``--torch_enc`` /
 ``--torch_dec`` (alias ``--load_en`` / ``--load_de``), reference torch
 state_dicts loaded strict (pretrained.py; an HRNet checkpoint's
 classification head is dropped).  ``--use_720p`` resizes frames and masks
-to 1080x720, as the reference's per-frame eval does.  Encoders: the dilated
-ResNets and ``hrnetv2`` (``vsp-hrnetv2.yaml``, C1 over its 720-channel map;
-bucketed, its fusion upsamples take the true sizes); ``hrnetv2_clip``,
-which takes a (target, clips) pair, is refused: ``test_clip --method
-hrnetv2_clip`` evaluates it.  Decoders: ``c1``, ``c1_deepsup``, ``ppm``,
-``ppm_deepsup`` and ``ocrnet_deepsup``.
+to 1080x720, as the reference's per-frame eval does.  Encoders: every one
+of ``models.builder.ModelBuilder``: the ResNets (output stride 8 or 32),
+ResNeXt-101, MobileNetV2-dilated and ``hrnetv2`` (``vsp-hrnetv2.yaml``, C1
+over its 720-channel map; bucketed, its fusion upsamples take the true
+sizes); ``hrnetv2_clip``, which takes a (target, clips) pair, is refused:
+``test_clip --method hrnetv2_clip`` evaluates it.  Decoders, each run
+width-bucketed by default as in the JAX CLI's ``BUCKETED_DECODERS``:
+``c1``, ``c1_deepsup``, ``ppm``, ``ppm_deepsup``, ``upernet``,
+``upernet_lite``, ``deeplab``, ``nonlocal2d`` and ``ocrnet_deepsup``
+(UPerNet and DeepLab derive each level's valid size from the frame's,
+models/segmentation.py).
 
     python -m cvpr2021_vspw_implement_tpu_torch.test \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup.yaml \\

@@ -1,6 +1,8 @@
 """Per-frame trainer (JAX counterpart: train.py; reference train.py): the
-per-frame baseline, e.g. PSPNet (``resnet101dilated`` + ``ppm_deepsup``), as
-scripts/run_psp.sh trains it.
+per-frame baselines, e.g. PSPNet (``resnet101dilated`` + ``ppm_deepsup``) as
+scripts/run_psp.sh trains it, and every other pair of ``models.builder``
+(UPerNet, DeepLab and Non-local 2D give one logits map, trained without
+deep supervision; C1 and PPM ``*_deepsup`` on MobileNetV2 two).
 
 ``FrameDataset`` (every ``int(15 / --trainfps)``-th frame, flip, with
 ``--multi_scale`` a scale, pad and a random crop, 480x720 with

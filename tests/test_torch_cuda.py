@@ -556,6 +556,12 @@ def test_local_agg_kernel_merge_shape(cuda_device, mode, valid):
     ((1, 96, 60, 112), 60, 107),       # 480x896 bucket (480x853 valid)
     ((1, 192, 30, 56), 30, 54),
     ((1, 384, 15, 28), 15, 27),
+    ((1, 256, 120, 224), 120, 214),    # UPerNet on R101 (stride 32): C2,
+    ((1, 2048, 15, 28), 15, 27),       # C5,
+    ((1, 512, 120, 224), 120, 214),    # the FPN's levels; DeepLab's fusion
+    ((1, 512, 30, 56), 30, 54),        # is C2's shape, its low-level 48x
+    ((1, 960, 60, 112), 60, 107),      # MobileNetV2's widest depthwise
+    ((1, 32, 240, 448), 240, 427),     # input and its stem's output
 ])
 def test_band_zero_kernel_matches_plain(cuda_device, shape, hv, wv):
     x = torch.randn(*shape, device=cuda_device)
@@ -1129,5 +1135,46 @@ def test_hrnet_on_the_card_matches_the_cpu(cuda_device):
     assert (got.cpu() - want).abs().max().item() <= 1e-3 * scale
     launched = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
     per = chip_smoke.hrnet_ocr_band_launches(torch)["hrnet"]
+    assert launched == {n: per if n == "band_zero" else 0 for n in launched}
+    assert (bucketed[..., :16, :24] - got).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enc,dec", [("resnet18", "upernet"),
+                                     ("resnet18dilated", "deeplab")])
+def test_frame_baseline_on_the_card_matches_the_cpu(cuda_device, enc, dec):
+    """A seeded R18 UPerNet (output stride 32) or DeepLab (fc_dim 512, its
+    BatchNorm statistics those of a batch of two frames,
+    ``chip_smoke.calibrate_batchnorm``) on a 64x96 frame: the card's
+    logits within 1e-3 of the largest CPU logit; in the 64x128 bucket with
+    the true size 64x96 B6 launches ``chip_smoke.frame_model_band_launches``
+    and nothing else launches, and the valid region is the exact run's
+    within 1e-4 of the largest."""
+    from cvpr2021_vspw_implement_tpu_torch import bench
+    from cvpr2021_vspw_implement_tpu_torch.models.builder import ModelBuilder
+    from cvpr2021_vspw_implement_tpu_torch.models.layers import init_weights
+    from cvpr2021_vspw_implement_tpu_torch.models.segmentation import \
+        SegmentationModule
+    from cvpr2021_vspw_implement_tpu_torch.ops.masked import pad_to
+
+    model = SegmentationModule(ModelBuilder.build_encoder(enc),
+                               ModelBuilder.build_decoder(dec, 512, 5))
+    init_weights(model, torch.Generator().manual_seed(0))
+    x = torch.randn(2, 3, 64, 96, generator=torch.Generator().manual_seed(3))
+    chip_smoke.calibrate_batchnorm(torch, model, x)
+    x = x[:1]
+    with torch.inference_mode():
+        want = model(x)[0]
+        model.to(cuda_device)
+        got = model(x.to(cuda_device))[0]
+        for fn in bench.WRAPPERS.values():
+            fn.launches = 0
+        bucketed = model(pad_to(x.to(cuda_device), (64, 128)),
+                         valid_hw=(64, 96))[0]
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * scale
+    launched = {n: fn.launches for n, fn in bench.WRAPPERS.items()}
+    per = chip_smoke.frame_model_band_launches(torch, model)
     assert launched == {n: per if n == "band_zero" else 0 for n in launched}
     assert (bucketed[..., :16, :24] - got).abs().max().item() <= 1e-4 * scale

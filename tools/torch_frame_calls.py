@@ -1,8 +1,12 @@
-"""Call-by-call wall time of the per-frame HRNetV2-W48 + C1 eval on the GPU.
+"""Call-by-call wall time of a per-frame eval on the GPU (by default
+HRNetV2-W48 + C1).
 
-    python3 tools/torch_hrnet_calls.py [--order exact,bucketed,exact,...]
+    python3 tools/torch_frame_calls.py [--order exact,bucketed,exact,...]
+        [--preset vsp-resnet101-upernet.yaml] [KEY VALUE ...]
 
-Builds the seeded model of ``vsp-hrnetv2.yaml`` (124 classes) and one
+Builds the seeded model of ``--preset`` (a file of the port's
+config/presets, default ``vsp-hrnetv2.yaml``; trailing ``KEY VALUE`` pairs
+override it, e.g. ``MODEL.arch_encoder resnext101``; 124 classes) and one
 480x853 frame (contiguous NCHW), then runs ``test.frame_pred`` in the
 given order of phases, each a few calls, timing every call on the host
 clock with a synchronise before and after, and prints each phase's
@@ -41,35 +45,40 @@ from cvpr2021_vspw_implement_tpu_torch.ops.band_zero import (  # noqa: E402
 from cvpr2021_vspw_implement_tpu_torch.ops.masked import (  # noqa: E402
     resize_bilinear_rt)
 
-PRESET = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
-                      "presets", "vsp-hrnetv2.yaml")
+PRESETS = os.path.join(REPO, "cvpr2021_vspw_implement_tpu_torch", "config",
+                       "presets")
 CALLS = {"exact": 20, "bucketed": 5, "new": 20, "empty": 10}
 
 
-def build():
+def build(preset, overrides):
+    path = os.path.join(PRESETS, preset)
     cfg = default_cfg.clone()
-    cfg.merge_from_file(PRESET)
+    cfg.merge_from_file(path)
+    cfg.merge_from_list(overrides)
     return frame_test.build_model(cfg, frame_test.build_eval_parser()
-                                  .parse_args(["--cfg", PRESET]), "cuda")
+                                  .parse_args(["--cfg", path]), "cuda")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--order", default="exact,bucketed,exact,new,empty")
     ap.add_argument("--cudnn_benchmark", action="store_true")
+    ap.add_argument("--preset", default="vsp-hrnetv2.yaml")
+    ap.add_argument("overrides", nargs=argparse.REMAINDER)
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("torch_hrnet_calls: CUDA is not available", file=sys.stderr)
+        print("torch_frame_calls: CUDA is not available", file=sys.stderr)
         return 1
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    print(f"torch {torch.__version__}, cuDNN {torch.backends.cudnn.version()}")
+    print(f"torch {torch.__version__}, cuDNN {torch.backends.cudnn.version()}"
+          f"; {opts.preset} {' '.join(opts.overrides)}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = opts.cudnn_benchmark
-    model = build()
+    model = build(opts.preset, opts.overrides)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((1, 3, 480, 853), np.float32))
     x = x.cuda()
@@ -88,7 +97,7 @@ def main(argv=None) -> int:
             continue
         if phase == "new":
             del model
-            model = build()
+            model = build(opts.preset, opts.overrides)
         if phase == "empty":
             torch.cuda.empty_cache()
         bucket = 64 if phase == "bucketed" else 0
