@@ -137,6 +137,24 @@
       for UPerNet (its top-down resize on the padded size) and DeepLab (its
       image pool over the padded grid) that must fail that check; then
       the per-frame trainer, crop 479, batch 2, four steps each;
+   q. the per-frame trainer's restart and data flags (R101 ``ppm_deepsup``,
+      crop 479, batch 2, 2 epochs of 4 steps over 8 frames): the run
+      uninterrupted, and again (the control); the same run as a child
+      process that gets a real SIGTERM while it runs step 6 and exits 0
+      with ``preempt_6.pth``; ``--resume`` from it, its final checkpoint
+      bitwise the uninterrupted run's (every run under deterministic
+      algorithms; the control's gap printed); two planted faults, the
+      resume without the scheduler's and
+      without the dropout generator's state, that must fail that check;
+      ``--usetwodata``, ``--refrng`` and ``--profile_dir`` (a Chrome trace
+      with cuDNN's kernels), 4 steps each, with their data wait;
+      checkpoint size, save and load time, the profiler's overhead;
+   r. ``demo.py`` over the 10-frame video (RAFT from b's checkpoint, 20
+      refinements: B1 at 20 and B4 at 40 a pair), one pair's flow on the
+      card against the CPU's;
+   s. ``vc_perclip --clip_num 8`` over a's PNGs;
+   t. ``test_clip --torch_load`` of a's model saved as a reference fused
+      ``.pth``, exact and bucketed: the PNGs of a and a';
    e. the port's bench, ``bench.main(["--quick"])`` (every row at full
       width, N = 4 frames, M = 2 windows, K = 2 steps, P = 2 pairs), which
       prints its JSON line; every key present, times and rates finite and
@@ -157,6 +175,7 @@ a checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -3568,6 +3587,428 @@ def baseline_phases(torch, root, train_root, work, k, n_frames, reset,
     return launches, checks
 
 
+#: phase q: the per-frame trainer's restart runs, 2 epochs of 4 steps
+#: (8 frames of 480x853 at batch 2; the schedule over the same 8 steps)
+RESUME_EPOCHS, RESUME_STEPS = 2, 4
+
+
+#: the per-frame trainer's CLI under :func:`deterministic_algorithms`, as
+#: ``python -c`` runs it (its arguments follow)
+DETERMINISTIC_TRAIN_CLI = (
+    "import runpy, torch; torch.backends.cudnn.deterministic = True; "
+    "torch.use_deterministic_algorithms(True, warn_only=True); "
+    "runpy.run_module('cvpr2021_vspw_implement_tpu_torch.train', "
+    "run_name='__main__', alter_sys=True)")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """cuDNN's deterministic algorithms, and PyTorch's where it has them
+    (others warn), for the block; the settings before it come back."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def checkpoint_gap(torch, a, b):
+    """Two trainer checkpoints (utils/checkpoint.py): the largest relative
+    difference of their floating tensors, max |a - b| / max |a| a tensor,
+    for the model (parameters and BatchNorm statistics, whose magnitudes
+    span 1e-4 to 1e10 with the seeded R101) and for the optimizer's
+    momentum; and the names of the parts that must be equal and are not
+    (the step, the epoch, the scheduler, the learning rates, the dropout
+    generator's state, integer buffers)."""
+    gaps, differ = {"model": 0.0, "optimizer": 0.0}, []
+
+    def walk(x, y, where):
+        if isinstance(x, dict) and isinstance(y, dict) and \
+                x.keys() == y.keys():
+            for key in x:
+                walk(x[key], y[key], f"{where}/{key}")
+        elif isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)) \
+                and len(x) == len(y):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{where}/{i}")
+        elif isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) \
+                and x.shape == y.shape and x.dtype == y.dtype:
+            if x.is_floating_point():
+                if x.numel():
+                    x, y = x.double(), y.double()
+                    rel = ((x - y).abs().max()
+                           / x.abs().max().clamp_min(1e-30)).item()
+                    part = where.split("/")[1]
+                    gaps[part] = max(gaps[part], rel)
+            elif not torch.equal(x, y):
+                differ.append(where)
+        elif isinstance(x, torch.Tensor) or x != y:
+            differ.append(where)
+
+    walk(a, b, "")
+    return gaps, differ
+
+
+def resume_phases(torch, work, k, hw, reset, counts, preset=FRAME_PRESET,
+                  device="cuda", crop=479):
+    """q. The per-frame trainer's restart and data flags with ``preset``
+    (R101-dilated ``ppm_deepsup``: fc_dim 2048, 124 classes), crop 479,
+    batch 2, over 8 synthetic frames (2 epochs of 4 steps, the schedule
+    over those 8 steps): the uninterrupted run and a control (the same run
+    again); the same run in a child process (the trainer's CLI) that gets
+    a real SIGTERM once step 5 is logged, while it runs step 6, and must
+    exit 0 with ``preempt_6.pth`` beside the first epoch's save; then
+    ``--resume`` from that file, whose final checkpoint must be the
+    uninterrupted run's bitwise: the step, epoch, scheduler and dropout
+    generator, the model with its BatchNorm statistics and the momentum.
+    Every run goes through :func:`deterministic_algorithms` (the caller's
+    block, the child's :data:`DETERMINISTIC_TRAIN_CLI`): otherwise cuDNN's
+    convolution gradients sum in no fixed order, and the seeded R101
+    amplifies that past any bar within a few steps (PERF.md §6).  The
+    control's gap is printed beside the resumed run's.  Two planted faults, the resume
+    without the scheduler's state and without the dropout generator's,
+    must fail that check.
+    Then ``--usetwodata`` (a second synthetic root), ``--refrng`` and
+    ``--profile_dir``, 4 steps each: their data wait; the trace must hold
+    cuDNN's convolution kernels, and its steps' time beside the untraced
+    run's is the profiler's overhead.  Checkpoint size and save time, and
+    the resume's load time.  No kernel of the port's may launch.  Returns
+    (launches by path, numbers)."""
+    import signal
+    import shutil
+
+    from cvpr2021_vspw_implement_tpu_torch import train as frame_train
+    from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
+    from cvpr2021_vspw_implement_tpu_torch.utils import checkpoint
+
+    first, second = (os.path.join(work, "vspw_resume"),
+                     os.path.join(work, "vspw_second"))
+    make_synthetic_vspw(first, 2, 4, hw, k, seed=3, splits=("train",))
+    make_synthetic_vspw(second, 2, 4, hw, k, seed=4, splits=("train",))
+
+    def ckpt_dir(name):
+        return os.path.join(work, "q_" + name)
+
+    def argv(name, *extra, epochs=RESUME_EPOCHS):
+        return ["--cfg", preset, "--dataroot", first, "--num_class", str(k),
+                "--batchsize", "2", "--cropsize", str(crop), "--trainfps",
+                "15", "--lr", "0.002", "--totalepoch", str(epochs),
+                "--validation", "False", "--seed", "0", "--device", device,
+                *extra,
+                "DIR", ckpt_dir(name), "TRAIN.epoch_iters",
+                str(RESUME_STEPS), "TRAIN.disp_iter", "1"]
+
+    launches, runs = {}, {}
+
+    def run(name, *extra, epochs=RESUME_EPOCHS):
+        """One in-process run of the trainer's CLI: its steps (host
+        clock, synchronised), its saves (seconds, bytes) and loads
+        (seconds)."""
+        records, saves, loads = [], [], []
+        save, load = checkpoint.save_checkpoint, checkpoint.load_checkpoint
+
+        def timed(fn, sink, size):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                sink.append((time.perf_counter() - t0,
+                             os.path.getsize(out if size else a[0])))
+                return out
+            return call
+
+        step = step_timer(frame_train, records)
+        reset()
+        try:
+            with patched(checkpoint, "save_checkpoint",
+                         timed(save, saves, True)), \
+                    patched(checkpoint, "load_checkpoint",
+                            timed(load, loads, False)):
+                frame_train.main(argv(name, *extra, epochs=epochs))
+        finally:
+            frame_train.train_step = step
+        launches["frame_" + name] = c = counts()
+        losses = [r[2] for r in records]
+        if any(c.values()) or not all(math.isfinite(v) for v in losses):
+            raise SystemExit(f"per-frame train ({name}): launches {c}, "
+                             f"losses {losses}")
+        runs[name] = {"step_ms": [1e3 * (r[1] - r[0]) for r in records],
+                      "losses": losses, "saves": saves, "loads": loads,
+                      "data_wait_ms": data_waits_ms(records, RESUME_STEPS)}
+        return runs[name]
+
+    run("uninterrupted")
+    run("control")
+
+    # the child: SIGTERM once step 5 is logged (the loop reads the flag
+    # after each step, and step 6 takes far longer than the signal's way)
+    os.makedirs(ckpt_dir("preempt"), exist_ok=True)
+    child = subprocess.Popen(
+        [sys.executable, "-u", "-c", DETERMINISTIC_TRAIN_CLI,
+         *argv("preempt")], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, sent = [], None
+    try:
+        for line in child.stdout:
+            lines.append(line)
+            if sent is None and f"Epoch: [1][0/{RESUME_STEPS}]" in line:
+                child.send_signal(signal.SIGTERM)
+                sent = time.perf_counter()
+        rc = child.wait(timeout=600)
+        exited_s = time.perf_counter() - sent if sent else None
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    files = sorted(os.listdir(ckpt_dir("preempt")))
+    if rc != 0 or sent is None or files != [
+            "config.yaml", "model_epoch_1.pth", "preempt_6.pth"]:
+        raise SystemExit(f"preempted child: rc {rc}, signal sent "
+                         f"{sent is not None}, files {files}; its output "
+                         f"ends {''.join(lines[-15:])}")
+    held = torch.load(os.path.join(ckpt_dir("preempt"), "preempt_6.pth"),
+                      map_location="cpu")
+    if (held["step"], held["epoch"]) != (6, 1):
+        raise SystemExit(f"preempt_6.pth holds step {held['step']}, epoch "
+                         f"{held['epoch']}")
+    del held
+    print(f"train frame, preempted child: SIGTERM after step 5's line, "
+          f"exit 0 {exited_s:.1f} s later with {files}")
+
+    def resume(name):
+        os.makedirs(ckpt_dir(name), exist_ok=True)
+        src = os.path.join(ckpt_dir("preempt"), "preempt_6.pth")
+        dst = os.path.join(ckpt_dir(name), "preempt_6.pth")
+        try:
+            os.link(src, dst)
+        except OSError:
+            shutil.copyfile(src, dst)
+        return run(name, "--resume", "true")
+
+    resume("resumed")
+    from torch.optim.lr_scheduler import LambdaLR
+    faults = {"without_scheduler": lambda: patched(
+                  LambdaLR, "load_state_dict", lambda self, state: None),
+              "without_dropout_rng": lambda: patched(
+                  checkpoint, "restore_rng", lambda gen, state: None)}
+    for name, fault in faults.items():
+        with fault():
+            resume("fault_" + name)
+
+    def final(name):
+        return torch.load(os.path.join(ckpt_dir(name), "model_epoch_2.pth"),
+                          map_location="cpu")
+
+    ref = final("uninterrupted")
+    control_gaps, control_differ = checkpoint_gap(torch, ref,
+                                                  final("control"))
+    held = {}
+    for name in ("resumed", *("fault_" + f for f in faults)):
+        gaps, differ = checkpoint_gap(torch, ref, final(name))
+        held[name] = {"gaps": gaps, "differ": differ,
+                      "ok": not differ and not any(gaps.values()),
+                      "losses_7_8": runs[name]["losses"]}
+
+    def text(gaps):
+        return ", ".join(f"{p} {g:.3e}" for p, g in gaps.items())
+
+    print(f"train frame --resume after the preemption at step 6, under "
+          f"deterministic algorithms: final state from the uninterrupted "
+          f"run's (largest relative gap a tensor) "
+          f"{text(held['resumed']['gaps'])} (limit 0, bitwise); control, "
+          f"two uninterrupted runs: {text(control_gaps)}, parts that differ "
+          f"{control_differ}; parts that differ "
+          f"{held['resumed']['differ']}; losses of steps 7-8: resumed "
+          f"{held['resumed']['losses_7_8']}, uninterrupted "
+          f"{runs['uninterrupted']['losses'][6:]}, control "
+          f"{runs['control']['losses'][6:]}; planted faults: "
+          + "; ".join(f"{n} {text(held['fault_' + n]['gaps'])}, differ "
+                      f"{held['fault_' + n]['differ']}" for n in faults))
+    if not held["resumed"]["ok"]:
+        raise SystemExit(f"resumed run off the uninterrupted one: {held}, "
+                         f"control {control_gaps}, {control_differ}")
+    for name in faults:
+        if held["fault_" + name]["ok"]:
+            raise SystemExit(f"planted fault {name}: the resume check "
+                             "passed")
+
+    run("twodata", "--usetwodata", "true", "--dataroot2", second, epochs=1)
+    run("refrng", "--refrng", "true", epochs=1)
+    prof_dir = os.path.join(work, "q_trace")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    run("profile", "--profile_dir", prof_dir, epochs=1)
+    traces = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e.get("name", "") for e in events if e.get("cat") == "cpu_op"}
+    kernel_names = [e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"]
+    cudnn = sorted({n for n in kernel_names
+                    if any(w in n.lower() for w in ("cudnn", "xmma",
+                                                    "implicit_gemm"))})
+    steps = sum(e.get("name") == "train_step" for e in events
+                if e.get("cat") == "user_annotation")
+    print(f"train frame --profile_dir: {traces}, {len(events)} events, "
+          f"{len(kernel_names)} kernel launches, {steps} train_step ranges; "
+          f"cuDNN kernels, first 3 of {len(cudnn)}: {cudnn[:3]}")
+    if (len(traces) != 1 or "aten::cudnn_convolution" not in ops
+            or not cudnn or steps != frame_train.PROFILE_LAST_STEP + 1):
+        raise SystemExit(f"profile trace: files {traces}, cudnn op "
+                         f"{'aten::cudnn_convolution' in ops}, cuDNN "
+                         f"kernels {len(cudnn)}, steps {steps}")
+
+    def steady(name):
+        return sum(runs[name]["step_ms"][1:4]) / 3
+
+    saves = [s for r in runs.values() for s in r["saves"]]
+    numbers = {
+        "control_gaps": control_gaps, "held": held,
+        "checkpoint_bytes": saves[0][1],
+        "save_s": [round(t, 4) for t, _ in saves],
+        "load_s": runs["resumed"]["loads"][0][0],
+        "child_exit_s_after_signal": exited_s,
+        "step_ms": {n: r["step_ms"] for n, r in runs.items()},
+        "data_wait_ms": {n: runs[n]["data_wait_ms"] for n in
+                         ("uninterrupted", "twodata", "refrng", "profile")},
+        "profiled_step_ms": steady("profile"),
+        "unprofiled_step_ms": steady("uninterrupted"),
+    }
+    print(f"train frame, R101 ppm_deepsup checkpoint {saves[0][1] / 2**20:.1f}"
+          f" MiB, saved in {min(t for t, _ in saves):.3f}-"
+          f"{max(t for t, _ in saves):.3f} s; the resume loads it in "
+          f"{numbers['load_s']:.3f} s; steps 2-4, ms: uninterrupted "
+          f"{steady('uninterrupted'):.1f}, --usetwodata (batch 2 + 2) "
+          f"{steady('twodata'):.1f}, --refrng {steady('refrng'):.1f}, "
+          f"--profile_dir {steady('profile'):.1f} (the profiler's overhead "
+          f"{steady('profile') - steady('uninterrupted'):+.1f} ms a step); "
+          f"data wait inside an epoch, ms: "
+          + ", ".join(f"{n} {[round(w, 1) for w in v]}"
+                      for n, v in numbers["data_wait_ms"].items()))
+    return launches, numbers
+
+
+def demo_phase(torch, root, work, raft_ckpt, reset, counts, iters=20,
+               device="cuda"):
+    """r. ``demo.py`` over the video's frames (480x853: RAFT at 60x107, so
+    B1 once and B4 twice a refinement, 20 and 40 a pair at ``iters`` 20),
+    with RAFT from ``raft_ckpt``: a flow PNG a pair, finite flows, the
+    launches at their derived counts; the device ms of a pair
+    (``tc_cal.pair_flow``, CUDA events); one pair's flow on the card
+    against the CPU's after RAFT's first refinement, within
+    TC_FLOW_LIMIT_PX (with random weights the 20 refinements amplify f32
+    rounding, :func:`tc_flow_check`), and after all 20, printed.  Returns
+    (launches, numbers)."""
+    import copy
+
+    import numpy as np
+    from PIL import Image
+
+    from cvpr2021_vspw_implement_tpu_torch import demo, tc_cal
+
+    vdir = os.path.join(root, "data", "video_000", "origin")
+    names = sorted(os.listdir(vdir))
+    pairs, out = len(names) - 1, os.path.join(work, "flow_demo")
+    reset()
+    t0 = time.perf_counter()
+    flows = demo.main(["--path", vdir, "--out", out, "--raft_ckpt",
+                       raft_ckpt, "--iters", str(iters), "--device", device])
+    secs = time.perf_counter() - t0
+    c = counts()
+    want = {"corr_lookup": 20 * pairs, "sep_gru": 40 * pairs}
+    pngs = sorted(os.listdir(out))
+    hw = np.asarray(Image.open(os.path.join(vdir, names[0]))).shape[:2]
+    if any(n != want.get(name, 0) for name, n in c.items()):
+        raise SystemExit(f"demo: launches {c}, expected {want}")
+    if len(pngs) != pairs or len(flows) != pairs or any(
+            f.shape != (*hw, 2) or not np.isfinite(f).all() for f in flows):
+        raise SystemExit(f"demo: {len(pngs)} PNGs, flows "
+                         f"{[f.shape for f in flows]}")
+    for name in pngs:
+        if np.asarray(Image.open(os.path.join(out, name))).shape != (*hw, 3):
+            raise SystemExit(f"demo: bad flow PNG {name}")
+
+    args = argparse.Namespace(raft_ckpt=raft_ckpt, allow_random_raft=False,
+                              raft_iters=iters, seed=0)
+    raft = tc_cal.build_raft(args, device)
+    cpu_raft = copy.deepcopy(raft).cpu()
+
+    def load(name, dev):
+        img = np.asarray(Image.open(os.path.join(vdir, name)).convert("RGB"),
+                         np.float32)
+        return torch.from_numpy(img).permute(2, 0, 1)[None].to(dev)
+
+    pair = [load(n, device) for n in names[:2]]
+    pair_ms = cuda_ms(lambda: tc_cal.pair_flow(raft, *pair, 0), n=5, warm=1)
+    gaps = {}
+    for n_iter in (1, iters):
+        with raft_iters(raft, n_iter), raft_iters(cpu_raft, n_iter):
+            card = tc_cal.pair_flow(raft, *pair, 0).cpu()
+            host = tc_cal.pair_flow(cpu_raft, *[load(n, "cpu")
+                                                for n in names[:2]], 0)
+        gaps[n_iter] = (card - host).abs().max().item()
+    print(f"demo (RAFT {iters} refinements, {pairs} pairs of {hw[0]}x"
+          f"{hw[1]}): {1e3 * secs / pairs:.1f} ms a pair on the host clock "
+          f"(with RAFT's set-up, decode and PNG), {pair_ms:.2f} ms a pair "
+          f"on the device (CUDA events); kernel launches {c}; a pair's flow "
+          f"card against CPU: {gaps[1]:.3e} px after 1 refinement (limit "
+          f"{TC_FLOW_LIMIT_PX}), {gaps[iters]:.3e} px after {iters} (not "
+          f"held: random weights amplify rounding)")
+    if not gaps[1] <= TC_FLOW_LIMIT_PX:
+        raise SystemExit(f"demo: card and CPU flows {gaps[1]} px apart")
+    return c, {"host_ms_per_pair": 1e3 * secs / pairs,
+               "device_ms_per_pair": pair_ms,
+               "card_vs_cpu_px": {str(n): g for n, g in gaps.items()}}
+
+
+def torch_load_phase(torch, test_clip, root, work, k, preset, per_frame,
+                     n_frames, reset, counts, pngs, exact_dir, bucket_dir):
+    """t. ``test_clip --torch_load`` of phase a's seeded ClipPSP saved as a
+    reference fused ``.pth`` (DataParallel ``module.`` names), over a seed-1
+    init, exact (``--eval_policy exact --width_bucket 0``) and at the CLI's
+    default, bucketed (B6 at ``per_frame`` a frame): the PNGs must be
+    phase a's and a''s.  Returns launches by path."""
+    from cvpr2021_vspw_implement_tpu_torch.config import cfg as default_cfg
+
+    cfg = default_cfg.clone()
+    cfg.merge_from_file(preset)
+    args = test_clip.build_eval_clip_parser().parse_args(
+        ["--cfg", preset, "--num_class", str(k), "--seed", "0"])
+    fused = os.path.join(work, "fused_clip_psp.pth")
+    torch.save({"module." + n: t for n, t in test_clip.build_model(
+        cfg, args, "cpu").state_dict().items()}, fused)
+    launches = {}
+    for bucket, want_dir in ((0, exact_dir), (64, bucket_dir)):
+        name = "torch_load" + ("_bucketed" if bucket else "")
+        out = os.path.join(work, "preds_" + name)
+        reset()
+        t0 = time.perf_counter()
+        test_clip.main(["--cfg", preset, "--dataroot", root, "--num_class",
+                        str(k), "--method", "clip_psp", "--torch_load",
+                        fused, "--seed", "1", "--is_save", "--saveroot", out,
+                        *([] if bucket else ["--eval_policy", "exact",
+                                             "--width_bucket", "0"])])
+        secs = time.perf_counter() - t0
+        launches[name] = c = counts()
+        want = {"band_zero": per_frame * n_frames if bucket else 0}
+        same = [bool((a == b).all()) for a, b in zip(pngs(out),
+                                                      pngs(want_dir))]
+        phase = "a'" if bucket else "a"
+        print(f"test_clip --torch_load, {'bucketed' if bucket else 'exact'}"
+              f": {1e3 * secs / n_frames:.1f} ms a frame with set-up; PNGs "
+              f"equal to phase {phase}'s: {sum(same)} of {len(same)}; "
+              f"kernel launches {c}")
+        if len(same) != n_frames or not all(same) or any(
+                n != want.get(kn, 0) for kn, n in c.items()):
+            raise SystemExit(f"{name}: PNGs equal {same}, launches {c}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3950,6 +4391,25 @@ def main() -> int:
     base_counts, base_checks = baseline_phases(
         torch, root, train_root, work, k, n_frames, reset, counts)
 
+    # q: the per-frame trainer's --resume after a real SIGTERM,
+    # --usetwodata, --refrng and --profile_dir; r: demo.py; s: vc_perclip
+    # over phase a's PNGs; t: test_clip --torch_load, exact and bucketed
+    with deterministic_algorithms(torch):
+        q_counts, q_checks = resume_phases(torch, work, k, hw, reset, counts)
+    demo_counts, demo_check = demo_phase(torch, root, work, raft_ckpt,
+                                         reset, counts)
+    from cvpr2021_vspw_implement_tpu_torch import vc_perclip
+    vc = vc_perclip.main(["--dataroot", root, "--predroot", preds,
+                          "--clip_num", "8"])
+    print(f"vc_perclip --clip_num 8 over phase a's PNGs: VC8 {vc:.6f} (the "
+          f"raw masks; test_clip's VC {metrics['VC']:.6f} reads the "
+          f"remapped labels)")
+    if not 0 <= vc <= 1:
+        raise SystemExit(f"vc_perclip: {vc}")
+    tl_counts = torch_load_phase(torch, test_clip, root, work, k, preset,
+                                 per_frame, n_frames, reset, counts, pngs,
+                                 preds, preds_b)
+
     # the port's bench, quick: N = 4 frames, M = 2 windows, K = 2 steps,
     # P = 2 pairs, at full width and resolution; it prints its JSON line
     reset()
@@ -3967,7 +4427,8 @@ def main() -> int:
                "eval_bucketed": eval_b_counts, "tc_bucketed": tc_b_counts,
                "clip_psp": psp_counts, "etc": etc_counts, **train_counts,
                **window_counts, **frame_counts, **ocr_counts, **td_counts,
-               **hr_counts, **base_counts, "bench": bench_counts}
+               **hr_counts, **base_counts, **q_counts, "demo": demo_counts,
+               **tl_counts, "bench": bench_counts}
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]]
                                    for path, c in by_path.items()}
@@ -4050,6 +4511,8 @@ def main() -> int:
                       "tdnet_nonlocal3d_bucketed_vs_exact": td_checks,
                       "hrnet_ocrnet": hr_checks,
                       "frame_baselines": base_checks,
+                      "frame_restart_flags": q_checks, "demo": demo_check,
+                      "vc_perclip": vc,
                       "frame_train": frame_train, "loader": loader,
                       "b1_reread": b1_reread,
                       "update_block_routes": routes, "ptxas": ptxas,

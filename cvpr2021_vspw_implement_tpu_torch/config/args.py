@@ -72,7 +72,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     add_common_args(parser)
     parser.add_argument("--multi_scale", type=str2bool, default=True)
     parser.add_argument("--refrng", type=str2bool, default=False,
-                        help="not ported yet (raises)")
+                        help="draw the augmentation from the global numpy "
+                             "and random streams in the reference's call "
+                             "order (training-curve reproduction)")
     parser.add_argument("--train_filter", type=str2bool, default=False,
                         help="crop 480x720 instead of --cropsize")
     parser.add_argument("--use_clipdataset", type=str2bool, default=False,
@@ -84,9 +86,11 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_float16", type=str2bool, default=False,
                         help="not ported yet (raises)")
     parser.add_argument("--resume", type=str2bool, default=False,
-                        help="not ported yet (raises)")
+                        help="resume from the newest checkpoint in DIR: an "
+                             "epoch's or a preemption's")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="not ported yet (raises)")
+                        help="write a torch.profiler Chrome trace of the "
+                             "first training steps into this directory")
     return parser
 
 
@@ -131,10 +135,7 @@ def build_eval_parser() -> argparse.ArgumentParser:
 
 
 #: flag → (the value that means "off", the ROADMAP Queue A item porting it)
-UNPORTED_FLAGS = {
-    "usetwodata": (False, 7), "resume": (False, 7), "use_float16": (False, 7),
-    "refrng": (False, 5), "serve_dtype": ("bf16", 9), "profile_dir": ("", 8),
-}
+UNPORTED_FLAGS = {"use_float16": (False, 9), "serve_dtype": ("bf16", 9)}
 
 
 def refuse_unported(args) -> None:
@@ -154,6 +155,8 @@ def build_train_clip_parser() -> argparse.ArgumentParser:
         description="Video segmentation training (PyTorch port)")
     add_common_args(parser)
     parser.add_argument("--multi_scale", type=str2bool, default=False)
+    parser.add_argument("--refrng", type=str2bool, default=False,
+                        help="reference-RNG-compatible augmentation draws")
     parser.add_argument("--clip_num", type=int, default=5)
     parser.add_argument("--dilation_num", type=int, default=3)
     parser.add_argument("--clip_up", type=str2bool, default=False)

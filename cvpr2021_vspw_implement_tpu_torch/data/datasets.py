@@ -15,12 +15,17 @@ Frames decode with PIL; uint8 normalization and the label remap take the
 native one-pass ops (``native``).  The clip datasets draw from ``random.Random(seed)`` and
 ``np.random.default_rng(seed)`` in the JAX package's order, and
 ``FrameDataset`` from generators keyed by (seed, epoch, index), so one seed
-gives both packages the same batches.  Outputs are HWC numpy: images
-float32 normalized, labels int32.
+gives both packages the same batches.  With ``args.refrng`` every train
+dataset draws from the global ``random`` and ``np.random`` streams instead,
+in the JAX package's (and the reference's) call order; the loader's one
+worker thread makes those draws.  ``TwoDataset`` (``--usetwodata``) pairs
+each VSPW frame with one drawn from a second root.  Outputs are HWC numpy:
+images float32 normalized, labels int32.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import random
 from typing import Sequence
@@ -82,15 +87,21 @@ def dilation_lists(frames: Sequence[str], num: int) -> list[list[str]]:
 SCALES = (0.8, 1.0, 1.5, 2.0)
 
 
-def _rng_handles(seed):
-    """Per-dataset generators (python-random-like, numpy-random-like)."""
+def _rng_handles(args, seed):
+    """Per-dataset generators (python-random-like, numpy-random-like), or
+    with ``args.refrng`` the global ``random`` and ``np.random`` streams
+    (JAX ``_rng_handles``)."""
+    if getattr(args, "refrng", False):
+        return random, np.random
     return random.Random(seed), np.random.default_rng(seed)
 
 
-def _item_rng_handles(seed, epoch: int, idx: int):
+def _item_rng_handles(args, seed, epoch: int, idx: int):
     """Generators of one item's draws, keyed by (seed, epoch, index): random
-    across epochs, and the same whatever was drawn before (JAX
-    ``_item_rng_handles``)."""
+    across epochs, and the same whatever was drawn before; with
+    ``args.refrng`` the global streams (JAX ``_item_rng_handles``)."""
+    if getattr(args, "refrng", False):
+        return random, np.random
     mix = (seed or 0) * 1_000_003 + epoch * 65_537 + idx
     return random.Random(mix), np.random.default_rng(mix)
 
@@ -166,7 +177,8 @@ class FrameDataset:
         video, name = self.imglist[idx]
         img, mask = load_frame(self.dataroot, video, name,
                                getattr(self.args, "lesslabel", False))
-        rng, nprng = _item_rng_handles(self.seed, self.epoch, int(idx))
+        rng, nprng = _item_rng_handles(self.args, self.seed, self.epoch,
+                                       int(idx))
         if self.split == "train":
             flip = bool(nprng.choice([0, 1]))
             scale = float(nprng.choice(SCALES)) \
@@ -193,7 +205,7 @@ class ClipDataset:
         self.cropsize = (args.cropsize, args.cropsize)
         self.clip_num = args.clip_num
         self.dilation = args.dilation_num
-        self.rng, self.nprng = _rng_handles(seed)
+        self.rng, self.nprng = _rng_handles(args, seed)
         self.videolists = list_videos(self.dataroot, split)
         self.imgdic = {v: list_frames(self.dataroot, v) for v in self.videolists}
 
@@ -263,6 +275,32 @@ class LongClipDataset(ClipDataset):
         anchor = int(self.nprng.choice(len(usable)))
         names = [frames[anchor]] + [frames[anchor + d] for d in self.dilation2]
         return self._load_clip(video, names)
+
+
+class TwoDataset:
+    """A VSPW frame and a frame of a second dataset (``args.dataroot2``, the
+    same layout) per item (JAX ``TwoDataset``; reference TwoDataset,
+    dataset2.py:1052-1242): item ``idx`` of the primary ``FrameDataset``,
+    then an index drawn by the dataset's own ``default_rng(seed)``, a
+    stateful stream as JAX's, then that item of the secondary one.  Neither
+    is given an epoch: the JAX loader finds no ``set_epoch`` here, so both
+    keep epoch 0.  :func:`data.loader.collate_two_frames` batches them."""
+
+    def __init__(self, args, split: str = "train", seed: int | None = None):
+        self.primary = FrameDataset(args, split, seed)
+        args2 = copy.copy(args)
+        args2.dataroot = args.dataroot2
+        self.secondary = FrameDataset(args2, split, seed)
+        self.nprng = np.random.default_rng(seed)
+        self.cropsize = self.primary.cropsize
+
+    def __len__(self):
+        return len(self.primary)
+
+    def __getitem__(self, idx):
+        first = self.primary[idx]
+        j = int(self.nprng.choice(len(self.secondary)))
+        return first, self.secondary[j]
 
 
 class TestFrameDataset:

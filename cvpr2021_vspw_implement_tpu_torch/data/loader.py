@@ -86,8 +86,17 @@ class PrefetchLoader:
                     raise payload
                 yield payload
         finally:
-            # a consumer that stops early releases the worker
+            # a consumer that stops early releases the worker, which is gone
+            # when the pass ends (nothing draws behind a returned trainer)
             stop.set()
+            thread.join()
+
+
+def collate_two_frames(items):
+    """``TwoDataset`` items ((img, label), (img2, label2)) → one batch of 2N
+    frames, the N primary ones first (JAX train.py's ``--usetwodata``
+    collate)."""
+    return collate_frames([it[0] for it in items] + [it[1] for it in items])
 
 
 def collate_frames(items):

@@ -46,7 +46,7 @@ ENCODER_HEADS = {HRNetV2: HRNET_HEADS,
                  MobileNetV2Dilated: ("features.18", "classifier")}
 
 
-def _renamed(state_dict, heads=None, drop=()) -> dict:
+def reference_renamed(state_dict, heads=None, drop=()) -> dict:
     """``state_dict`` without the ``module.`` prefix, the
     ``num_batches_tracked`` counters and the entries under a name of
     ``drop``, the first name component mapped through ``heads``."""
@@ -91,7 +91,8 @@ def load_reference_weights(model, cfg, encoder: str = "", decoder: str = "",
         drop = ENCODER_HEADS.get(type(module), ()) \
             if part == "encoder" else ()
         missing, unexpected = module.load_state_dict(
-            _renamed(torch.load(path, map_location="cpu"), heads, drop),
+            reference_renamed(torch.load(path, map_location="cpu"), heads,
+                              drop),
             strict=False)
         missing = [k for k in missing if not k.endswith("num_batches_tracked")]
         if strict and (missing or unexpected):

@@ -36,7 +36,10 @@ Global and per-video mIoU, VC, and optional
 palette PNG dumps (``--is_save``).  Flags keep the JAX CLI's names.
 ``--load`` takes a port checkpoint (``torch.save`` of the model's
 ``state_dict``, or the trainer's ``model_epoch_N.pth``); without it the
-weights are a seeded random init.
+weights are a seeded random init.  ``--torch_load`` loads a reference
+fused clip-model ``.pth`` (the reference's run scripts pass it) over them,
+for the clip trainer's methods, which the JAX CLI imports; any other
+method is refused by name.
 
     python -m cvpr2021_vspw_implement_tpu_torch.test_clip \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup_clip.yaml \\
@@ -56,7 +59,7 @@ from PIL import Image
 
 from .config import check_compute_dtype
 from .config import cfg as default_cfg
-from .config.args import postprocess_args
+from .config.args import TEMPORAL_METHODS, postprocess_args
 from .data import (TestClipDataset, TestFrameDataset, TestLongClipDataset,
                    list_videos)
 from .methods import build_method
@@ -65,6 +68,7 @@ from .models.layers import init_weights
 from .models.segmentation import (inference_pred, inference_pred_rt,
                                   inference_probs, inference_probs_rt)
 from .ops.masked import bucket_hw, feature_valid, pad_to
+from .pretrained import reference_renamed
 from .serving import (ClipOCRBucketEngine, ClipOCRStreamer,
                       ClipPSPBucketEngine, ClipPSPStreamer, ExactShapeEngine,
                       NetWarpBucketEngine, NetWarpStreamer, TDNetStreamer,
@@ -99,6 +103,9 @@ def build_eval_clip_parser():
     p.add_argument("--load", type=str, default="",
                    help="port checkpoint: torch.save of the state_dict, or "
                         "a checkpoint of train_clip")
+    p.add_argument("--torch_load", type=str, default="",
+                   help="reference fused clip-model .pth of a clip "
+                        "trainer's method, loaded over the seeded init")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init when --load is not given")
     p.add_argument("--saveroot", type=str, default="")
@@ -146,14 +153,42 @@ def build_eval_clip_parser():
     return p
 
 
-def build_model(cfg, args, device) -> torch.nn.Module:
-    model, _ = build_method(getattr(args, "method", "clip_psp"), cfg, args)
+def build_model(cfg, args, device, logger=None) -> torch.nn.Module:
+    """The method's model on ``device`` in eval mode: ``--load`` (a port
+    checkpoint), else the seeded init, with ``--torch_load`` over it."""
+    method = getattr(args, "method", "clip_psp")
+    torch_load = getattr(args, "torch_load", "")
+    # the clip trainer's methods, whose fused checkpoints JAX imports
+    # (models/import_torch.py ``FUSED_IMPORTERS``)
+    if torch_load and method not in TEMPORAL_METHODS:
+        raise ValueError(f"--torch_load supports {sorted(TEMPORAL_METHODS)} "
+                         f"fused checkpoints, not --method {method}")
+    model, _ = build_method(method, cfg, args)
     if args.load:
         state = torch.load(args.load, map_location="cpu")
         model.load_state_dict(state.get("model", state))
     else:
         init_weights(model, torch.Generator().manual_seed(args.seed))
+    if torch_load:
+        load_fused(model, torch_load, logger)
     return model.to(device).eval()
+
+
+def load_fused(model, path: str, logger=None) -> None:
+    """A reference fused clip-model checkpoint (train_clip2.py:179-189)
+    over ``model`` in place, as JAX's ``merge_variables`` overlays its
+    import: the ``module.`` prefix and ``num_batches_tracked`` go
+    (``pretrained.reference_renamed``); an entry the model has no place for
+    raises, and a parameter the checkpoint lacks keeps its init."""
+    missing, unexpected = model.load_state_dict(
+        reference_renamed(torch.load(path, map_location="cpu")),
+        strict=False)
+    if unexpected:
+        raise KeyError(f"{path}: entries the model lacks: {unexpected}")
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if logger:
+        logger.info(f"imported fused torch checkpoint {path}"
+                    + (f"; kept the init of {missing}" if missing else ""))
 
 
 def _stream(model, ds, dilation2, device, engine=None,
@@ -297,7 +332,7 @@ def evaluate_clip(cfg, args, model=None, logger=None):
     bucket = getattr(args, "width_bucket", 0)
     policy = getattr(args, "eval_policy", "bucketed")
     if model is None:
-        model = build_model(cfg, args, device)
+        model = build_model(cfg, args, device, logger)
     if streaming:
         streamer_cls, bucket_engine = TCB_STREAMERS[args.method]
         dil = args.dilation2

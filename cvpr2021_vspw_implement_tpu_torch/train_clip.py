@@ -15,6 +15,9 @@ decoder``) load reference per-frame checkpoints over the encoder and the
 decoder (pretrained.py), as the paper's recipe starts; checkpoints are
 ``torch.save`` files, every 20 epochs and at the end, and ``--resume_epoch N``
 continues from ``./resume/model_epoch_N.pth`` as the reference does.
+``--refrng`` draws the clips and their augmentation from the global
+``random`` / ``np.random`` streams in the reference's order (``main`` seeds
+``np.random`` as JAX's does).
 
     python -m cvpr2021_vspw_implement_tpu_torch.train_clip \\
         --cfg cvpr2021_vspw_implement_tpu_torch/config/presets/vsp-resnet18dilated-ppm_deepsup_clip.yaml \\
@@ -27,6 +30,7 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
 import torch
 
 from .config import check_compute_dtype
@@ -53,8 +57,8 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
     init_weights(model, torch.Generator().manual_seed(seed))
     apply_pretrained_init(model, cfg, args, logger)
     model.to(device).train()
-    set_dropout_generator(
-        model, torch.Generator(device=device).manual_seed(seed))
+    dropout_rng = torch.Generator(device=device).manual_seed(seed)
+    set_dropout_generator(model, dropout_rng)
 
     ds_cls = LongClipDataset if args.method in LONGCLIP_METHODS else ClipDataset
     dataset = ds_cls(args, "train", seed=seed)
@@ -73,7 +77,7 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
     if args.resume_epoch != 0:
         path = os.path.join("./resume", f"model_epoch_{args.resume_epoch}.pth")
         total_steps, start_epoch = load_checkpoint(path, model, optimizer,
-                                                   scheduler)
+                                                   scheduler, dropout_rng)
         logger.info(f"resume from epoch {args.resume_epoch}")
 
     batch_time, data_time = AverageMeter(), AverageMeter()
@@ -111,7 +115,8 @@ def train_clip(cfg, args, logger=None, max_steps: int | None = None):
         # final epoch is saved as well
         if (epoch + 1) % 20 == 0 or (epoch + 1) == args.totalepoch:
             ckpt = save_checkpoint(args.saveroot or cfg.DIR, model, optimizer,
-                                   scheduler, total_steps, epoch + 1)
+                                   scheduler, total_steps, epoch + 1,
+                                   dropout_rng)
             logger.info(f"saved checkpoint {ckpt}")
         if (epoch + 1) % 20 == 0 and getattr(args, "validation", False):
             validate(cfg, args, model, logger)
@@ -154,6 +159,9 @@ def main(argv=None):
     os.makedirs(cfg.DIR, exist_ok=True)
     with open(os.path.join(cfg.DIR, "config.yaml"), "w") as f:
         f.write(cfg.dump())
+    # the global stream that --refrng draws from, seeded as JAX's
+    # train_clip.py seeds it
+    np.random.seed(cfg.TRAIN.seed if args.seed is None else args.seed)
     return train_clip(cfg, args, logger)
 
 

@@ -1,6 +1,6 @@
 """Segmentation and video-consistency metrics (copies of the JAX package's
-utils/metrics.py: ``Evaluator`` and ``get_common`` in numpy, reference
-utils.py:37-107; ``pixel_acc`` on tensors).
+utils/metrics.py: ``Evaluator``, ``get_common`` and ``video_consistency``
+in numpy, reference utils.py:37-107; ``pixel_acc`` on tensors).
 
 Labels >= num_class (255 after remap) are ignored; mIoU averages over the
 classes present in the ground truth; VC over a window of ``clip_num`` frames
@@ -78,6 +78,23 @@ def get_common(gt_list, pred_list, clip_num: int, h: int, w: int):
         agree = pred_common & gt_common
         denom = gt_common.sum()
         accs.append(agree.sum() / denom if denom else np.nan)
+    return accs
+
+
+def video_consistency(gt_frames: np.ndarray, pred_frames: np.ndarray,
+                      clip_num: int) -> list[float]:
+    """:func:`get_common` over a whole video's stacked [T, H, W] masks,
+    each window compared against its first frame in one pass; empty
+    windows give nan (JAX ``video_consistency``)."""
+    accs = []
+    for i in range(gt_frames.shape[0] - clip_num):
+        gt_common = np.all(gt_frames[i + 1:i + clip_num] == gt_frames[i],
+                           axis=0)
+        pred_common = np.all(pred_frames[i + 1:i + clip_num]
+                             == pred_frames[i], axis=0)
+        denom = gt_common.sum()
+        accs.append((pred_common & gt_common).sum() / denom
+                    if denom else np.nan)
     return accs
 
 

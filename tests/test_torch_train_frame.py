@@ -20,7 +20,9 @@ videos at batch 4, and 1.2e-4 here.
 """
 
 import argparse
+import contextlib
 import os
+import random
 
 import jax
 import numpy as np
@@ -36,10 +38,13 @@ from cvpr2021_vspw_implement_tpu_torch import train as port_train
 from cvpr2021_vspw_implement_tpu_torch.config import cfg as port_default_cfg
 from cvpr2021_vspw_implement_tpu_torch.config.args import UNPORTED_FLAGS
 from cvpr2021_vspw_implement_tpu_torch.convert import load_jax_variables
+from cvpr2021_vspw_implement_tpu_torch.data import datasets as port_datasets
 from cvpr2021_vspw_implement_tpu_torch.data import make_synthetic_vspw
 from cvpr2021_vspw_implement_tpu_torch.models import layers
 from cvpr2021_vspw_implement_tpu_torch.models.builder import ModelBuilder
 from cvpr2021_vspw_implement_tpu_torch.parallel import create_frame_optimizer
+from cvpr2021_vspw_implement_tpu_torch.utils import \
+    checkpoint as port_checkpoint
 from torch_port_util import numpy_tree
 
 K = 5
@@ -184,17 +189,71 @@ def test_train_cli_checkpoint_reads_back(vspw_root, tmp_path):
                                model.state_dict()["decoder.conv_last_.4.bias"])
 
 
+class Reached(Exception):
+    """Raised at the first train step of a run whose flag reached its
+    code."""
+
+
 @pytest.mark.parametrize("flag,value", [
     ("--usetwodata", "true"), ("--resume", "true"), ("--use_float16", "true"),
     ("--refrng", "true"), ("--profile_dir", "prof")])
-def test_train_refuses_unported_flags(vspw_root, tmp_path, flag, value):
-    item = UNPORTED_FLAGS[flag[2:]][1]
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag} .*ROADMAP Queue A item {item}"):
-        port_train.main(["--cfg", PORT_PRESET, "--dataroot", vspw_root,
-                         "--device", "cpu", flag, value,
-                         "DIR", str(tmp_path / "ckpt")])
-    assert not (tmp_path / "ckpt").exists()
+def test_train_refuses_unported_flags(vspw_root, tmp_path, monkeypatch,
+                                      flag, value):
+    """``--use_float16`` is refused before anything is written, naming the
+    ROADMAP item that ports it (9).  The other four flags, refused until
+    they were ported, are accepted and reach their code; the run stops at
+    its first step: ``--usetwodata`` gives a batch of 2 x 8 frames,
+    ``--resume`` looks for the newest checkpoint in DIR, ``--refrng`` makes
+    the items draw from the global streams, ``--profile_dir`` traces."""
+    argv = ["--cfg", PORT_PRESET, "--dataroot", vspw_root, "--num_class",
+            str(K), "--batchsize", "8", "--cropsize", "48", "--trainfps",
+            "15", "--device", "cpu", flag, value,
+            "DIR", str(tmp_path / "ckpt")]
+    if flag == "--use_float16":
+        item = UNPORTED_FLAGS[flag[2:]][1]
+        assert item == 9
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag} .*ROADMAP Queue A item {item}"):
+            port_train.main(argv)
+        assert not (tmp_path / "ckpt").exists()
+        return
+    seen = {}
+
+    def record(fn):
+        def recorded(*a):
+            seen[flag] = fn(*a)
+            return seen[flag]
+        return recorded
+
+    if flag == "--usetwodata":
+        argv[-2:-2] = ["--dataroot2", vspw_root]
+    elif flag == "--resume":
+        monkeypatch.setattr(port_checkpoint, "newest_of",
+                            record(port_checkpoint.newest_of))
+    elif flag == "--refrng":
+        monkeypatch.setattr(port_datasets, "_item_rng_handles",
+                            record(port_datasets._item_rng_handles))
+    else:
+        def trace(logdir, device):
+            seen[flag] = logdir
+            return contextlib.nullcontext()
+
+        monkeypatch.setattr(port_train, "trace", trace)
+
+    def first_step(model, optimizer, scheduler, batch, loss_fn):
+        seen["batch"] = batch["img"].shape[0]
+        raise Reached
+
+    monkeypatch.setattr(port_train, "train_step", first_step)
+    with pytest.raises(Reached):
+        port_train.main(argv)
+    if flag == "--usetwodata":
+        assert seen["batch"] == 16
+    else:
+        assert seen["batch"] == 8
+        want = {"--resume": None, "--refrng": (random, np.random),
+                "--profile_dir": "prof"}[flag]
+        assert seen[flag] == want
 
 
 def test_eval_refuses_int8_and_unknown_archs(vspw_root):
